@@ -15,7 +15,10 @@ setup(
         "(DOWNPOUR, ADAG, EASGD/AEASGD/EAMSGD, DynSGD), partitioned-dataset "
         "pipelines, and batch inference on JAX/XLA"
     ),
-    packages=find_packages(include=["distkeras_tpu", "distkeras_tpu.*"]),
+    packages=find_packages(include=["distkeras_tpu", "distkeras_tpu.*",
+                                    "distkeras_torch", "distkeras_torch.*"]),
+    # the PyTorch/CUDA port builds its kernels from these at first use
+    package_data={"distkeras_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         # floors match the APIs the code depends on: top-level

@@ -1,0 +1,83 @@
+"""Import hygiene of the port: importing every ``distkeras_torch``
+module loads no ``jax``, ``flax`` or ``distkeras_tpu`` module (checked
+in a fresh interpreter, since this test process imports both packages),
+and ``chip_smoke.py`` imports none of them either (checked on its
+syntax tree). Importing a module builds no kernel and needs no card."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "flax", "distkeras_tpu")
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import distkeras_torch
+names = ["distkeras_torch"]
+for m in pkgutil.walk_packages(distkeras_torch.__path__, "distkeras_torch."):
+    names.append(m.name)
+for n in names:
+    importlib.import_module(n)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "distkeras_tpu"))
+from distkeras_torch.kernels import build
+print(json.dumps({"modules": names, "bad": bad,
+                  "built": build._loaded is not None}))
+"""
+
+
+def test_port_modules_import_no_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    import json
+
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    assert not res["built"]
+    for must in ("distkeras_torch.serving.engine",
+                 "distkeras_torch.models.transformer",
+                 "distkeras_torch.ops.paged_attention",
+                 "distkeras_torch.ops.splash_prefill",
+                 "distkeras_torch.bridge",
+                 "distkeras_torch.kernels.build"):
+        assert must in res["modules"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", None) == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+def test_chip_smoke_imports_no_jax():
+    roots = _imported_roots(os.path.join(ROOT, "chip_smoke.py"))
+    assert "distkeras_torch" in roots
+    assert not roots & set(FORBIDDEN)
+
+
+def test_port_sources_import_no_jax():
+    """The same check over every port source file, including imports
+    inside functions that the probe above never runs."""
+    pkg = os.path.join(ROOT, "distkeras_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                roots = _imported_roots(os.path.join(dirpath, f))
+                assert not roots & set(FORBIDDEN), f
