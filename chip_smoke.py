@@ -9,7 +9,8 @@ Phases (any failure exits non-zero):
 
 1. **Environment + build.** The card's name and power limit as
    ``nvidia-smi`` reports them, the torch / CUDA / nvcc versions, and the
-   time to build both hand-written kernels from ``distkeras_torch/csrc``.
+   time to build the hand-written kernels (three sources, one ``nvcc``
+   each, in parallel) from ``distkeras_torch/csrc``.
 2. **Kernels.** Each kernel against its plain PyTorch version on the
    card at the serving path's shapes — paged attention (8 rows, T in
    {1, 64}, H=8, Hk=2, hd=256, 16-token pages, 128 pages per row, bf16
@@ -36,6 +37,29 @@ Phases (any failure exits non-zero):
 4. **Exact.** A small f32 model (d256, 4 layers, GQA, int8 cache) with
    the kernels on: greedy engine streams on both layouts must equal the
    port's own ``generate()``.
+5. **Training kernels.** The causal flash-attention forward, dq and
+   dk/dv kernels against their plain versions (dense, f32, from the same
+   bf16 inputs; the backward's plain version takes the kernel's own
+   ``out``/``lse``) at the flagship attention shape [8, 2048, 8, 256]
+   and at a ragged T=1000: O within 1e-2 abs (v drawn at std 0.5, so
+   |O| < 2 and bf16's output rounding stays under 4e-3), lse within
+   1e-3 abs, each gradient within 2e-2 of the plain version's max abs
+   value. Times of each kernel, its plain version and the library
+   yardstick (``F.scaled_dot_product_attention(is_causal=True)``: its
+   forward beside the forward kernel, its forward + backward beside
+   fwd + dq + dk/dv), with the bound from this run's exact causal count.
+6. **Training at full width.** The flagship training step of the
+   reference's ``lm_bench`` (d_model 2048, 8 heads of 256, 8 layers,
+   vocab 8192, bf16, sinusoidal, MHA; T=2048, B=8; AdamW lr 3e-4 with a
+   bf16 first moment; fused chunked CE) from seeded weights: one
+   warm-up and one timed window of W=5 steps on one fixed token batch.
+   Every loss finite, the second window's mean below the first's, each
+   kernel launched 8 layers x 10 steps times (counts zeroed just before),
+   and an ``attention='blocked'`` twin from the same weights on the same
+   batches within 5e-2 of every loss. Prints ms/step, tok/s, peak
+   memory and MFU (analytic count, ``distkeras_torch.bench``).
+7. **LMTrainer.** One epoch of ``LMTrainer`` over 40 in-memory rows at
+   the same width and depth (batch 8): a finite history of 5 steps.
 
 Output: JSON lines per phase, the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and as the last line
@@ -68,6 +92,15 @@ PROMPT_LENS = (96, 1024, 300, 640, 128, 800, 512, 200, 1000, 296, 700, 150,
                420, 960, 560, 333)
 EXACT = dict(vocab_size=512, d_model=256, num_heads=4, num_layers=4,
              max_len=256, pos_emb="rope", num_kv_heads=2, cache_dtype="int8")
+# the training kernels' main-path shape and a ragged one (phase 5)
+CAUSAL = dict(B=8, H=8, hd=256, T=(2048, 1000))
+CAUSAL_TOL = dict(out=1e-2, lse=1e-3, grad=2e-2)
+# the reference's lm_bench step (bench.py:130-194), phases 6 and 7
+TRAIN = dict(vocab_size=8192, d_model=2048, num_heads=8, num_layers=8,
+             max_len=2048)
+TRAIN_B, TRAIN_W, TRAIN_LR = 8, 5, 3e-4
+TRAIN_LOSS_TOL = 5e-2  # kernel path vs the blocked twin, per step
+TRAINER_ROWS = 40
 
 
 def _fail(msg):
@@ -275,6 +308,205 @@ def splash_cases(torch, F, sp):
     return cases
 
 
+# -- phase 5: the training kernels against their plain versions ---------
+
+
+def causal_cases(torch, F, fa):
+    B, H, hd = CAUSAL["B"], CAUSAL["H"], CAUSAL["hd"]
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    cases = []
+    for T in CAUSAL["T"]:
+        shape = (B, T, H, hd)
+        q, k, do = (torch.randn(shape, generator=gen, device=DEV)
+                    .to(torch.bfloat16) for _ in range(3))
+        v = (0.5 * torch.randn(shape, generator=gen, device=DEV)).to(
+            torch.bfloat16)
+        out, lse = fa.causal_attention_fwd(q, k, v)
+        dq = fa.causal_attention_dq(q, k, v, out, lse, do)
+        dk, dv = fa.causal_attention_dkv(q, k, v, out, lse, do)
+        sync(torch)
+        ref_out, ref_lse = fa.causal_attention_reference(q, k, v)
+        grads = fa.causal_attention_bwd_reference(q, k, v, out, lse, do)
+        for name, t in (("out", out), ("dq", dq), ("dk", dk), ("dv", dv)):
+            if not torch.isfinite(t.float()).all():
+                raise AssertionError(f"causal T={T}: non-finite {name}")
+        case = {"T": T, "out_abs_err": (out.float() - ref_out).abs().max()
+                .item(),
+                "lse_abs_err": (lse - ref_lse).abs().max().item()}
+        for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
+            case[f"{name}_rel_err"] = ((got.float() - ref).abs().max()
+                                       / ref.abs().max()).item()
+            case[f"{name}_abs_err"] = (got.float() - ref).abs().max().item()
+        bad = [n for n, tol in (("out_abs_err", CAUSAL_TOL["out"]),
+                                ("lse_abs_err", CAUSAL_TOL["lse"]),
+                                ("dq_rel_err", CAUSAL_TOL["grad"]),
+                                ("dk_rel_err", CAUSAL_TOL["grad"]),
+                                ("dv_rel_err", CAUSAL_TOL["grad"]))
+               if not case[n] <= tol]
+        if bad:
+            raise AssertionError(f"causal T={T}: {bad} over tolerance "
+                                 f"{CAUSAL_TOL}: {case}")
+        del ref_out, ref_lse, grads
+        if T == CAUSAL["T"][0]:
+            case.update(causal_times(torch, F, fa, q, k, v, out, lse, do))
+        cases.append(case)
+    return cases
+
+
+def causal_times(torch, F, fa, q, k, v, out, lse, do):
+    """Kernel, plain and library times with their bounds at one shape.
+    The bound counts the exact causal work of these inputs (query row t
+    attends t + 1 keys) and each tensor read or written once."""
+    B, T, H, hd = q.shape
+    pairs = B * H * T * (T + 1) // 2
+    el = q.numel()
+    row = 2 * el  # one bf16 [B, T, H, hd] tensor, in bytes
+    lse_b = B * H * T * 4
+    t = {}
+    t["fwd_ms"] = time_ms(torch, lambda: fa.causal_attention_fwd(q, k, v))
+    t["dq_ms"] = time_ms(torch, lambda: fa.causal_attention_dq(
+        q, k, v, out, lse, do))
+    t["dkv_ms"] = time_ms(torch, lambda: fa.causal_attention_dkv(
+        q, k, v, out, lse, do))
+    t["fwd_plain_ms"] = time_ms(
+        torch, lambda: fa.causal_attention_reference(q, k, v), iters=5)
+    t["dq_plain_ms"] = time_ms(torch, lambda: fa.causal_attention_dq_reference(
+        q, k, v, out, lse, do), iters=5)
+    t["dkv_plain_ms"] = time_ms(
+        torch, lambda: fa.causal_attention_dkv_reference(
+            q, k, v, out, lse, do), iters=5)
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+    t["fwd_library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        torch.autograd.grad(o, (qh, kh, vh), doh)
+
+    t["fwd_bwd_library_ms"] = time_ms(torch, sdpa_fwd_bwd)
+    t["fwd_bwd_ms"] = t["fwd_ms"] + t["dq_ms"] + t["dkv_ms"]
+    for name, mms, nbytes in (
+            ("fwd", 2, 4 * row + lse_b),
+            ("dq", 3, 6 * row + lse_b),
+            ("dkv", 4, 7 * row + lse_b)):
+        t[f"{name}_bound_ms"], t[f"{name}_bound_by"] = bound(
+            nbytes, mms * 2.0 * pairs * hd, "bfloat16")
+    return t
+
+
+# -- phase 6: the flagship training step at full width --------------------
+
+
+def train_windows(torch, np, dk, fa, attention, tokens):
+    """Two W-step windows of the port's LM step from the seeded weights:
+    (losses, warm-up s, timed s, kernel launches, peak MB)."""
+    model = dk["get_model"]("transformer_lm", dtype=torch.bfloat16,
+                            device=DEV, seed=0, attention=attention,
+                            **TRAIN)
+    step = dk["make_lm_train_step"](
+        model, dk["get_optimizer"]("adamw", TRAIN_LR,
+                                   mu_dtype=torch.bfloat16), window=True)
+    sync(torch)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    counters = (fa.causal_attention_fwd, fa.causal_attention_dq,
+                fa.causal_attention_dkv)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    first = step(tokens)
+    sync(torch)
+    t1 = time.perf_counter()
+    second = step(tokens)
+    sync(torch)
+    t2 = time.perf_counter()
+    launches = [c.launches for c in counters]
+    peak = (torch.cuda.max_memory_allocated() / 2**20 if DEV == "cuda"
+            else None)
+    losses = torch.cat([first, second]).float().cpu().numpy()
+    del step, model
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return losses, t1 - t0, t2 - t1, launches, peak
+
+
+def training_phase(torch, np, dk, fa):
+    V, D, H, L = (TRAIN[k] for k in ("vocab_size", "d_model", "num_heads",
+                                     "num_layers"))
+    B, T, W = TRAIN_B, TRAIN["max_len"], TRAIN_W
+    tokens = torch.as_tensor(np.random.default_rng(11).integers(
+        0, V, size=(W, B, T)), device=DEV)
+    hd = D // H
+    if not fa.preferred(T, hd, torch.bfloat16, DEV):
+        raise AssertionError("the flagship shape does not select the "
+                             "causal kernels")
+    losses, warm_s, timed_s, launches, peak = train_windows(
+        torch, np, dk, fa, "standard", tokens)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"training losses not finite: {losses}")
+    if not losses[W:].mean() < losses[:W].mean():
+        raise AssertionError(f"second window's mean loss did not fall: "
+                             f"{losses}")
+    want = L * 2 * W
+    names = ("causal_attention_fwd", "causal_attention_dq",
+             "causal_attention_dkv")
+    if launches != [want] * 3:
+        raise AssertionError(f"kernel launches {dict(zip(names, launches))}"
+                             f" != {want} each (layers x steps)")
+    twin, twin_warm_s, twin_timed_s, twin_launches, twin_peak = (
+        train_windows(torch, np, dk, fa, "blocked", tokens))
+    if any(twin_launches):
+        raise AssertionError("the blocked twin launched a causal kernel")
+    gap = float(np.abs(losses - twin).max())
+    if not gap <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"kernel vs blocked losses differ by {gap} > "
+                             f"{TRAIN_LOSS_TOL}: {losses} vs {twin}")
+    flops = dk["lm_step_flops"](D, H, L, V, B, T, fa.BLOCK)
+    peak_flops = dk["peak_flops"](torch.cuda.get_device_name(0)
+                                  if DEV == "cuda" else "")
+    ms = timed_s * 1e3 / W
+    return {
+        "config": f"d{D}/h{H}/L{L}/v{V}/T{T}/b{B}-bf16-pallas-causal"
+                  f"{fa.BLOCK}-adamw-mubf16-fusedce",
+        "losses": losses.tolist(), "blocked_losses": twin.tolist(),
+        "max_loss_gap_vs_blocked": gap, "tol": TRAIN_LOSS_TOL,
+        "warmup_window_s": warm_s, "ms_per_step": ms,
+        "tok_per_s": W * B * T / timed_s,
+        "blocked_ms_per_step": twin_timed_s * 1e3 / W,
+        "peak_device_mb": peak, "blocked_peak_device_mb": twin_peak,
+        "flops_per_step": flops,
+        "mfu": (flops / (ms / 1e3) / peak_flops) if peak_flops else None,
+        "mfu_method": "analytic: 6*matmul_params*tokens + causal-kernel "
+                      "tiles (distkeras_torch.bench.lm_step_flops) over "
+                      "the bf16 peak of the device",
+        "launches": dict(zip(names, launches)),
+    }
+
+
+def trainer_phase(torch, np, dk):
+    model = dk["get_model"]("transformer_lm", dtype=torch.bfloat16,
+                            device=DEV, seed=1, **TRAIN)
+    rows = np.random.default_rng(12).integers(
+        0, TRAIN["vocab_size"], size=(TRAINER_ROWS, TRAIN["max_len"]))
+    ds = dk["PartitionedDataset"].from_arrays({"tokens": rows})
+    trainer = dk["LMTrainer"](model, worker_optimizer="adamw",
+                              learning_rate=TRAIN_LR, batch_size=TRAIN_B)
+    t0 = time.perf_counter()
+    trainer.train(ds)
+    wall = time.perf_counter() - t0
+    hist = [h["loss"] for h in trainer.history]
+    steps = TRAINER_ROWS // TRAIN_B
+    if len(hist) != steps or not np.isfinite(hist).all():
+        raise AssertionError(f"LMTrainer history {hist}: want {steps} "
+                             f"finite losses")
+    del trainer, model
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return {"steps": steps, "history": hist, "wall_s": wall}
+
+
 # -- phase 3: serving at full width ----------------------------------------
 
 
@@ -434,20 +666,30 @@ def main() -> int:
     sys.path.insert(0, here)
     try:
         from distkeras_torch import telemetry
-        from distkeras_torch.bench import nvidia_smi, serving_requests
+        from distkeras_torch.bench import (lm_step_flops, nvidia_smi,
+                                           peak_flops, serving_requests)
+        from distkeras_torch.data.dataset import PartitionedDataset
         from distkeras_torch.kernels import build
         from distkeras_torch.models import get_model
         from distkeras_torch.models.transformer import generate
         from distkeras_torch.ops import paged_attention as pa
+        from distkeras_torch.ops import pallas_attention as fa
         from distkeras_torch.ops import splash_prefill as sp
+        from distkeras_torch.parallel.spmd import make_lm_train_step
         from distkeras_torch.serving import ServingEngine
+        from distkeras_torch.trainers import LMTrainer
+        from distkeras_torch.utils.losses import get_optimizer
     except ImportError as e:
         return _fail(f"run from a checkout of the repository ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dk = {"telemetry": telemetry, "get_model": get_model,
           "generate": generate, "ServingEngine": ServingEngine,
-          "serving_requests": serving_requests}
+          "serving_requests": serving_requests,
+          "make_lm_train_step": make_lm_train_step,
+          "get_optimizer": get_optimizer, "lm_step_flops": lm_step_flops,
+          "peak_flops": peak_flops, "LMTrainer": LMTrainer,
+          "PartitionedDataset": PartitionedDataset}
 
     smi = nvidia_smi()
     kern = build.load()
@@ -475,6 +717,22 @@ def main() -> int:
     exact["seconds"] = time.perf_counter() - t0
     _emit({"exact_phase": exact})
 
+    t0 = time.perf_counter()
+    causal = causal_cases(torch, F, fa)
+    _emit({"training_kernel_phase": {"causal_attention": causal,
+                                     "tol": CAUSAL_TOL,
+                                     "seconds": time.perf_counter() - t0}})
+
+    t0 = time.perf_counter()
+    training = training_phase(torch, np, dk, fa)
+    training["seconds"] = time.perf_counter() - t0
+    _emit({"training_phase": training})
+
+    t0 = time.perf_counter()
+    trainer = trainer_phase(torch, np, dk)
+    trainer["seconds"] = time.perf_counter() - t0
+    _emit({"lm_trainer_phase": trainer})
+
     main_paged = next(c for c in paged if c["T"] == 64 and c["pool"] == "int8")
     main_splash = next(c for c in splash if c["dtype"] == "bf16")
     rows = []
@@ -491,6 +749,24 @@ def main() -> int:
             "ms": case["ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
             "library_ms": case["library_ms"],
+        })
+    main_causal = causal[0]
+    for kern, line, err_keys, lib in (
+            ("fwd", 100, ("out_abs_err",), main_causal["fwd_library_ms"]),
+            ("dq", 193, ("dq_abs_err",), None),
+            ("dkv", 240, ("dk_abs_err", "dv_abs_err"), None)):
+        name = f"causal_attention_{kern}"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "distkeras_torch/csrc/causal_attention.cu",
+            "replaces": f"distkeras_tpu/ops/pallas_attention.py:{line}",
+            "launches": training["launches"][name],
+            "max_abs_err": max(c[k] for c in causal for k in err_keys),
+            "ms": main_causal[f"{kern}_ms"],
+            "plain_ms": main_causal[f"{kern}_plain_ms"],
+            "bound_ms": main_causal[f"{kern}_bound_ms"],
+            "bound_by": main_causal[f"{kern}_bound_by"],
+            "library_ms": lib,
         })
     print(smi, flush=True)
     _emit({"kernels": rows})

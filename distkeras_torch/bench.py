@@ -1,4 +1,5 @@
-"""Where a full-width serving run's device time goes, on one CUDA card.
+"""Where a full-width serving run's device time goes, and how fast the
+flagship trains, on one CUDA card.
 
     python -m distkeras_torch.bench
 
@@ -14,6 +15,17 @@ slot): wall time, ticks,
 device busy time (the sum of kernel times on the engine's one stream)
 and idle share, device time grouped by what ran (the two attention
 kernels, matrix products, everything else), and the top kernels.
+
+The last line is the LM training line (:func:`lm_bench`): tok/s of the
+flagship training step — the reference's ``lm_bench`` (bench.py:130):
+d2048/h8/L8/v8192, T=2048, B=8, bf16, AdamW with a bf16 first moment,
+fused chunked CE, windows of W=5 steps — labelled with the attention
+the model's own ``preferred()`` gate selects, and its MFU against the
+bf16 peak of the reported device from the analytic count of
+:func:`lm_step_flops`, and where one more window's device time goes
+under ``torch.profiler`` (``lm_profile_window``: busy time, idle share,
+device time by kernel group and by named range such as
+``Optimizer.step``, top kernels).
 
 ``chip_smoke.py`` drives the same workload to prove the path; this
 script only measures it. It needs the card and raises without one.
@@ -38,6 +50,14 @@ FLAGSHIP = dict(vocab_size=8192, d_model=2048, num_heads=8, num_layers=8,
 SYSTEM_PREFIX = 256
 PROMPT_LENS = (96, 1024, 300, 640, 128, 800, 512, 200, 1000, 296, 700, 150,
                420, 960, 560, 333)
+# the reference's lm_bench configuration (bench.py:130-157)
+LM_FLAGSHIP = dict(vocab_size=8192, d_model=2048, num_heads=8, num_layers=8,
+                   max_len=2048)
+LM_BATCH, LM_WINDOW = 8, 5
+# dense bf16 tensor-core peak by device name (NVIDIA's data sheets, SXM
+# parts, no sparsity), keyed by name prefix as the reference's bench.py
+# keys PEAK_FLOPS by TPU kind
+PEAK_FLOPS = {"NVIDIA H100": 989e12, "NVIDIA H200": 989e12}
 _SAMPLERS = (dict(), dict(temperature=0.8, top_k=50),
              dict(temperature=1.0, top_p=0.9), dict(),
              dict(temperature=0.7, top_k=20, top_p=0.95))
@@ -74,11 +94,106 @@ def nvidia_smi() -> str:
     return lines[0] if lines else "not available"
 
 
+def peak_flops(device_name: str):
+    """The bf16 peak of a device by name, or None when unknown."""
+    for kind, peak in PEAK_FLOPS.items():
+        if device_name.startswith(kind):
+            return peak
+    return None
+
+
+def lm_step_flops(D, H, L, V, B, T, block=64) -> float:
+    """Analytic FLOPs of one training step of the flagship LM.
+
+    - Projections and the vocab head: ``6 * (matmul params) * tokens``
+      (2 forward + 4 backward FLOPs per multiply-add), with ``12 D^2``
+      matmul parameters per layer (qkv, out, the 4x MLP) plus the head's
+      ``D V``; the embedding is a lookup, not a product.
+    - Causal attention as the kernels execute it (the reference's
+      ``_pallas_attn_flops`` convention, bench.py:76-93): per (b*h,
+      query tile i, key tile j <= i) nine ``block x block x hd``
+      products of ``2 block^2 hd`` FLOPs (2 forward, 3 dq, 4 dk/dv),
+      over ``nq (nq + 1) / 2`` tiles of ``block`` rows.
+    Elementwise work (softmax, norms, the optimizer) is not counted."""
+    dense = 6.0 * (L * 12 * D * D + D * V) * B * T
+    nq = -(-T // block)
+    attn = L * B * H * (nq * (nq + 1) // 2) * 9 * 2.0 * block * block * (
+        D // H)
+    return dense + attn
+
+
+def lm_bench(calls: int = 3) -> dict:
+    """Flagship training throughput and MFU on the card (needs one)."""
+    from distkeras_torch.models import get_model
+    from distkeras_torch.ops import pallas_attention as fa
+    from distkeras_torch.parallel.spmd import make_lm_train_step
+    from distkeras_torch.utils.losses import get_optimizer
+
+    model = get_model("transformer_lm", dtype=torch.bfloat16, seed=0,
+                      attention="standard", **LM_FLAGSHIP)
+    V, D, H, L = (LM_FLAGSHIP[k] for k in ("vocab_size", "d_model",
+                                           "num_heads", "num_layers"))
+    B, T, W = LM_BATCH, LM_FLAGSHIP["max_len"], LM_WINDOW
+    toks = torch.as_tensor(
+        np.random.default_rng(0).integers(0, V, size=(W, B, T)),
+        device=model.device)
+    step = make_lm_train_step(
+        model, get_optimizer("adamw", 3e-4, mu_dtype=torch.bfloat16),
+        window=True)
+    float(step(toks)[-1])  # warm-up window
+    dt = float("inf")
+    for _ in range(3):  # best of three blocks of `calls` windows
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            losses = step(toks)
+        final = float(losses[-1])
+        dt = min(dt, time.perf_counter() - t0)
+    if not np.isfinite(final):
+        raise AssertionError(f"flagship LM loss diverged: {final}")
+    hd = D // H
+    # the model's own selection predicate labels what ran
+    kernel = (f"pallas-causal{fa.BLOCK}"
+              if fa.preferred(T, hd, model.dtype, model.device)
+              else "blocked")
+    steps = calls * W
+    name = torch.cuda.get_device_name(0)
+    out = {
+        "lm_tokens_per_sec_per_chip": steps * B * T / dt,
+        "lm_ms_per_step": dt * 1e3 / steps,
+        "lm_config": f"d{D}/h{H}/L{L}/v{V}/T{T}/b{B}-bf16-{kernel}"
+                     f"-adamw-mubf16-fusedce",
+        "device": name, "nvidia_smi": nvidia_smi(),
+    }
+    peak = peak_flops(name)
+    if peak is not None:
+        out["lm_mfu"] = (lm_step_flops(D, H, L, V, B, T, fa.BLOCK) * steps
+                         / dt / peak)
+        out["lm_mfu_method"] = ("analytic: 6*matmul_params*tokens + "
+                                "causal-kernel tiles (lm_step_flops)")
+    # where one window's device time goes (a separate, profiled window:
+    # the profiler's own cost stays out of the timed blocks above)
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(toks)[-1])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out["lm_profile_window"] = dict(steps=W, **_device_summary(prof,
+                                                               wall_ms))
+    return out
+
+
 def _group(name: str) -> str:
+    if "causal_" in name:
+        return "causal_attention"
     if "attn_kernel" in name:  # PAGED=true instantiations are paged
         return ("paged_attention" if ("true>" in name or "Lb1E" in name)
                 else "splash_prefill")
-    if "gemm" in name or "gemv" in name or "cutlass" in name.lower():
+    if ("gemm" in name or "gemv" in name or "nvjet" in name
+            or "cutlass" in name.lower()):
         return "matmul"
     return "other"
 
@@ -109,27 +224,43 @@ def profile_layout(model, requests, paged: bool) -> dict:
         eng.drain(timeout=600)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
+    st = eng.stats()
+    return {"layout": "paged" if paged else "slot",
+            "ticks": st["ticks"], "tokens": st["tokens_generated"],
+            **_device_summary(prof, wall_ms)}
+
+
+def _device_summary(prof, wall_ms: float) -> dict:
+    """Device busy time (the sum of kernel times on the one stream), idle
+    share, device time by :func:`_group` and by named range (such as
+    ``Optimizer.step``), and the top kernels of a ``torch.profiler`` run
+    that took ``wall_ms`` on the host clock."""
+    kernels, ranges = [], {}
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0))
-        if dev_us > 0 and getattr(evt, "device_type", None) is not None \
-                and "CUDA" in str(evt.device_type):
+        if not (dev_us > 0 and getattr(evt, "device_type", None) is not None
+                and "CUDA" in str(evt.device_type)):
+            continue
+        if getattr(evt, "is_user_annotation", False):
+            # a named range (e.g. Optimizer.step) drawn over the kernels
+            # it launched: reported on its own, never added to the busy
+            # time, which would count those kernels twice
+            ranges[evt.key] = dev_us / 1e3
+        else:
             kernels.append((evt.key, dev_us / 1e3, evt.count))
     busy = sum(ms for _, ms, _ in kernels)
     groups: dict = {}
     for name, ms, _ in kernels:
         groups[_group(name)] = groups.get(_group(name), 0.0) + ms
     kernels.sort(key=lambda k: -k[1])
-    st = eng.stats()
     return {
-        "layout": "paged" if paged else "slot",
-        "wall_ms": wall_ms, "ticks": st["ticks"],
-        "tokens": st["tokens_generated"],
+        "wall_ms": wall_ms,
         # None: the profiler recorded no device time (not measured)
         "device_busy_ms": busy or None,
         "idle_share": max(0.0, 1.0 - busy / wall_ms) if busy else None,
         "device_ms_by_group": groups,
+        "device_ms_by_range": ranges,
         "top_kernels": [{"name": n[:120], "device_ms": ms, "calls": c}
                         for n, ms, c in kernels[:12]],
     }
@@ -148,6 +279,9 @@ def main() -> int:
     for paged in (True, False):
         print(json.dumps(profile_layout(model, requests, paged)),
               flush=True)
+    del model
+    torch.cuda.empty_cache()
+    print(json.dumps(lm_bench()), flush=True)
     return 0
 
 

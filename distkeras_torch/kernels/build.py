@@ -31,16 +31,21 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "distkeras_torch"
-SOURCES = ("paged_attention.cu", "splash_prefill.cu")
+SOURCES = ("paged_attention.cu", "splash_prefill.cu", "causal_attention.cu")
 HEADERS = ("attn_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures: every pointer and the stream as c_void_p
+_ll = ctypes.c_longlong
+# C signatures: every pointer and the stream as c_void_p, strides as
+# 64-bit integers
 _SIGNATURES = {
     "dk_paged_attention": [_vp] * 8 + [_i] * 9 + [_f, _vp],
     "dk_splash_prefill": [_vp] * 5 + [_i] * 7 + [_f, _vp],
+    "dk_causal_attention_fwd": [_vp] * 5 + [_i] * 4 + [_ll, _ll, _f, _vp],
+    "dk_causal_attention_dq": [_vp] * 7 + [_i] * 4 + [_ll, _ll, _f, _vp],
+    "dk_causal_attention_dkv": [_vp] * 8 + [_i] * 4 + [_ll, _ll, _f, _vp],
 }
 
 

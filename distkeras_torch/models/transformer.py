@@ -3,7 +3,7 @@
 A pre-norm decoder-only transformer with the reference's parameter tree
 (module and parameter names mirror the flax tree, so
 :mod:`distkeras_torch.bridge` maps weights both ways by name) and its
-decode paths for the serving engine:
+decode paths for the serving engine, and its training-mode attention:
 
 - **slot cache** (``decode=True``, scalar or per-slot cursors): K/V
   written at each row's cursor, attended with a positions-seen-so-far
@@ -16,7 +16,19 @@ decode paths for the serving engine:
 - ``valid_lens`` chunk semantics: row ``b`` consumes only its first
   ``valid_lens[b]`` tokens; padding writes are dropped (slot) or land in
   the reserved trash block 0 (paged), so chunked prefill leaves the same
-  cache bytes as a monolithic one.
+  cache bytes as a monolithic one;
+- non-decode attention (training, full-sequence scoring): ``'dense'``
+  up to ``T=512``; above it ``'standard'`` takes the hand-written causal
+  flash-attention kernels (:mod:`distkeras_torch.ops.pallas_attention`)
+  where their ``preferred()`` gate passes, else the blocked plain
+  PyTorch op (:mod:`distkeras_torch.ops.flash_attention`);
+  ``remat='block'`` recomputes each block in the backward
+  (``torch.utils.checkpoint``).
+
+Every parameter is stored in f32 whatever the model dtype, as flax
+stores it, and cast to the model dtype at each use: autograd then gives
+f32 gradients of f32 master weights, as ``jax.value_and_grad`` does,
+and the weight bridge round-trips exactly.
 
 PyTorch idiom around the JAX design: parameters live in the module (not
 a separate tree), the decode cache is an explicit :class:`KVCache`
@@ -34,8 +46,7 @@ accumulation and f32 logits.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): ``beam_search`` (A5), :class:`MoeLM` and ``moe_experts`` (A10),
-``remat='block'`` (A4), ``tp_size > 1`` (A10), and the non-decode
-attention modes ``blocked``/``pallas`` (A2, B1) and ``ring`` (A10).
+``tp_size > 1`` (A10) and ``attention='ring'`` (A10).
 """
 
 from __future__ import annotations
@@ -48,9 +59,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
 from distkeras_torch.models.registry import register_model
 from distkeras_torch.ops import paged_attention as _pa
+from distkeras_torch.ops import pallas_attention as _fa
 from distkeras_torch.ops import splash_prefill as _sp
+from distkeras_torch.ops.flash_attention import blocked_causal_attention
 from distkeras_torch.utils.device import resolve_device
 
 _NEG_INF = -1e30
@@ -121,12 +136,13 @@ def _write_kv(put, k, v, quant: bool):
         put("value", v)
 
 
-def _trunc_normal(shape, fan_in, dtype, device, gen):
-    """flax ``variance_scaling(1.0, 'fan_in', 'truncated_normal')``."""
+def _trunc_normal(shape, fan_in, device, gen):
+    """flax ``variance_scaling(1.0, 'fan_in', 'truncated_normal')``, in
+    f32."""
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
     w = torch.empty(shape, dtype=torch.float32, device=device)
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
-    return w.to(dtype)
+    return w
 
 
 class LayerNorm(nn.Module):
@@ -151,19 +167,20 @@ class LayerNorm(nn.Module):
 
 
 class Embed(nn.Module):
-    """flax ``nn.Embed``: the table cast to the model dtype, then a
+    """flax ``nn.Embed``: the f32 table cast to the model dtype, then a
     row lookup."""
 
     def __init__(self, num: int, dim: int, dtype, device, gen):
         super().__init__()
+        self.dtype = dtype
         # flax default_embed_init: variance_scaling(1, 'fan_in', 'normal',
         # out_axis=0) over [num, dim] -> std sqrt(1 / num)
         w = torch.empty((num, dim), dtype=torch.float32, device=device)
         w.normal_(0.0, math.sqrt(1.0 / num), generator=gen)
-        self.embedding = nn.Parameter(w.to(dtype))
+        self.embedding = nn.Parameter(w)
 
     def forward(self, tokens):
-        return F.embedding(tokens.long(), self.embedding)
+        return F.embedding(tokens.long(), self.embedding.to(self.dtype))
 
 
 class TPDenseGeneral(nn.Module):
@@ -171,9 +188,10 @@ class TPDenseGeneral(nn.Module):
     of ``x`` into ``features`` — the reference's ``TPDenseGeneral`` at
     ``tp_size=1``. ``kernel`` keeps the flax shape ``in_shape +
     features`` (so weights bridge by name) and is used as one
-    ``[fan_in, out]`` matrix. JAX keeps parameters in f32 and casts them
-    to the model dtype on every call; storing them in the model dtype
-    once gives the same numbers."""
+    ``[fan_in, out]`` matrix. Kernel and bias are f32 master weights,
+    cast to the model dtype on every call as the reference casts them
+    (a bf16 copy stored in their place would put the optimizer's
+    updates on bf16 weights)."""
 
     def __init__(self, in_shape, features, dtype, device, gen,
                  use_bias: bool = True, tp_size: int = 1):
@@ -187,19 +205,18 @@ class TPDenseGeneral(nn.Module):
         self.dtype = dtype
         self.fan_in = int(np.prod(self.in_shape))
         self.kernel = nn.Parameter(_trunc_normal(
-            self.in_shape + self.features, self.fan_in, dtype, device, gen))
-        self.bias = (nn.Parameter(torch.zeros(self.features, dtype=dtype,
-                                              device=device))
+            self.in_shape + self.features, self.fan_in, device, gen))
+        self.bias = (nn.Parameter(torch.zeros(self.features, device=device))
                      if use_bias else None)
 
     def forward(self, x):
         n = len(self.in_shape)
         lead = tuple(x.shape[:-n])
         xm = x.reshape(lead + (self.fan_in,)).to(self.dtype)
-        y = torch.matmul(xm, self.kernel.reshape(self.fan_in, -1))
-        y = y.reshape(lead + self.features)
+        km = self.kernel.reshape(self.fan_in, -1).to(self.dtype)
+        y = torch.matmul(xm, km).reshape(lead + self.features)
         if self.bias is not None:
-            y = y + self.bias
+            y = y + self.bias.to(self.dtype)
         return y
 
 
@@ -213,12 +230,13 @@ class VocabHead(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.kernel = nn.Parameter(_trunc_normal(
-            (d_model, vocab_size), d_model, dtype, device, gen))
+            (d_model, vocab_size), d_model, device, gen))
         self.bias = nn.Parameter(torch.zeros(vocab_size, device=device))
 
     def forward(self, x):
         x = x.to(self.dtype).to(torch.float32)
-        return torch.matmul(x, self.kernel.to(torch.float32)) + self.bias
+        kernel = self.kernel.to(self.dtype).to(torch.float32)
+        return torch.matmul(x, kernel) + self.bias
 
 
 class KVCache:
@@ -421,33 +439,41 @@ class CausalSelfAttention(nn.Module):
             v = torch.repeat_interleave(v, H // Hk, dim=2)
         mode = cfg.attention
         if mode == "standard":
-            if T > TransformerLM._DENSE_MAX_T:
-                raise NotImplementedError(
-                    f"non-decode attention at T={T} > "
-                    f"{TransformerLM._DENSE_MAX_T} needs the blocked/flash "
-                    f"kernels, not ported yet (ROADMAP A2, B1)")
-            mode = "dense"
-        if mode in ("blocked", "pallas"):
-            raise NotImplementedError(
-                f"attention='{mode}' is not ported yet (ROADMAP A2, B1)")
-        if mode == "ring":
+            if T <= TransformerLM._DENSE_MAX_T:
+                mode = "dense"
+            else:
+                # the kernels skip the masked causal tiles the blocked op
+                # computes; CPU tensors (and shapes the kernels do not
+                # take) keep the blocked op, through the shared predicate
+                mode = ("pallas" if _fa.preferred(T, hd, q.dtype, q.device)
+                        else "blocked")
+        if mode == "pallas":
+            out = _fa.pallas_causal_attention(q, k, v)
+        elif mode == "blocked":
+            out = blocked_causal_attention(q, k, v)
+        elif mode == "dense":
+            out = self._dense_attend(q, k, v)
+        elif mode == "ring":
             raise NotImplementedError(
                 "attention='ring' (sequence parallel) is not ported yet "
                 "(ROADMAP A10)")
-        if mode != "dense":
+        else:
             raise ValueError(
                 f"Unknown attention mode '{cfg.attention}'. "
                 "Known: standard, dense, blocked, pallas, ring")
+        return self.out(out)
+
+    def _dense_attend(self, q, k, v):
+        T, hd = q.shape[1], q.shape[3]
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
         logits = logits * (1.0 / np.sqrt(hd))
         mask = torch.tril(torch.ones((T, T), dtype=torch.bool,
-                                     device=x.device))
+                                     device=q.device))
         logits = torch.where(mask[None, None], logits,
                              torch.full_like(logits, _NEG_INF))
         probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
         probs = probs / probs.sum(dim=-1, keepdim=True)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs.to(self.dtype), v)
-        return self.out(out)
+        return torch.einsum("bhqk,bkhd->bqhd", probs.to(self.dtype), v)
 
 
 class Block(nn.Module):
@@ -534,11 +560,7 @@ class TransformerLM(nn.Module):
         self._set_pos_table()
 
     def _validate(self):
-        if self.remat == "block":
-            raise NotImplementedError(
-                "remat='block' (activation checkpointing) is not ported "
-                "yet (ROADMAP A4)")
-        if self.remat != "none":
+        if self.remat not in ("none", "block"):
             raise ValueError(
                 f"Unknown remat policy '{self.remat}'. Known: none, block")
         if self.tp_size != 1:
@@ -694,7 +716,14 @@ class TransformerLM(nn.Module):
             # never read
             taken = self.pos_table[torch.clamp(pos, 0, self.max_len - 1)]
             x = x + taken.to(self.dtype)
+        remat = (self.remat == "block" and not self.decode
+                 and torch.is_grad_enabled())
         for i, block in enumerate(self.blocks):
+            if remat:
+                # flax nn.remat(Block): only the block's input is kept;
+                # its internals are recomputed in the backward
+                x = checkpoint(block, x, self, use_reentrant=False)
+                continue
             layer = cache.layers[i] if cache is not None else None
             x = block(x, self, cache, layer, cur, block_tables, seq_lens,
                       valid_lens)

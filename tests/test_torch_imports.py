@@ -1,5 +1,6 @@
 """Import hygiene of the port: importing every ``distkeras_torch``
-module loads no ``jax``, ``flax`` or ``distkeras_tpu`` module (checked
+module (the serving and the training slice alike) loads no ``jax``,
+``flax``, ``optax`` or ``distkeras_tpu`` module (checked
 in a fresh interpreter, since this test process imports both packages),
 and ``chip_smoke.py`` imports none of them either (checked on its
 syntax tree). Importing a module builds no kernel and needs no card."""
@@ -14,7 +15,7 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "distkeras_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "distkeras_tpu")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -25,7 +26,8 @@ for m in pkgutil.walk_packages(distkeras_torch.__path__, "distkeras_torch."):
 for n in names:
     importlib.import_module(n)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "distkeras_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "distkeras_tpu"))
 from distkeras_torch.kernels import build
 print(json.dumps({"modules": names, "bad": bad,
                   "built": build._loaded is not None}))
@@ -47,7 +49,17 @@ def test_port_modules_import_no_jax():
                  "distkeras_torch.ops.paged_attention",
                  "distkeras_torch.ops.splash_prefill",
                  "distkeras_torch.bridge",
-                 "distkeras_torch.kernels.build"):
+                 "distkeras_torch.kernels.build",
+                 "distkeras_torch.ops.pallas_attention",
+                 "distkeras_torch.ops.flash_attention",
+                 "distkeras_torch.ops.fused_ce",
+                 "distkeras_torch.utils.losses",
+                 "distkeras_torch.utils.history",
+                 "distkeras_torch.data.dataset",
+                 "distkeras_torch.parallel.spmd",
+                 "distkeras_torch.models.wrapper",
+                 "distkeras_torch.trainers",
+                 "distkeras_torch.bench"):
         assert must in res["modules"]
 
 

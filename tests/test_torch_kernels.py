@@ -9,8 +9,13 @@ with the card, which has no JAX, runs it without the JAX-side
     python -m pytest -m cuda --noconftest tests/test_torch_kernels.py
 
 f32 is held to 1e-5 and bf16 to 1e-2, the plain version computed in f32
-from the same inputs. The CPU half of each wrapper's contract (plain
-version for CPU tensors, no launch counted) runs everywhere."""
+from the same inputs. The causal training kernels (bf16 only) hold O to
+1e-2 abs (v drawn at std 0.5, so bf16's output rounding of |O| < 2
+stays under 4e-3), lse to 1e-3 abs, and each gradient to 2e-2 of the
+plain version's max abs value (bf16 gradients at long T are not O(1);
+1e-4 abs more covers a row whose true gradient is 0). The CPU half of
+each wrapper's contract (plain version for CPU tensors, no launch
+counted) runs everywhere."""
 
 import numpy as np
 import pytest
@@ -18,6 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from distkeras_torch.ops import paged_attention as pa  # noqa: E402
+from distkeras_torch.ops import pallas_attention as fa  # noqa: E402
 from distkeras_torch.ops import splash_prefill as sp  # noqa: E402
 
 
@@ -126,6 +132,100 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
             torch.zeros((1, 32, 2, 64), device=dev), n)
 
 
+def _causal_inputs(dev, B, T, H, hd, seed):
+    rng = np.random.default_rng(seed)
+    mk = lambda s=1.0: torch.from_numpy(  # noqa: E731
+        (s * rng.standard_normal((B, T, H, hd))).astype(np.float32)).to(
+            dev).to(torch.bfloat16)
+    return mk(), mk(), mk(0.5), mk()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hd", [(2, 200, 2, 64), (1, 130, 2, 256),
+                                      (2, 64, 1, 128), (1, 1, 1, 256),
+                                      (1, 640, 2, 256)])
+def test_causal_kernels_match_plain(B, T, H, hd):
+    dev = _card()
+    q, k, v, do = _causal_inputs(dev, B, T, H, hd, seed=T)
+    before = [f.launches for f in (fa.causal_attention_fwd,
+                                   fa.causal_attention_dq,
+                                   fa.causal_attention_dkv)]
+    out, lse = fa.causal_attention_fwd(q, k, v)
+    dq = fa.causal_attention_dq(q, k, v, out, lse, do)
+    dk, dv = fa.causal_attention_dkv(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    after = [f.launches for f in (fa.causal_attention_fwd,
+                                  fa.causal_attention_dq,
+                                  fa.causal_attention_dkv)]
+    assert after == [b + 1 for b in before]
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    ref_out, ref_lse = fa.causal_attention_reference(q, k, v)
+    assert (out.float() - ref_out).abs().max().item() <= 1e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    for got, ref in zip((dq, dk, dv), fa.causal_attention_bwd_reference(
+            q, k, v, out, lse, do)):
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - ref).abs().max().item()
+        assert err <= 2e-2 * ref.abs().max().item() + 1e-4
+
+
+@pytest.mark.cuda
+def test_causal_autograd_launches_the_three_kernels():
+    """The autograd Function on CUDA tensors: forward kernel, then dq and
+    dk/dv in the backward, each gradient in its primal's dtype, equal to
+    the direct wrapper calls."""
+    dev = _card()
+    q, k, v, do = _causal_inputs(dev, 2, 192, 2, 128, seed=5)
+    qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    before = (fa.causal_attention_fwd.launches, fa.causal_attention_dq.launches,
+              fa.causal_attention_dkv.launches)
+    o = fa.pallas_causal_attention(qq, kk, vv)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.causal_attention_fwd.launches, fa.causal_attention_dq.launches,
+            fa.causal_attention_dkv.launches) == tuple(b + 1 for b in before)
+    out, lse = fa.causal_attention_fwd(q, k, v)
+    assert torch.equal(o, out)
+    assert torch.equal(qq.grad, fa.causal_attention_dq(q, k, v, out, lse, do))
+    dk, dv = fa.causal_attention_dkv(q, k, v, out, lse, do)
+    assert torch.equal(kk.grad, dk) and torch.equal(vv.grad, dv)
+
+
+@pytest.mark.cuda
+def test_causal_kernels_take_unaligned_views():
+    """Contiguous views that start off a 16-byte boundary are copied to
+    an aligned buffer before launch: same results as aligned inputs."""
+    dev = _card()
+    ts = _causal_inputs(dev, 1, 96, 2, 64, seed=6)
+    moved = []
+    for t in ts:  # the same values, starting one bf16 element in
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.flatten()
+        moved.append(flat[1:].view(t.shape))
+    assert all(t.data_ptr() % 16 for t in moved)
+    outs = []
+    for q, k, v, do in (ts, moved):
+        out, lse = fa.causal_attention_fwd(q, k, v)
+        outs.append((out, lse, fa.causal_attention_dq(q, k, v, out, lse, do),
+                     *fa.causal_attention_dkv(q, k, v, out, lse, do)))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_causal_wrappers_raise_on_what_the_kernels_do_not_take():
+    dev = _card()
+    x = torch.zeros((1, 64, 2, 128), device=dev)  # f32: bf16 kernels only
+    with pytest.raises(ValueError, match="blocked"):
+        fa.causal_attention_fwd(x, x, x)
+    y = torch.zeros((1, 64, 2, 96), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):  # hd 96: not compiled
+        fa.pallas_causal_attention(y, y, y)
+    assert not fa.preferred(64, 128, torch.float32, dev)
+    assert fa.preferred(2048, 256, torch.bfloat16, dev)
+
+
 def test_wrappers_run_plain_only_for_cpu_tensors():
     """A CPU call takes the plain version and never touches the kernel
     library or its launch count."""
@@ -148,3 +248,11 @@ def test_wrappers_run_plain_only_for_cpu_tensors():
     with pytest.raises(ValueError):
         pa.paged_attention(q, kp, kp, tables, lens,
                            key_scales=torch.ones(3, 16, 2))
+    qb = q.to(torch.bfloat16)
+    before = fa.causal_attention_fwd.launches
+    out, lse = fa.causal_attention_fwd(qb, qb, qb)
+    assert fa.causal_attention_fwd.launches == before
+    ref_out, ref_lse = fa.causal_attention_reference(qb, qb, qb)
+    assert torch.equal(out, ref_out.to(torch.bfloat16))
+    assert torch.equal(lse, ref_lse)
+    assert not fa.preferred(2048, 256, torch.bfloat16, "cpu")
