@@ -9,7 +9,7 @@ Phases (any failure exits non-zero):
 
 1. **Environment + build.** The card's name and power limit as
    ``nvidia-smi`` reports them, the torch / CUDA / nvcc versions, and the
-   time to build the hand-written kernels (three sources, one ``nvcc``
+   time to build the hand-written kernels (four sources, one ``nvcc``
    each, in parallel) from ``distkeras_torch/csrc``.
 2. **Kernels.** Each kernel against its plain PyTorch version on the
    card at the serving path's shapes — paged attention (8 rows, T in
@@ -48,6 +48,14 @@ Phases (any failure exits non-zero):
    yardstick (``F.scaled_dot_product_attention(is_causal=True)``: its
    forward beside the forward kernel, its forward + backward beside
    fwd + dq + dk/dv), with the bound from this run's exact causal count.
+5b. **Pair kernels.** The zigzag ring's pair forward, dq and dk/dv
+   kernels, both variants (causal wedge and rectangle), against their
+   plain versions at the flagship's ring chunk [8, 1024, 8, 256] and at
+   C=320, q pre-scaled, a nonzero lse cotangent drawn from the seed: the
+   tolerances of phase 5. Times of each kernel, its plain version and
+   the library yardstick (``F.scaled_dot_product_attention`` at
+   ``scale=1.0``, ``is_causal`` for the wedge; it returns no lse), with
+   the bound from the exact count of each variant.
 6. **Training at full width.** The flagship training step of the
    reference's ``lm_bench`` (d_model 2048, 8 heads of 256, 8 layers,
    vocab 8192, bf16, sinusoidal, MHA; T=2048, B=8; AdamW lr 3e-4 with a
@@ -58,8 +66,18 @@ Phases (any failure exits non-zero):
    and an ``attention='blocked'`` twin from the same weights on the same
    batches within 5e-2 of every loss. Prints ms/step, tok/s, peak
    memory and MFU (analytic count, ``distkeras_torch.bench``).
+6b. **Ring training at full width, sp=1.** Phase 6's config, weights and
+   batches with ``attention='ring'`` through ``make_lm_train_step(mesh=
+   make_mesh({"dp": 1, "sp": 1}))``: the zigzag ring's step 0 runs the
+   two causal wedges and the rectangle of each layer through the pair
+   kernels. Every loss finite and within 5e-2 of phase 6's for the same
+   step, each pair kernel launched exactly as the code predicts per step
+   x layers (the checkpointed step 0 runs its forward twice), B1's
+   kernels not at all.
 7. **LMTrainer.** One epoch of ``LMTrainer`` over 40 in-memory rows at
-   the same width and depth (batch 8): a finite history of 5 steps.
+   the same width and depth (batch 8): a finite history of 5 steps; then
+   the same with ``attention='ring'`` and ``axes={"dp": 1, "sp": 1}``
+   (7b).
 
 Output: JSON lines per phase, the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line, and as the last line
@@ -95,6 +113,15 @@ EXACT = dict(vocab_size=512, d_model=256, num_heads=4, num_layers=4,
 # the training kernels' main-path shape and a ragged one (phase 5)
 CAUSAL = dict(B=8, H=8, hd=256, T=(2048, 1000))
 CAUSAL_TOL = dict(out=1e-2, lse=1e-3, grad=2e-2)
+# the ring's pair kernels at the flagship's chunk (T=2048 at sp=1: C=1024,
+# the same pair shape as T=8192 at sp=4) and a smaller one (phase 5b)
+PAIR = dict(B=8, H=8, hd=256, C=(1024, 320))
+# pair launches per layer of one ring step at sp=1: step 0 runs two
+# wedges and a rectangle, checkpointed (its forward runs again in the
+# backward)
+PAIR_PER_LAYER = {"pair_wedge_fwd": 4, "pair_rect_fwd": 2,
+                  "pair_wedge_dq": 2, "pair_rect_dq": 1,
+                  "pair_wedge_dkv": 2, "pair_rect_dkv": 1}
 # the reference's lm_bench step (bench.py:130-194), phases 6 and 7
 TRAIN = dict(vocab_size=8192, d_model=2048, num_heads=8, num_layers=8,
              max_len=2048)
@@ -396,10 +423,123 @@ def causal_times(torch, F, fa, q, k, v, out, lse, do):
     return t
 
 
+# -- phase 5b: the ring's pair kernels against their plain versions ------
+
+
+def pair_cases(torch, F, pp):
+    B, H, hd = PAIR["B"], PAIR["H"], PAIR["hd"]
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    bf16 = torch.bfloat16
+    cases = []
+    for C in PAIR["C"]:
+        shape = (B, C, H, hd)
+        # q arrives pre-scaled, as the ring hands it over
+        q = (torch.randn(shape, generator=gen, device=DEV) * hd ** -0.5).to(
+            bf16)
+        k, do = (torch.randn(shape, generator=gen, device=DEV).to(bf16)
+                 for _ in range(2))
+        v = (0.5 * torch.randn(shape, generator=gen, device=DEV)).to(bf16)
+        dlse = torch.randn((B, C, H), generator=gen, device=DEV)
+        for causal in (True, False):
+            variant = "wedge" if causal else "rect"
+            o, lse = pp.pair_attention_fwd(q, k, v, causal)
+            dq = pp.pair_attention_dq(q, k, v, o, lse, do, dlse, causal)
+            dk, dv = pp.pair_attention_dkv(q, k, v, o, lse, do, dlse, causal)
+            sync(torch)
+            ref_o, ref_lse = pp.pair_attention_reference(q, k, v, causal)
+            grads = pp.pair_attention_bwd_reference(q, k, v, o, lse, do,
+                                                    dlse, causal)
+            for name, t in (("out", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+                if not torch.isfinite(t.float()).all():
+                    raise AssertionError(f"pair {variant} C={C}: non-finite "
+                                         f"{name}")
+            case = {"C": C, "variant": variant,
+                    "out_abs_err": (o.float() - ref_o).abs().max().item(),
+                    "lse_abs_err": (lse - ref_lse).abs().max().item()}
+            for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                      grads):
+                case[f"{name}_rel_err"] = ((got.float() - ref).abs().max()
+                                           / ref.abs().max()).item()
+                case[f"{name}_abs_err"] = (got.float() - ref).abs().max(
+                    ).item()
+            bad = [n for n, tol in (("out_abs_err", CAUSAL_TOL["out"]),
+                                    ("lse_abs_err", CAUSAL_TOL["lse"]),
+                                    ("dq_rel_err", CAUSAL_TOL["grad"]),
+                                    ("dk_rel_err", CAUSAL_TOL["grad"]),
+                                    ("dv_rel_err", CAUSAL_TOL["grad"]))
+                   if not case[n] <= tol]
+            if bad:
+                raise AssertionError(f"pair {variant} C={C}: {bad} over "
+                                     f"tolerance {CAUSAL_TOL}: {case}")
+            del ref_o, ref_lse, grads
+            if C == PAIR["C"][0]:
+                case.update(pair_times(torch, F, pp, q, k, v, o, lse, do,
+                                       dlse, causal))
+            cases.append(case)
+    return cases
+
+
+def pair_times(torch, F, pp, q, k, v, o, lse, do, dlse, causal):
+    """Kernel, plain and library times of one variant with their bounds:
+    the exact work of the variant (the wedge's query row t attends t + 1
+    keys, the rectangle's all C), each tensor read or written once."""
+    B, C, H, hd = q.shape
+    pairs = B * H * (C * (C + 1) // 2 if causal else C * C)
+    row = 2 * q.numel()  # one bf16 [B, C, H, hd] tensor, in bytes
+    lse_b = B * C * H * 4
+    t = {}
+    t["fwd_ms"] = time_ms(torch, lambda: pp.pair_attention_fwd(
+        q, k, v, causal))
+    t["dq_ms"] = time_ms(torch, lambda: pp.pair_attention_dq(
+        q, k, v, o, lse, do, dlse, causal))
+    t["dkv_ms"] = time_ms(torch, lambda: pp.pair_attention_dkv(
+        q, k, v, o, lse, do, dlse, causal))
+    t["fwd_plain_ms"] = time_ms(torch, lambda: pp.pair_attention_reference(
+        q, k, v, causal), iters=5)
+    t["dq_plain_ms"] = time_ms(torch, lambda: pp.pair_attention_dq_reference(
+        q, k, v, o, lse, do, dlse, causal), iters=5)
+    t["dkv_plain_ms"] = time_ms(
+        torch, lambda: pp.pair_attention_dkv_reference(
+            q, k, v, o, lse, do, dlse, causal), iters=5)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    t["fwd_library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=causal, scale=1.0))
+    for name, mms, nbytes in (
+            ("fwd", 2, 4 * row + lse_b),
+            ("dq", 3, 6 * row + 2 * lse_b),
+            ("dkv", 4, 7 * row + 2 * lse_b)):
+        t[f"{name}_bound_ms"], t[f"{name}_bound_by"] = bound(
+            nbytes, mms * 2.0 * pairs * hd, "bfloat16")
+    return t
+
+
 # -- phase 6: the flagship training step at full width --------------------
 
 
-def train_windows(torch, np, dk, fa, attention, tokens):
+CAUSAL_NAMES = ("causal_attention_fwd", "causal_attention_dq",
+                "causal_attention_dkv")
+
+
+def zero_training_counts(fa, pp):
+    for name in CAUSAL_NAMES:
+        getattr(fa, name).launches = 0
+    for kern in ("fwd", "dq", "dkv"):
+        getattr(pp, f"pair_attention_{kern}").launches = {"wedge": 0,
+                                                          "rect": 0}
+
+
+def training_counts(fa, pp):
+    """The launch counts of the training kernels: B1's three and the
+    pair kernels' six (``pair_<variant>_<kernel>``)."""
+    out = {name: getattr(fa, name).launches for name in CAUSAL_NAMES}
+    for kern in ("fwd", "dq", "dkv"):
+        for variant, n in getattr(pp, f"pair_attention_{kern}"
+                                  ).launches.items():
+            out[f"pair_{variant}_{kern}"] = n
+    return out
+
+
+def train_windows(torch, np, dk, fa, pp, attention, tokens, mesh=None):
     """Two W-step windows of the port's LM step from the seeded weights:
     (losses, warm-up s, timed s, kernel launches, peak MB)."""
     model = dk["get_model"]("transformer_lm", dtype=torch.bfloat16,
@@ -407,14 +547,12 @@ def train_windows(torch, np, dk, fa, attention, tokens):
                             **TRAIN)
     step = dk["make_lm_train_step"](
         model, dk["get_optimizer"]("adamw", TRAIN_LR,
-                                   mu_dtype=torch.bfloat16), window=True)
+                                   mu_dtype=torch.bfloat16), mesh=mesh,
+        window=True)
     sync(torch)
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    counters = (fa.causal_attention_fwd, fa.causal_attention_dq,
-                fa.causal_attention_dkv)
-    for c in counters:
-        c.launches = 0
+    zero_training_counts(fa, pp)
     t0 = time.perf_counter()
     first = step(tokens)
     sync(torch)
@@ -422,7 +560,7 @@ def train_windows(torch, np, dk, fa, attention, tokens):
     second = step(tokens)
     sync(torch)
     t2 = time.perf_counter()
-    launches = [c.launches for c in counters]
+    launches = training_counts(fa, pp)
     peak = (torch.cuda.max_memory_allocated() / 2**20 if DEV == "cuda"
             else None)
     losses = torch.cat([first, second]).float().cpu().numpy()
@@ -432,33 +570,38 @@ def train_windows(torch, np, dk, fa, attention, tokens):
     return losses, t1 - t0, t2 - t1, launches, peak
 
 
-def training_phase(torch, np, dk, fa):
+def train_tokens(torch, np):
+    """Phase 6's W fixed batches (phase 6b trains on the same)."""
+    return torch.as_tensor(np.random.default_rng(11).integers(
+        0, TRAIN["vocab_size"], size=(TRAIN_W, TRAIN_B, TRAIN["max_len"])),
+        device=DEV)
+
+
+def training_phase(torch, np, dk, fa, pp):
     V, D, H, L = (TRAIN[k] for k in ("vocab_size", "d_model", "num_heads",
                                      "num_layers"))
     B, T, W = TRAIN_B, TRAIN["max_len"], TRAIN_W
-    tokens = torch.as_tensor(np.random.default_rng(11).integers(
-        0, V, size=(W, B, T)), device=DEV)
+    tokens = train_tokens(torch, np)
     hd = D // H
     if not fa.preferred(T, hd, torch.bfloat16, DEV):
         raise AssertionError("the flagship shape does not select the "
                              "causal kernels")
     losses, warm_s, timed_s, launches, peak = train_windows(
-        torch, np, dk, fa, "standard", tokens)
+        torch, np, dk, fa, pp, "standard", tokens)
     if not np.isfinite(losses).all():
         raise AssertionError(f"training losses not finite: {losses}")
     if not losses[W:].mean() < losses[:W].mean():
         raise AssertionError(f"second window's mean loss did not fall: "
                              f"{losses}")
     want = L * 2 * W
-    names = ("causal_attention_fwd", "causal_attention_dq",
-             "causal_attention_dkv")
-    if launches != [want] * 3:
-        raise AssertionError(f"kernel launches {dict(zip(names, launches))}"
-                             f" != {want} each (layers x steps)")
+    expect = {n: (want if n in CAUSAL_NAMES else 0) for n in launches}
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} != {expect} "
+                             f"(layers x steps)")
     twin, twin_warm_s, twin_timed_s, twin_launches, twin_peak = (
-        train_windows(torch, np, dk, fa, "blocked", tokens))
-    if any(twin_launches):
-        raise AssertionError("the blocked twin launched a causal kernel")
+        train_windows(torch, np, dk, fa, pp, "blocked", tokens))
+    if any(twin_launches.values()):
+        raise AssertionError("the blocked twin launched a training kernel")
     gap = float(np.abs(losses - twin).max())
     if not gap <= TRAIN_LOSS_TOL:
         raise AssertionError(f"kernel vs blocked losses differ by {gap} > "
@@ -481,18 +624,63 @@ def training_phase(torch, np, dk, fa):
         "mfu_method": "analytic: 6*matmul_params*tokens + causal-kernel "
                       "tiles (distkeras_torch.bench.lm_step_flops) over "
                       "the bf16 peak of the device",
-        "launches": dict(zip(names, launches)),
+        "launches": {n: launches[n] for n in CAUSAL_NAMES},
     }
 
 
-def trainer_phase(torch, np, dk):
+def ring_training_phase(torch, np, dk, fa, pp, base):
+    """Phase 6b: phase 6's step with ``attention='ring'`` on a mesh of one
+    position; ``base`` is phase 6's result."""
+    V, D, H, L = (TRAIN[k] for k in ("vocab_size", "d_model", "num_heads",
+                                     "num_layers"))
+    B, T, W = TRAIN_B, TRAIN["max_len"], TRAIN_W
+    C = T // 2
+    if dk["pair_kernel_block"](C, D // H, torch.bfloat16, DEV) is None:
+        raise AssertionError("the flagship ring chunk does not select the "
+                             "pair kernels")
+    losses, warm_s, timed_s, launches, peak = train_windows(
+        torch, np, dk, fa, pp, "ring", train_tokens(torch, np),
+        mesh=dk["make_mesh"]({"dp": 1, "sp": 1}))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"ring training losses not finite: {losses}")
+    steps = 2 * W
+    expect = {n: PAIR_PER_LAYER.get(n, 0) * L * steps for n in launches}
+    if launches != expect:
+        raise AssertionError(f"ring kernel launches {launches} != {expect} "
+                             f"(per layer {PAIR_PER_LAYER} x {L} layers x "
+                             f"{steps} steps; B1's kernels 0)")
+    gap = float(np.abs(losses - np.asarray(base["losses"])).max())
+    if not gap <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"ring vs phase 6 losses differ by {gap} > "
+                             f"{TRAIN_LOSS_TOL}: {losses} vs "
+                             f"{base['losses']}")
+    ms = timed_s * 1e3 / W
+    flops = base["flops_per_step"]
+    peak_flops = dk["peak_flops"](torch.cuda.get_device_name(0)
+                                  if DEV == "cuda" else "")
+    return {
+        "config": f"d{D}/h{H}/L{L}/v{V}/T{T}/b{B}-bf16-ring-sp1-zigzag-"
+                  f"pair{C}-adamw-mubf16-fusedce",
+        "losses": losses.tolist(), "max_loss_gap_vs_phase6": gap,
+        "tol": TRAIN_LOSS_TOL, "warmup_window_s": warm_s,
+        "ms_per_step": ms, "tok_per_s": W * B * T / timed_s,
+        "peak_device_mb": peak, "flops_per_step": flops,
+        "mfu": (flops / (ms / 1e3) / peak_flops) if peak_flops else None,
+        "mfu_method": base["mfu_method"] + " (phase 6's count)",
+        "launches": launches,
+    }
+
+
+def trainer_phase(torch, np, dk, attention="standard", axes=None):
     model = dk["get_model"]("transformer_lm", dtype=torch.bfloat16,
-                            device=DEV, seed=1, **TRAIN)
+                            device=DEV, seed=1, attention=attention,
+                            **TRAIN)
     rows = np.random.default_rng(12).integers(
         0, TRAIN["vocab_size"], size=(TRAINER_ROWS, TRAIN["max_len"]))
     ds = dk["PartitionedDataset"].from_arrays({"tokens": rows})
     trainer = dk["LMTrainer"](model, worker_optimizer="adamw",
-                              learning_rate=TRAIN_LR, batch_size=TRAIN_B)
+                              learning_rate=TRAIN_LR, batch_size=TRAIN_B,
+                              axes=axes)
     t0 = time.perf_counter()
     trainer.train(ds)
     wall = time.perf_counter() - t0
@@ -504,7 +692,8 @@ def trainer_phase(torch, np, dk):
     del trainer, model
     if DEV == "cuda":
         torch.cuda.empty_cache()
-    return {"steps": steps, "history": hist, "wall_s": wall}
+    return {"attention": attention, "axes": axes, "steps": steps,
+            "history": hist, "wall_s": wall}
 
 
 # -- phase 3: serving at full width ----------------------------------------
@@ -674,7 +863,10 @@ def main() -> int:
         from distkeras_torch.models.transformer import generate
         from distkeras_torch.ops import paged_attention as pa
         from distkeras_torch.ops import pallas_attention as fa
+        from distkeras_torch.ops import pallas_pair as pp
         from distkeras_torch.ops import splash_prefill as sp
+        from distkeras_torch.ops.ring_attention import _pair_kernel_block
+        from distkeras_torch.parallel.mesh import make_mesh
         from distkeras_torch.parallel.spmd import make_lm_train_step
         from distkeras_torch.serving import ServingEngine
         from distkeras_torch.trainers import LMTrainer
@@ -689,7 +881,8 @@ def main() -> int:
           "make_lm_train_step": make_lm_train_step,
           "get_optimizer": get_optimizer, "lm_step_flops": lm_step_flops,
           "peak_flops": peak_flops, "LMTrainer": LMTrainer,
-          "PartitionedDataset": PartitionedDataset}
+          "PartitionedDataset": PartitionedDataset, "make_mesh": make_mesh,
+          "pair_kernel_block": _pair_kernel_block}
 
     smi = nvidia_smi()
     kern = build.load()
@@ -724,14 +917,29 @@ def main() -> int:
                                      "seconds": time.perf_counter() - t0}})
 
     t0 = time.perf_counter()
-    training = training_phase(torch, np, dk, fa)
+    pair = pair_cases(torch, F, pp)
+    _emit({"pair_kernel_phase": {"pair_attention": pair, "tol": CAUSAL_TOL,
+                                 "seconds": time.perf_counter() - t0}})
+
+    t0 = time.perf_counter()
+    training = training_phase(torch, np, dk, fa, pp)
     training["seconds"] = time.perf_counter() - t0
     _emit({"training_phase": training})
+
+    t0 = time.perf_counter()
+    ring = ring_training_phase(torch, np, dk, fa, pp, training)
+    ring["seconds"] = time.perf_counter() - t0
+    _emit({"ring_training_phase": ring})
 
     t0 = time.perf_counter()
     trainer = trainer_phase(torch, np, dk)
     trainer["seconds"] = time.perf_counter() - t0
     _emit({"lm_trainer_phase": trainer})
+
+    t0 = time.perf_counter()
+    ring_trainer = trainer_phase(torch, np, dk, "ring", {"dp": 1, "sp": 1})
+    ring_trainer["seconds"] = time.perf_counter() - t0
+    _emit({"ring_lm_trainer_phase": ring_trainer})
 
     main_paged = next(c for c in paged if c["T"] == 64 and c["pool"] == "int8")
     main_splash = next(c for c in splash if c["dtype"] == "bf16")
@@ -768,6 +976,29 @@ def main() -> int:
             "bound_by": main_causal[f"{kern}_bound_by"],
             "library_ms": lib,
         })
+    lines = {"fwd": (148, 128), "dq": (301, 281), "dkv": (380, 359)}
+    for kern, err_keys, lib in (
+            ("fwd", ("out_abs_err",), "fwd_library_ms"),
+            ("dq", ("dq_abs_err",), None),
+            ("dkv", ("dk_abs_err", "dv_abs_err"), None)):
+        for variant, line in zip(("wedge", "rect"), lines[kern]):
+            main = next(c for c in pair if c["C"] == PAIR["C"][0]
+                        and c["variant"] == variant)
+            name = f"pair_{variant}_{kern}"
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "distkeras_torch/csrc/pair_attention.cu",
+                "replaces": f"distkeras_tpu/ops/pallas_pair.py:{line}",
+                "launches": ring["launches"][name],
+                "max_abs_err": max(c[k] for c in pair
+                                   if c["variant"] == variant
+                                   for k in err_keys),
+                "ms": main[f"{kern}_ms"],
+                "plain_ms": main[f"{kern}_plain_ms"],
+                "bound_ms": main[f"{kern}_bound_ms"],
+                "bound_by": main[f"{kern}_bound_by"],
+                "library_ms": main[lib] if lib else None,
+            })
     print(smi, flush=True)
     _emit({"kernels": rows})
     _emit({"ok": True, "device": {"platform": "gpu",

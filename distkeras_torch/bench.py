@@ -16,12 +16,15 @@ device busy time (the sum of kernel times on the engine's one stream)
 and idle share, device time grouped by what ran (the two attention
 kernels, matrix products, everything else), and the top kernels.
 
-The last line is the LM training line (:func:`lm_bench`): tok/s of the
-flagship training step — the reference's ``lm_bench`` (bench.py:130):
-d2048/h8/L8/v8192, T=2048, B=8, bf16, AdamW with a bf16 first moment,
-fused chunked CE, windows of W=5 steps — labelled with the attention
-the model's own ``preferred()`` gate selects, and its MFU against the
-bf16 peak of the reported device from the analytic count of
+The last two lines are the LM training lines (:func:`lm_bench`): tok/s
+of the flagship training step — the reference's ``lm_bench``
+(bench.py:130): d2048/h8/L8/v8192, T=2048, B=8, bf16, AdamW with a bf16
+first moment, fused chunked CE, windows of W=5 steps — first with
+``attention='standard'``, labelled with the attention the model's own
+``preferred()`` gate selects, then with ``attention='ring'`` on a mesh
+of one position (sp=1: the zigzag ring's step 0 through the pair
+kernels, or the blocked loop where their gate fails); each with its MFU
+against the bf16 peak of the reported device from the analytic count of
 :func:`lm_step_flops`, and where one more window's device time goes
 under ``torch.profiler`` (``lm_profile_window``: busy time, idle share,
 device time by kernel group and by named range such as
@@ -122,24 +125,28 @@ def lm_step_flops(D, H, L, V, B, T, block=64) -> float:
     return dense + attn
 
 
-def lm_bench(calls: int = 3) -> dict:
-    """Flagship training throughput and MFU on the card (needs one)."""
+def lm_bench(calls: int = 3, attention: str = "standard") -> dict:
+    """Flagship training throughput and MFU on the card (needs one), with
+    ``attention`` ``'standard'`` or ``'ring'`` (sp=1)."""
     from distkeras_torch.models import get_model
     from distkeras_torch.ops import pallas_attention as fa
+    from distkeras_torch.ops.ring_attention import _pair_kernel_block
+    from distkeras_torch.parallel.mesh import make_mesh
     from distkeras_torch.parallel.spmd import make_lm_train_step
     from distkeras_torch.utils.losses import get_optimizer
 
     model = get_model("transformer_lm", dtype=torch.bfloat16, seed=0,
-                      attention="standard", **LM_FLAGSHIP)
+                      attention=attention, **LM_FLAGSHIP)
     V, D, H, L = (LM_FLAGSHIP[k] for k in ("vocab_size", "d_model",
                                            "num_heads", "num_layers"))
     B, T, W = LM_BATCH, LM_FLAGSHIP["max_len"], LM_WINDOW
     toks = torch.as_tensor(
         np.random.default_rng(0).integers(0, V, size=(W, B, T)),
         device=model.device)
+    ring = attention == "ring"
     step = make_lm_train_step(
         model, get_optimizer("adamw", 3e-4, mu_dtype=torch.bfloat16),
-        window=True)
+        mesh=make_mesh({"dp": 1, "sp": 1}) if ring else None, window=True)
     float(step(toks)[-1])  # warm-up window
     dt = float("inf")
     for _ in range(3):  # best of three blocks of `calls` windows
@@ -152,10 +159,14 @@ def lm_bench(calls: int = 3) -> dict:
     if not np.isfinite(final):
         raise AssertionError(f"flagship LM loss diverged: {final}")
     hd = D // H
-    # the model's own selection predicate labels what ran
-    kernel = (f"pallas-causal{fa.BLOCK}"
-              if fa.preferred(T, hd, model.dtype, model.device)
-              else "blocked")
+    # the model's own selection predicates label what ran
+    if ring:
+        pb = _pair_kernel_block(T // 2, hd, model.dtype, model.device)
+        kernel = f"ring-sp1-zigzag-{f'pair{pb}' if pb else 'blocked'}"
+    else:
+        kernel = (f"pallas-causal{fa.BLOCK}"
+                  if fa.preferred(T, hd, model.dtype, model.device)
+                  else "blocked")
     steps = calls * W
     name = torch.cuda.get_device_name(0)
     out = {
@@ -187,8 +198,12 @@ def lm_bench(calls: int = 3) -> dict:
 
 
 def _group(name: str) -> str:
-    if "causal_" in name:
-        return "causal_attention"
+    if "ca::" in name or name.startswith("_ZN2ca"):
+        # flash_mma.cuh's kernels: the PAIR flag is the last template
+        # argument (demangled or mangled)
+        return ("pair_attention" if (", true>(" in name
+                                     or "ELb1EEEv" in name)
+                else "causal_attention")
     if "attn_kernel" in name:  # PAGED=true instantiations are paged
         return ("paged_attention" if ("true>" in name or "Lb1E" in name)
                 else "splash_prefill")
@@ -281,7 +296,9 @@ def main() -> int:
               flush=True)
     del model
     torch.cuda.empty_cache()
-    print(json.dumps(lm_bench()), flush=True)
+    for attention in ("standard", "ring"):
+        print(json.dumps(lm_bench(attention=attention)), flush=True)
+        torch.cuda.empty_cache()
     return 0
 
 

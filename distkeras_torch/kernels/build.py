@@ -31,8 +31,9 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "distkeras_torch"
-SOURCES = ("paged_attention.cu", "splash_prefill.cu", "causal_attention.cu")
-HEADERS = ("attn_common.cuh",)
+SOURCES = ("paged_attention.cu", "splash_prefill.cu", "causal_attention.cu",
+           "pair_attention.cu")
+HEADERS = ("attn_common.cuh", "flash_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +47,9 @@ _SIGNATURES = {
     "dk_causal_attention_fwd": [_vp] * 5 + [_i] * 4 + [_ll, _ll, _f, _vp],
     "dk_causal_attention_dq": [_vp] * 7 + [_i] * 4 + [_ll, _ll, _f, _vp],
     "dk_causal_attention_dkv": [_vp] * 8 + [_i] * 4 + [_ll, _ll, _f, _vp],
+    "dk_pair_attention_fwd": [_vp] * 5 + [_i] * 6 + [_ll] * 4 + [_vp],
+    "dk_pair_attention_dq": [_vp] * 8 + [_i] * 6 + [_ll] * 4 + [_vp],
+    "dk_pair_attention_dkv": [_vp] * 9 + [_i] * 6 + [_ll] * 4 + [_vp],
 }
 
 

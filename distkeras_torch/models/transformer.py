@@ -23,7 +23,14 @@ decode paths for the serving engine, and its training-mode attention:
   where their ``preferred()`` gate passes, else the blocked plain
   PyTorch op (:mod:`distkeras_torch.ops.flash_attention`);
   ``remat='block'`` recomputes each block in the backward
-  (``torch.utils.checkpoint``).
+  (``torch.utils.checkpoint``);
+- sequence parallelism: ``attention='ring'`` runs inside a bound mesh
+  (``with mesh:``, as the LM step binds it), each rank holding a
+  ``T/sp`` shard of the sequence: attention is the zigzag ring over the
+  mesh's ``seq_axis`` group (:mod:`distkeras_torch.ops.ring_attention`,
+  whose chunk pairs go through the hand-written pair kernels on CUDA),
+  and positions (rope or sinusoidal) are GLOBAL, offset by the shard
+  index times ``T/sp``.
 
 Every parameter is stored in f32 whatever the model dtype, as flax
 stores it, and cast to the model dtype at each use: autograd then gives
@@ -45,8 +52,8 @@ product, and the vocab head takes model-dtype operands with f32
 accumulation and f32 logits.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``beam_search`` (A5), :class:`MoeLM` and ``moe_experts`` (A10),
-``tp_size > 1`` (A10) and ``attention='ring'`` (A10).
+item): ``beam_search`` (A5), :class:`MoeLM` and ``moe_experts`` (A10) and
+``tp_size > 1`` (A10).
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from distkeras_torch.ops import paged_attention as _pa
 from distkeras_torch.ops import pallas_attention as _fa
 from distkeras_torch.ops import splash_prefill as _sp
 from distkeras_torch.ops.flash_attention import blocked_causal_attention
+from distkeras_torch.ops.ring_attention import ring_attention
 from distkeras_torch.utils.device import resolve_device
 
 _NEG_INF = -1e30
@@ -98,6 +106,21 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     x2 = x[..., half:].to(torch.float32)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def _ring_shard(cfg):
+    """(sequence group, shard index) of a ``'ring'`` model: the bound
+    mesh's ``cfg.seq_axis`` group and this rank's coordinate on it."""
+    from distkeras_torch.parallel.mesh import current_mesh
+
+    mesh = current_mesh()
+    if mesh is None or cfg.seq_axis not in mesh.axis_names:
+        raise ValueError(
+            f"attention='ring' shards the sequence over the '{cfg.seq_axis}' "
+            f"axis of a bound mesh: call the model inside `with "
+            f"make_mesh({{'dp': ..., '{cfg.seq_axis}': ...}}):`, or train it "
+            f"through make_lm_train_step(mesh=...)")
+    return mesh.group(cfg.seq_axis), mesh.index(cfg.seq_axis)
 
 
 def sinusoidal_positions(max_len: int, dim: int) -> np.ndarray:
@@ -428,8 +451,13 @@ class CausalSelfAttention(nn.Module):
                 out = self._cached_attend(cfg, q, k, v, cache, layer, cur,
                                           valid_lens)
             return self.out(out)
+        if cfg.attention == "ring":
+            group, shard = _ring_shard(cfg)
         if cfg.rope:
+            # global positions: ring shards offset by their shard index
             pos = torch.arange(T, device=x.device)
+            if cfg.attention == "ring":
+                pos = pos + shard * T
             q = apply_rope(q, pos)
             k = apply_rope(k, pos)
         if Hk != H:
@@ -454,9 +482,7 @@ class CausalSelfAttention(nn.Module):
         elif mode == "dense":
             out = self._dense_attend(q, k, v)
         elif mode == "ring":
-            raise NotImplementedError(
-                "attention='ring' (sequence parallel) is not ported yet "
-                "(ROADMAP A10)")
+            out = ring_attention(q, k, v, group=group, causal=True)
         else:
             raise ValueError(
                 f"Unknown attention mode '{cfg.attention}'. "
@@ -512,7 +538,7 @@ _CONFIG_FIELDS = (
     "attention", "tp_size", "moe_experts", "remat", "decode", "pos_emb",
     "num_kv_heads", "cache_dtype", "slot_cursor", "paged",
     "page_block_size", "num_pages", "paged_kernel", "prefill_kernel",
-    "features_only",
+    "features_only", "seq_axis",
 )
 
 
@@ -541,7 +567,7 @@ class TransformerLM(nn.Module):
                  paged: bool = False, page_block_size: int = 16,
                  num_pages: int = 0, paged_kernel: str = "auto",
                  prefill_kernel: str = "auto", features_only: bool = False,
-                 device=None, seed: int = 0):
+                 seq_axis: str = "sp", device=None, seed: int = 0):
         super().__init__()
         if isinstance(dtype, str):
             dtype = getattr(torch, dtype)
@@ -709,6 +735,9 @@ class TransformerLM(nn.Module):
         x = self.embed(tokens)
         if self.pos_emb != "rope":
             pos = torch.arange(T, device=x.device)
+            if self.attention == "ring":
+                # each shard holds a T/sp slice: positions are global
+                pos = pos + _ring_shard(self)[1] * T
             if self.decode:
                 pos = pos[None, :] + cur[:, None]
             # clip like jnp.take(mode='clip'): chunk padding positions may

@@ -1,15 +1,17 @@
 """Trainers — the port of :mod:`distkeras_tpu.trainers`: the
 :class:`Trainer` base (timing, telemetry, JSONL metrics, history) and
-:class:`LMTrainer`'s single-device in-memory path.
+:class:`LMTrainer`'s in-memory path over a dp x sp mesh.
 
-``LMTrainer`` trains a :class:`~distkeras_torch.models.TransformerLM` on
-its own device with :func:`distkeras_torch.parallel.spmd.make_lm_train_step`
-in windows of :attr:`LMTrainer.STREAM_GROUP` steps, keeping each
-window's losses on the device until the epoch ends. Not ported yet, and
-raising with their ROADMAP item: mesh axes other than ``dp = sp = 1``
-(A10), pipeline ``microbatches`` (A10), disk-sharded datasets (A9),
-``checkpointer=`` (A9) and ``profile_dir=`` (A7); an MoE model (A10)
-raises where it is built.
+``LMTrainer`` trains a :class:`~distkeras_torch.models.TransformerLM`
+with :func:`distkeras_torch.parallel.spmd.make_lm_train_step` in windows
+of :attr:`LMTrainer.STREAM_GROUP` steps, keeping each window's losses on
+the device until the epoch ends; ``axes={"dp": d, "sp": s}`` shards it
+over the ``d * s`` processes of the ``torch.distributed`` world (one
+process on one device when both are 1). Not ported yet, and raising
+with their ROADMAP item: the ``tp``, ``pp`` and ``ep`` axes and pipeline
+``microbatches`` (A10), disk-sharded datasets (A9), ``checkpointer=``
+(A9) and ``profile_dir=`` (A7); an MoE model (A10) raises where it is
+built.
 """
 
 from __future__ import annotations
@@ -157,15 +159,23 @@ class Trainer:
 
 
 class LMTrainer(Trainer):
-    """The flagship LM as a Trainer: a :class:`TransformerLM` trained on
-    its device with the LM step, windows of :attr:`STREAM_GROUP` steps.
+    """The flagship LM as a Trainer: a :class:`TransformerLM` trained over
+    a dp x sp mesh with the LM step, windows of :attr:`STREAM_GROUP`
+    steps.
 
     Data contract: the dataset carries a ``tokens_col`` column of int
-    token ids ``[N, T]``; each step consumes ``[batch_size, T]``. The
-    loss is the mean next-token cross-entropy (``loss``/``metrics``/
-    ``label_col`` are ignored — an LM supervises itself). Only the
-    single-device layout is ported: ``axes`` may name ``dp`` and ``sp``
-    of size 1 and nothing else."""
+    token ids ``[N, T]``; each step consumes a ``[batch_size, T]`` global
+    batch, of which each rank trains on its ``[batch_size/dp, T/sp]``
+    shard. The loss is the global mean next-token cross-entropy
+    (``loss``/``metrics``/``label_col`` are ignored — an LM supervises
+    itself).
+
+    ``axes`` names ``dp`` and ``sp`` (default ``{"dp": world size}``);
+    their product must be the size of the ``torch.distributed`` world,
+    whose ranks each run ``train()`` on the SAME dataset (the process
+    form of the reference's single program over the mesh). ``sp > 1``
+    needs ``attention='ring'``. The returned :class:`Model` holds the
+    standard-attention twin of a ring model, sharing its parameters."""
 
     # optimizer steps per window (one device-side loop, losses kept on
     # the device)
@@ -180,14 +190,44 @@ class LMTrainer(Trainer):
                 "microbatches (pipeline-parallel training) is not ported "
                 "yet (ROADMAP A10)")
         extra = {k: v for k, v in (axes or {}).items()
-                 if not (k in ("dp", "sp") and v == 1)}
+                 if k not in ("dp", "sp") and v != 1}
         if extra:
             raise NotImplementedError(
-                f"LMTrainer axes {extra}: meshes beyond dp=sp=1 (data, "
-                f"sequence, tensor, pipeline and expert parallelism) are "
-                f"not ported yet (ROADMAP A10)")
+                f"LMTrainer axes {extra}: tensor, pipeline and expert "
+                f"parallelism are not ported yet (ROADMAP A10); the mesh "
+                f"takes 'dp' and 'sp'")
         self.axes = axes
         self.tokens_col = tokens_col
+
+    def _single_chip_twin(self):
+        """A standard-attention twin of the model sharing its parameters
+        (the model itself unless it is a ring model): what the returned
+        :class:`Model` predicts with, outside any mesh. The reference
+        also initializes through it, because its ring traces only inside
+        ``shard_map``; here the parameters exist from construction."""
+        if self.model.attention != "ring":
+            return self.model
+        return self.model.clone(attention="standard")
+
+    def _mesh(self, T: int):
+        import torch.distributed as dist
+
+        from distkeras_torch.parallel.mesh import make_mesh
+
+        world = (dist.get_world_size() if dist.is_available()
+                 and dist.is_initialized() else 1)
+        axes = dict(self.axes) if self.axes else {"dp": world}
+        dp, sp = axes.get("dp", 1), axes.get("sp", 1)
+        if sp > 1 and self.model.attention != "ring":
+            raise ValueError("sp > 1 needs the model built with "
+                             "attention='ring' (seq_axis='sp')")
+        if T % sp:
+            raise ValueError(f"sequence length {T} not divisible by "
+                             f"sp={sp}")
+        if self.batch_size % dp:
+            raise ValueError(f"batch_size={self.batch_size} not divisible "
+                             f"by dp={dp}")
+        return make_mesh({"dp": dp, "sp": sp})
 
     def _train(self, dataset: PartitionedDataset,
                shuffle: bool = False) -> Model:
@@ -209,7 +249,8 @@ class LMTrainer(Trainer):
         if self.params is not None:
             bridge.params_from_jax(self.params, self.model)
         optimizer = get_optimizer(self.worker_optimizer, self.learning_rate)
-        step = make_lm_train_step(self.model, optimizer, window=True)
+        step = make_lm_train_step(self.model, optimizer, mesh=self._mesh(T),
+                                  window=True)
         n = (n_rows // B) * B
         batches = tokens[:n].reshape(-1, B, T).astype(np.int64)
         W = self.STREAM_GROUP
@@ -238,4 +279,4 @@ class LMTrainer(Trainer):
         self.params = bridge.params_to_jax(self.model)
         self.history = history
         self.executor_histories = [history]
-        return Model(self.model)
+        return Model(self._single_chip_twin())

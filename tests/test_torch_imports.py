@@ -1,5 +1,5 @@
 """Import hygiene of the port: importing every ``distkeras_torch``
-module (the serving and the training slice alike) loads no ``jax``,
+module (the serving, training and sequence-parallel slices alike) loads no ``jax``,
 ``flax``, ``optax`` or ``distkeras_tpu`` module (checked
 in a fresh interpreter, since this test process imports both packages),
 and ``chip_smoke.py`` imports none of them either (checked on its
@@ -57,6 +57,10 @@ def test_port_modules_import_no_jax():
                  "distkeras_torch.utils.history",
                  "distkeras_torch.data.dataset",
                  "distkeras_torch.parallel.spmd",
+                 "distkeras_torch.parallel.mesh",
+                 "distkeras_torch.parallel.collectives",
+                 "distkeras_torch.ops.pallas_pair",
+                 "distkeras_torch.ops.ring_attention",
                  "distkeras_torch.models.wrapper",
                  "distkeras_torch.trainers",
                  "distkeras_torch.bench"):

@@ -13,7 +13,9 @@ from the same inputs. The causal training kernels (bf16 only) hold O to
 1e-2 abs (v drawn at std 0.5, so bf16's output rounding of |O| < 2
 stays under 4e-3), lse to 1e-3 abs, and each gradient to 2e-2 of the
 plain version's max abs value (bf16 gradients at long T are not O(1);
-1e-4 abs more covers a row whose true gradient is 0). The CPU half of
+1e-4 abs more covers a row whose true gradient is 0); the ring's pair
+kernels are held to the same bounds, with a nonzero lse cotangent. The
+CPU half of
 each wrapper's contract (plain version for CPU tensors, no launch
 counted) runs everywhere."""
 
@@ -24,6 +26,7 @@ torch = pytest.importorskip("torch")
 
 from distkeras_torch.ops import paged_attention as pa  # noqa: E402
 from distkeras_torch.ops import pallas_attention as fa  # noqa: E402
+from distkeras_torch.ops import pallas_pair as pp  # noqa: E402
 from distkeras_torch.ops import splash_prefill as sp  # noqa: E402
 
 
@@ -256,3 +259,93 @@ def test_wrappers_run_plain_only_for_cpu_tensors():
     assert torch.equal(out, ref_out.to(torch.bfloat16))
     assert torch.equal(lse, ref_lse)
     assert not fa.preferred(2048, 256, torch.bfloat16, "cpu")
+
+
+def _pair_inputs(dev, B, Tq, Tk, H, hd, seed):
+    """Pre-scaled q (logits O(1)), v at std 0.5, and both cotangents."""
+    rng = np.random.default_rng(seed)
+    mk = lambda shape, s: torch.from_numpy(  # noqa: E731
+        (s * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+    q = mk((B, Tq, H, hd), hd ** -0.5).to(torch.bfloat16)
+    k = mk((B, Tk, H, hd), 1.0).to(torch.bfloat16)
+    v = mk((B, Tk, H, hd), 0.5).to(torch.bfloat16)
+    do = mk((B, Tq, H, hd), 1.0).to(torch.bfloat16)
+    return q, k, v, do, mk((B, Tq, H), 1.0)
+
+
+def _pair_launches():
+    return [dict(f.launches) for f in (pp.pair_attention_fwd,
+                                        pp.pair_attention_dq,
+                                        pp.pair_attention_dkv)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,B,Tq,Tk,H,hd", [
+    (True, 2, 200, 200, 2, 64), (False, 2, 200, 136, 2, 64),
+    (True, 1, 130, 130, 2, 256), (False, 1, 64, 320, 2, 256),
+    (False, 2, 96, 96, 1, 128), (True, 1, 1, 1, 1, 256)])
+def test_pair_kernels_match_plain(causal, B, Tq, Tk, H, hd):
+    dev = _card()
+    q, k, v, do, dlse = _pair_inputs(dev, B, Tq, Tk, H, hd, seed=Tq + Tk)
+    variant = "wedge" if causal else "rect"
+    before = _pair_launches()
+    o, lse = pp.pair_attention_fwd(q, k, v, causal)
+    dq = pp.pair_attention_dq(q, k, v, o, lse, do, dlse, causal)
+    dk, dv = pp.pair_attention_dkv(q, k, v, o, lse, do, dlse, causal)
+    torch.cuda.synchronize()
+    for b, a in zip(before, _pair_launches()):
+        assert a[variant] == b[variant] + 1
+    assert o.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    assert lse.shape == (B, Tq, H) and lse.dtype == torch.float32
+    ref_o, ref_lse = pp.pair_attention_reference(q, k, v, causal)
+    assert (o.float() - ref_o).abs().max().item() <= 1e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    for got, ref in zip((dq, dk, dv), pp.pair_attention_bwd_reference(
+            q, k, v, o, lse, do, dlse, causal)):
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - ref).abs().max().item()
+        assert err <= 2e-2 * ref.abs().max().item() + 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_pair_autograd_launches_and_takes_strided_views(causal):
+    """Chunks of a fused qkv projection (strided views, as the ring hands
+    them over) give the results of contiguous copies; the autograd
+    Function launches each kernel once and folds in the lse cotangent."""
+    dev = _card()
+    B, C, H, hd = 2, 96, 2, 128
+    q, _, _, do, dlse = _pair_inputs(dev, B, C, C, H, hd, seed=9)
+    qkv = torch.randn((B, 2 * C, 3, H, hd), device=dev).to(torch.bfloat16)
+    k, v = qkv[:, C:, 1], qkv[:, C:, 2]
+    assert not k.is_contiguous()
+    o, lse = pp.pair_attention_fwd(q, k, v, causal)
+    o2, lse2 = pp.pair_attention_fwd(q, k.contiguous(), v.contiguous(),
+                                     causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    before = _pair_launches()
+    oo, ll = pp.pallas_pair_attention(qq, kk, vv, causal)
+    ((oo.float() * do.float()).sum() + (ll * dlse).sum()).backward()
+    torch.cuda.synchronize()
+    variant = "wedge" if causal else "rect"
+    for b, a in zip(before, _pair_launches()):
+        assert a[variant] == b[variant] + 1
+    dq = pp.pair_attention_dq(q, k, v, o, lse, do, dlse, causal)
+    dk, dv = pp.pair_attention_dkv(q, k, v, o, lse, do, dlse, causal)
+    assert torch.equal(qq.grad, dq)
+    assert torch.equal(kk.grad, dk) and torch.equal(vv.grad, dv)
+
+
+@pytest.mark.cuda
+def test_pair_wrappers_raise_on_what_the_kernels_do_not_take():
+    dev = _card()
+    x = torch.zeros((1, 64, 2, 128), device=dev)  # f32: bf16 kernels only
+    with pytest.raises(ValueError, match="pair_supports"):
+        pp.pair_attention_fwd(x, x, x)
+    y = torch.zeros((1, 64, 2, 96), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="pair_supports"):
+        pp.pallas_pair_attention(y, y, y, True)
+    z = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="Tq == Tk"):
+        pp.pair_attention_fwd(z, z[:, :32], z[:, :32], True)

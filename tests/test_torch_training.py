@@ -285,14 +285,21 @@ def test_window_step_equals_single_steps_and_unfused_loss():
 
 
 def test_train_step_deferred_features_raise():
+    from distkeras_torch.parallel.mesh import make_mesh
+
     pm = get_model("transformer_lm", dtype=torch.float32, device="cpu",
                    **TINY)
+    mesh = make_mesh({"dp": 1, "sp": 1})
     with pytest.raises(NotImplementedError, match="A10"):
-        make_lm_train_step(pm, get_optimizer("sgd"), mesh=object())
+        make_lm_train_step(pm, get_optimizer("sgd"), mesh=mesh,
+                           tp_axis="tp")
     ring = get_model("transformer_lm", dtype=torch.float32, device="cpu",
                      attention="ring", **TINY)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ValueError, match="mesh=make_mesh"):
         make_lm_train_step(ring, get_optimizer("sgd"))
+    with pytest.raises(ValueError, match="no 'sp' axis"):
+        make_lm_train_step(ring, get_optimizer("sgd"),
+                           mesh=make_mesh({"dp": 1}))
     step = make_lm_train_step(pm, get_optimizer("sgd"), window=True)
     with pytest.raises(ValueError, match=r"\[W, B, T\]"):
         step(_tokens(0, (2, 8)))
@@ -378,7 +385,7 @@ def test_lm_trainer_deferred_features_raise(what):
         with pytest.raises(NotImplementedError, match="A9"):
             LMTrainer(model, batch_size=2).train(Shards())
         return
-    item, args = {"axes": ("A10", dict(axes={"dp": 2})),
+    item, args = {"axes": ("A10", dict(axes={"dp": 1, "tp": 2})),
                   "microbatches": ("A10", dict(microbatches=4)),
                   "checkpointer": ("A9", dict(checkpointer=object())),
                   "profile_dir": ("A7", dict(profile_dir="trace"))}[what]

@@ -228,7 +228,8 @@ def test_explicit_attention_modes_match_jax(mode):
 def test_deferred_features_raise(what):
     """Features still deferred raise naming their ROADMAP item; remat,
     the blocked and pallas modes and T > 512 (deferred before the
-    training slice) now run."""
+    training slice) now run, and so does the ring inside a mesh
+    (deferred before the sequence-parallel slice)."""
     kw = dict(BASE, dtype=torch.float32, device="cpu")
     if what == "beam_search":
         with pytest.raises(NotImplementedError, match="A5"):
@@ -250,9 +251,16 @@ def test_deferred_features_raise(what):
         assert m(torch.zeros((1, 513), dtype=torch.long)).shape == (
             1, 513, 97)
     elif what == "ring":
+        from distkeras_torch.parallel.mesh import make_mesh
+
         m = get_model("transformer_lm", attention=what, **kw)
-        with pytest.raises(NotImplementedError, match="A10"):
-            m(torch.zeros((1, 4), dtype=torch.long))
+        toks = torch.zeros((1, 4), dtype=torch.long)
+        with pytest.raises(ValueError, match="bound mesh"):
+            m(toks)  # the ring shards over a mesh's sp axis
+        with make_mesh({"dp": 1, "sp": 1}):
+            got = m(toks)
+        want = m.clone(attention="standard")(toks)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
         m = get_model("transformer_lm", attention=what, **kw)
         assert m(torch.zeros((1, 4), dtype=torch.long)).shape == (1, 4, 97)
