@@ -21,8 +21,11 @@ Phases (any failure exits non-zero):
    (``F.scaled_dot_product_attention`` on the gathered, dequantized view
    with an explicit mask — timed here only, never called by the port)
    times come from CUDA events with the 50 MB L2 flushed before each
-   launch; the bound is the larger of the bytes these inputs need over
-   3.35 TB/s and their FLOPs over the dtype's peak.
+   launch and a spin kernel covering the host's enqueue; the bound is
+   the larger of the bytes these inputs need over 3.35 TB/s and their
+   FLOPs over the dtype's peak. The bf16 kernels' edges, untimed: T=5
+   and T=17, G=1 and G=8, hd 64 and 128, rows ending and starting on a
+   split boundary, trash-page tails.
 3. **Serving at full width.** The flagship TransformerLM (d_model 2048,
    8 heads of 256, 8 layers, vocab 8192, bf16, rope, 2 KV heads, int8
    KV cache, max_len 2048) with seeded random weights serves 16
@@ -31,9 +34,11 @@ Phases (any failure exits non-zero):
    engine (8 slots, 64-token chunks). Every request must finish; the
    launch counts (zeroed just before each engine's run) must show the
    paged kernel in every layer of every paged tick and the splash kernel
-   in every layer of every slot tick that carried a prompt chunk. The
-   share of greedy tokens equal to a gather-forced twin engine is
-   printed (informational at bf16).
+   in every layer of every slot tick that carried a prompt chunk, and
+   the routes the wrappers record must all be the bf16 tensor-core
+   kernels. The share of greedy tokens equal to a gather-forced twin
+   engine is printed (informational at bf16), with each differing
+   stream's first flip and the top-2 logit gap there.
 4. **Exact.** A small f32 model (d256, 4 layers, GQA, int8 cache) with
    the kernels on: greedy engine streams on both layouts must equal the
    port's own ``generate()``.
@@ -93,6 +98,9 @@ import time
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, no sparsity
 FLUSH_BYTES = 64 << 20  # > the 50 MB L2
+# ~1 ms at the H100's clock: covers one enqueue (0: no spin, the timer
+# of earlier chip runs; ab_serving_kernels.py --no-spin)
+SPIN_CYCLES = 2_000_000
 
 DEV = "cuda"
 # the serving path's attention shapes (phase 2)
@@ -157,7 +165,11 @@ def sync(torch):
 def time_ms(torch, fn, iters=20, warmup=3):
     """Mean device time of ``fn`` in ms: CUDA events around each call,
     the L2 cache flushed before each one (the serving tick finds the
-    pool cold: a layer's weights pass through L2 between two calls)."""
+    pool cold: a layer's weights pass through L2 between two calls). A
+    spin kernel of ~1 ms between the flush and the start event keeps the
+    card busy while the host enqueues ``fn``'s launches, so the host's
+    launch overhead is not counted as device time (it was for calls of
+    tens of µs: a 45 µs decode kernel read 45 to 236 µs)."""
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEV)
     for _ in range(warmup):
         fn()
@@ -165,6 +177,8 @@ def time_ms(torch, fn, iters=20, warmup=3):
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        if DEV == "cuda" and SPIN_CYCLES:
+            torch.cuda._sleep(SPIN_CYCLES)
         if DEV != "cuda":  # a host rehearsal: wall time, not a device time
             t0 = time.perf_counter()
             fn()
@@ -292,6 +306,81 @@ def paged_cases(torch, F, pa):
                     nbytes, _work(torch, lens, T, H, hd), "bfloat16")
             cases.append(case)
     return cases
+
+
+# the bf16 kernels' edges (phase 2, untimed): T * G off multiples of 16
+# and 64 (T=5, T=17), G=1 and G=8, hd 64 and 128, rows ending and
+# starting on a split boundary, a zero-length row, trash-page tails
+EDGES = [(5, 8, 2, 128), (17, 8, 2, 64), (3, 2, 2, 256), (2, 16, 2, 128)]
+
+
+def edge_cases(torch, pa, sp):
+    """The edge shapes through both bf16 kernels (bf16 and int8 pools for
+    paged) against their plain versions at 1e-2: four rows over 32
+    pages (paged) or L=512 (splash) whose depths are set from the
+    launch's split plan."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    B, bs, NB = 4, 16, 32
+    L = NB * bs
+    cases = []
+    for T, H, Hk, hd in EDGES:
+        _, splits, per = sp.split_plan(B, Hk, T * (H // Hk), L,
+                                       sp.sm_count(torch.device(DEV))
+                                       if DEV == "cuda" else 132)
+        if splits < 2:
+            raise AssertionError(f"edge T={T} H={H}: one split, no merge")
+        split = per * sp.STAGE_KEYS
+        lens = torch.tensor([0, split - T, split, L - T - 5],
+                            dtype=torch.int32, device=DEV)
+        P = B * NB + 1
+        perm = torch.randperm(P - 1, generator=gen, device=DEV) + 1
+        tables = torch.zeros((B, NB), dtype=torch.int32, device=DEV)
+        off = 0
+        for b, n in enumerate(lens.tolist()):
+            need = -(-(n + T) // bs)  # the rest of the row is trash page 0
+            tables[b, :need] = perm[off:off + need].to(torch.int32)
+            off += need
+        q = torch.randn((B, T, H, hd), generator=gen, device=DEV).to(
+            torch.bfloat16)
+        kf = torch.randn((P, bs, Hk, hd), generator=gen, device=DEV)
+        # v at std 0.5: a zero-length row's output is one value row, and
+        # bf16's output rounding of |O| < 2 stays under 4e-3
+        vf = 0.5 * torch.randn((P, bs, Hk, hd), generator=gen, device=DEV)
+        ks = kf.abs().amax(-1) / 127.0
+        vs = vf.abs().amax(-1) / 127.0
+        pools = {"bf16": (kf.to(torch.bfloat16), vf.to(torch.bfloat16),
+                          None, None),
+                 "int8": (torch.round(kf / ks[..., None]).to(torch.int8),
+                          torch.round(vf / vs[..., None]).to(torch.int8),
+                          ks, vs)}
+        for kind, (kp, vp, k_s, v_s) in pools.items():
+            out = pa.paged_attention(q, kp, vp, tables, lens, k_s, v_s)
+            sync(torch)
+            plain = (kp, vp) if k_s is not None else (kp.float(), vp.float())
+            ref = pa.paged_attention_reference(q.float(), *plain, tables,
+                                               lens, k_s, v_s)
+            cases.append(_edge_check("paged", kind, T, H, Hk, hd, out, ref))
+        keys = torch.randn((B, L, Hk, hd), generator=gen, device=DEV).to(
+            torch.bfloat16)
+        vals = (0.5 * torch.randn((B, L, Hk, hd), generator=gen,
+                                  device=DEV)).to(torch.bfloat16)
+        out = sp.splash_prefill_attention(q, keys, vals, lens)
+        sync(torch)
+        ref = sp.splash_prefill_reference(q.float(), keys.float(),
+                                          vals.float(), lens)
+        cases.append(_edge_check("splash", "bf16", T, H, Hk, hd, out, ref))
+    return cases
+
+
+def _edge_check(kernel, kind, T, H, Hk, hd, out, ref):
+    name = f"{kernel} edge T={T} H={H} Hk={Hk} hd={hd} {kind}"
+    if not out.float().isfinite().all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = (out.float() - ref).abs().max().item()
+    if err > 1e-2:
+        raise AssertionError(f"{name}: max abs err {err} > 1e-2")
+    return {"kernel": kernel, "pool": kind, "T": T, "H": H, "Hk": Hk,
+            "hd": hd, "max_abs_err": err, "tol": 1e-2}
 
 
 def splash_cases(torch, F, sp):
@@ -747,6 +836,30 @@ def greedy_match(requests, a, b):
     return same / max(total, 1)
 
 
+def greedy_flips(torch, np, model, requests, a, b):
+    """Where the greedy streams ``a`` leave the gather twin's ``b``: for
+    each stream that differs, its first differing token's index and,
+    from one dense forward of the model over the prompt and the tokens
+    both streams share, the gap between the top two logits there and
+    between the two tokens the paths chose (a near tie when both are
+    at bf16's rounding of the logits)."""
+    flips = []
+    for i, ((p, c), x, y) in enumerate(zip(requests, a, b)):
+        if c.get("temperature", 0.0) != 0.0 or list(x) == list(y):
+            continue
+        j = next(k for k, (u, v) in enumerate(zip(x, y)) if u != v)
+        ctx = torch.tensor(np.concatenate([p, np.asarray(x[:j], p.dtype)]),
+                           dtype=torch.long, device=DEV)[None]
+        with torch.no_grad():
+            logits = model(ctx)[0, -1].float()
+        top = logits.topk(2).values
+        flips.append({"request": i, "first_flip": j, "of": len(x),
+                      "top2_gap": (top[0] - top[1]).item(),
+                      "chosen_gap": (logits[x[j]] - logits[y[j]]).abs()
+                      .item()})
+    return flips
+
+
 def serving_phase(torch, np, dk, pa, sp):
     model = dk["get_model"]("transformer_lm", dtype=torch.bfloat16,
                             device=DEV, seed=0, **FLAGSHIP)
@@ -759,6 +872,8 @@ def serving_phase(torch, np, dk, pa, sp):
     out = {}
     pa.paged_attention.launches = 0
     sp.splash_prefill_attention.launches = 0
+    pa.paged_attention.routes.clear()
+    sp.splash_prefill_attention.routes.clear()
     paged_sum, paged_streams = serve(torch, np, dk, model, requests,
                                      paged=True, block_size=16)
     paged_sum["launches"] = {"paged_attention": pa.paged_attention.launches,
@@ -768,8 +883,11 @@ def serving_phase(torch, np, dk, pa, sp):
             pa.paged_attention.launches == 0):
         raise AssertionError(f"paged engine: {pa.paged_attention.launches} "
                              f"paged-attention launches < ticks x layers")
+    routes = {"paged_attention": dict(pa.paged_attention.routes)}
     pa.paged_attention.launches = 0
     sp.splash_prefill_attention.launches = 0
+    pa.paged_attention.routes.clear()
+    sp.splash_prefill_attention.routes.clear()
     slot_sum, slot_streams = serve(torch, np, dk, model, requests,
                                    paged=False)
     slot_sum["launches"] = {"paged_attention": pa.paged_attention.launches,
@@ -780,6 +898,13 @@ def serving_phase(torch, np, dk, pa, sp):
         raise AssertionError(
             f"slot engine: {sp.splash_prefill_attention.launches} splash "
             f"launches < chunk ticks x layers")
+    routes["splash_prefill"] = dict(sp.splash_prefill_attention.routes)
+    for name, seen in routes.items():
+        # the bf16 model's calls run the tensor-core kernels, never the
+        # scalar f32 kernel
+        if not seen or any("split_kernel" not in r for r in seen):
+            raise AssertionError(f"{name}: launch routes {seen} are not "
+                                 f"all the bf16 split kernels")
     launches = {"paged_attention": paged_sum["launches"]["paged_attention"],
                 "splash_prefill": slot_sum["launches"]["splash_prefill"]}
     _, paged_ref = serve(torch, np, dk, model, requests, paged=True,
@@ -791,8 +916,14 @@ def serving_phase(torch, np, dk, pa, sp):
         requests, paged_streams, paged_ref)
     slot_sum["greedy_match_vs_gather"] = greedy_match(
         requests, slot_streams, slot_ref)
+    paged_sum["greedy_flips"] = greedy_flips(torch, np, model, requests,
+                                             paged_streams, paged_ref)
+    slot_sum["greedy_flips"] = greedy_flips(torch, np, model, requests,
+                                            slot_streams, slot_ref)
+    paged_sum["routes"] = routes["paged_attention"]
+    slot_sum["routes"] = routes["splash_prefill"]
     out["paged"], out["slot"] = paged_sum, slot_sum
-    return out, launches
+    return out, launches, routes
 
 
 # -- phase 4: exact streams on a small f32 model ----------------------------
@@ -896,12 +1027,13 @@ def main() -> int:
     t0 = time.perf_counter()
     paged = paged_cases(torch, F, pa)
     splash = splash_cases(torch, F, sp)
+    edges = edge_cases(torch, pa, sp)
     _emit({"kernel_phase": {"paged_attention": paged,
-                            "splash_prefill": splash,
+                            "splash_prefill": splash, "edges": edges,
                             "seconds": time.perf_counter() - t0}})
 
     t0 = time.perf_counter()
-    serving, launches = serving_phase(torch, np, dk, pa, sp)
+    serving, launches, routes = serving_phase(torch, np, dk, pa, sp)
     serving["seconds"] = time.perf_counter() - t0
     _emit({"serving_phase": serving})
 
@@ -946,12 +1078,15 @@ def main() -> int:
     rows = []
     for name, src, rep, case, cases in (
             ("paged_attention", "distkeras_torch/csrc/paged_attention.cu",
-             "distkeras_tpu/ops/paged_attention.py:166", main_paged, paged),
+             "distkeras_tpu/ops/paged_attention.py:166", main_paged,
+             paged + [c for c in edges if c["kernel"] == "paged"]),
             ("splash_prefill", "distkeras_torch/csrc/splash_prefill.cu",
              "distkeras_tpu/ops/splash_prefill.py:163", main_splash,
-             splash)):
+             splash + [c for c in edges if c["kernel"] == "splash"])):
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
+            # the main path's launches by what each ran (launch_route)
+            "kernels_run": routes[name],
             "launches": launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": case["ms"], "plain_ms": case["plain_ms"],

@@ -204,7 +204,12 @@ def _group(name: str) -> str:
         return ("pair_attention" if (", true>(" in name
                                      or "ELb1EEEv" in name)
                 else "causal_attention")
-    if "attn_kernel" in name:  # PAGED=true instantiations are paged
+    # the bf16 serving kernels (csrc/serve_mma.cuh), merge included
+    if "paged_split_kernel" in name or "paged_merge_kernel" in name:
+        return "paged_attention"
+    if "splash_split_kernel" in name or "splash_merge_kernel" in name:
+        return "splash_prefill"
+    if "attn_kernel" in name:  # f32: PAGED=true instantiations are paged
         return ("paged_attention" if ("true>" in name or "Lb1E" in name)
                 else "splash_prefill")
     if ("gemm" in name or "gemv" in name or "nvjet" in name

@@ -1,7 +1,9 @@
 // Shared device code of the two serving attention kernels
-// (paged_attention.cu, splash_prefill.cu): one block per (batch row b,
-// KV head h, tile of kRows query rows), a loop inside the block over
-// kTile-key tiles of K/V, f32 online softmax.
+// (paged_attention.cu, splash_prefill.cu) for f32 queries — bf16 queries
+// take the tensor-core core of serve_mma.cuh, since the tensor cores
+// round to bf16 and the f32 path is held to 1e-5: one block per (batch
+// row b, KV head h, tile of kRows query rows), a loop inside the block
+// over kTile-key tiles of K/V, f32 online softmax, scalar FMAs.
 //
 // Query row r of KV head h is query head h * G + g at absolute position
 // starts[b] + t, where r = t * G + g (the GQA group rides the row axis,
@@ -14,14 +16,13 @@
 //
 // The K/V tile is staged in shared memory as f32 (int8 pages are
 // dequantized there with their per-token f32 scales and kept in f32).
-// Scores, the running max/sum and the accumulator are f32; the output
-// is acc / max(l, 1e-30) cast to the query dtype. Keys past a row's
+// Scores, the running max/sum, the accumulator and the output
+// acc / max(l, 1e-30) are f32. Keys past a row's
 // position are masked; tiles past the block's last query position are
 // skipped; rows past T * G are neither read nor written.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -35,22 +36,8 @@ constexpr int kTile = 16;                     // keys per K/V tile
 constexpr int kThreads = kWarps * 32;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ float to_f32(int8_t x) {
   return static_cast<float>(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, like a cast
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -103,13 +90,13 @@ __device__ __forceinline__ void load_tile(float (*dst)[HD],
 // PAGED: tile j of row b is physical page tables[b * ntab + j] of a
 // [P, kTile, Hk, HD] pool. Otherwise tile j is keys [j * kTile, +kTile)
 // of a contiguous [B, L, Hk, HD] view (ntab = L / kTile).
-template <typename QT, typename KVT, int HD, bool PAGED>
+template <typename KVT, int HD, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
-    attn_kernel(const QT* __restrict__ q, const KVT* __restrict__ kc,
+    attn_kernel(const float* __restrict__ q, const KVT* __restrict__ kc,
                 const KVT* __restrict__ vc, const float* __restrict__ ksc,
                 const float* __restrict__ vsc,
                 const int* __restrict__ tables,
-                const int* __restrict__ starts, QT* __restrict__ out,
+                const int* __restrict__ starts, float* __restrict__ out,
                 int T, int H, int Hk, int ntab, float scale) {
   using LN = Lanes<HD>;
   constexpr int DPL = LN::DPL;
@@ -144,10 +131,10 @@ __global__ void __launch_bounds__(kThreads)
     qpos[i] = start + t;
     m[i] = -INFINITY;
     l[i] = 0.f;
-    const QT* qr = q + ((size_t)(b * T + t) * H + h * G + g) * HD;
+    const float* qr = q + ((size_t)(b * T + t) * H + h * G + g) * HD;
 #pragma unroll
     for (int j = 0; j < DPL; ++j) {
-      qv[i][j] = live[i] ? to_f32(qr[LN::chan(lane, j)]) : 0.f;
+      qv[i][j] = live[i] ? qr[LN::chan(lane, j)] : 0.f;
       acc[i][j] = 0.f;
     }
   }
@@ -207,11 +194,11 @@ __global__ void __launch_bounds__(kThreads)
     const int r = r_first + warp * kRowsPerWarp + i;
     const int t = r / G;
     const int g = r - t * G;
-    QT* orow = out + ((size_t)(b * T + t) * H + h * G + g) * HD;
+    float* orow = out + ((size_t)(b * T + t) * H + h * G + g) * HD;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int jj = 0; jj < DPL; ++jj)
-      orow[LN::chan(lane, jj)] = from_f32<QT>(acc[i][jj] / denom);
+      orow[LN::chan(lane, jj)] = acc[i][jj] / denom;
   }
 }
 

@@ -33,7 +33,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "distkeras_torch"
 SOURCES = ("paged_attention.cu", "splash_prefill.cu", "causal_attention.cu",
            "pair_attention.cu")
-HEADERS = ("attn_common.cuh", "flash_mma.cuh")
+HEADERS = ("attn_common.cuh", "flash_mma.cuh", "serve_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,8 +42,8 @@ _ll = ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p, strides as
 # 64-bit integers
 _SIGNATURES = {
-    "dk_paged_attention": [_vp] * 8 + [_i] * 9 + [_f, _vp],
-    "dk_splash_prefill": [_vp] * 5 + [_i] * 7 + [_f, _vp],
+    "dk_paged_attention": [_vp] * 8 + [_i] * 9 + [_f, _vp, _vp] + [_i] * 3,
+    "dk_splash_prefill": [_vp] * 5 + [_i] * 7 + [_f, _vp, _vp] + [_i] * 3,
     "dk_causal_attention_fwd": [_vp] * 5 + [_i] * 4 + [_ll, _ll, _f, _vp],
     "dk_causal_attention_dq": [_vp] * 7 + [_i] * 4 + [_ll, _ll, _f, _vp],
     "dk_causal_attention_dkv": [_vp] * 8 + [_i] * 4 + [_ll, _ll, _f, _vp],

@@ -7,21 +7,35 @@ before a dense masked attend: one full ``[B, L, Hk, hd]`` round trip per
 tick per layer, and under int8 KV the whole view is dequantized into the
 model dtype first. :func:`paged_attention` on a CUDA tensor runs the
 hand-written Hopper kernel of ``csrc/paged_attention.cu`` instead, which
-reads the pool straight off the block table:
+reads the pool straight off the block table and dispatches on the query
+dtype:
 
-- one block per (row ``b``, KV head ``h``, tile of 16 query rows); a
-  loop inside the block walks the row's pages, each block loading its
-  own block-table entries;
-- int8 pages are dequantized with their per-token f32 scales in shared
-  memory — the dequantized K/V never exists in device memory;
-- GQA grouped natively: query row ``r = t * G + g`` of KV head ``h`` is
-  query head ``h * G + g`` at position ``seq_lens[b] + t``;
-- online softmax in f32 over pages; pages wholly past the tile's last
-  query position are skipped.
+- bf16 queries run the tensor-core split-K core of
+  ``csrc/serve_mma.cuh``: ``mma.sync`` for ``q kᵀ`` and ``p v`` with the
+  f32 online softmax in registers; GQA on the M axis (query row
+  ``r = t * G + g`` of KV head ``h`` is query head ``h * G + g`` at
+  position ``seq_lens[b] + t``; a block takes 64 such rows, or 16 at
+  decode); the row's pages cut into splits of four-page stages chosen by
+  :func:`~distkeras_torch.ops.splash_prefill.split_plan` from shapes
+  alone (never from ``seq_lens``), each split writing an f32 partial
+  that a second kernel merges in split order (flash-decoding). A block
+  stages its own block-table entries and copies its pages with
+  ``cp.async`` into a two-deep ring; int8 pages travel as int8 and are
+  converted to bf16 on chip (once per stage in shared memory for 64-row
+  blocks, in the fragment loads at decode), each key's scale applied to
+  its f32 score column and each value's to P's (bf16-rounded) column,
+  carried as a bf16 hi + lo pair so the scale keeps f32 precision.
+- f32 queries run the scalar kernel of ``csrc/attn_common.cuh`` (one
+  block per 16 query rows, int8 dequantized in shared memory, f32 FMAs),
+  which meets f32's 1e-5.
 
-On a CPU tensor the same function runs :func:`paged_attention_reference`,
-the gather + dequant + masked softmax math of ``_paged_attend``. There is
-no other fallback: a CUDA call that the kernel cannot take raises.
+Pages wholly past a block's last query position are never loaded. On a
+CPU tensor the same function runs :func:`paged_attention_reference`, the
+gather + dequant + masked softmax math of ``_paged_attend``;
+:func:`paged_attention_split_reference` is the kernel's split-K math in
+plain PyTorch (the CPU tests hold it against the TPU kernel; nothing on
+the main path calls it). There is no other fallback: a CUDA call that
+the kernel cannot take raises.
 """
 
 from __future__ import annotations
@@ -30,7 +44,9 @@ import ctypes
 
 import torch
 
-from distkeras_torch.ops.splash_prefill import splash_prefill_reference
+from distkeras_torch.ops.splash_prefill import (
+    launch_route, partial_scratch, sm_count, splash_prefill_reference,
+    splash_prefill_split_reference, split_plan)
 
 # shapes the Hopper kernel is compiled for (csrc/paged_attention.cu)
 KERNEL_HEAD_DIMS = (64, 128, 256)
@@ -38,9 +54,9 @@ KERNEL_BLOCK_SIZES = (16,)
 
 
 def supports(hd: int, block_size: int) -> bool:
-    """Shapes the Hopper kernel serves: head dims it is compiled for
-    (each lane of a warp owns ``hd / 32`` channels) and 16-token pages
-    (one page is one shared-memory tile). Any query count ``T``, GQA
+    """Shapes the Hopper kernel serves: head dims it is compiled for and
+    16-token pages (four pages make one 64-key stage of the bf16 kernel,
+    one page one tile of the f32 kernel). Any query count ``T``, GQA
     group and page dtype tile — unlike the TPU's sublane rules."""
     return hd in KERNEL_HEAD_DIMS and block_size in KERNEL_BLOCK_SIZES
 
@@ -92,6 +108,20 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
     return splash_prefill_reference(q, keys, vals, seq_lens)
 
 
+def paged_attention_split_reference(q, k_pages, v_pages, block_tables,
+                                    seq_lens, key_scales=None,
+                                    value_scales=None, *, pages_per_split):
+    """The bf16 kernel's split-K math in plain PyTorch: the gathered
+    view, cut into splits of ``pages_per_split`` pages, each split's
+    f32 partial and the merge in split order
+    (:func:`~distkeras_torch.ops.splash_prefill.splash_prefill_split_reference`
+    on the gathered view)."""
+    keys, vals = gathered_view(k_pages, v_pages, block_tables, key_scales,
+                               value_scales, q.dtype)
+    return splash_prefill_split_reference(
+        q, keys, vals, seq_lens, pages_per_split * k_pages.shape[1])
+
+
 def _check(q, k_pages, v_pages, block_tables, seq_lens, key_scales,
            value_scales):
     """Device, dtype, shape and contiguity checks for the CUDA kernel —
@@ -132,8 +162,10 @@ def _check(q, k_pages, v_pages, block_tables, seq_lens, key_scales,
             raise ValueError("all paged-attention inputs must share a device")
         if not t.is_contiguous():
             raise ValueError("paged-attention inputs must be contiguous")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("pages must be 16-byte aligned (16-byte loads)")
+    if q.data_ptr() % 16 or k_pages.data_ptr() % 16 \
+            or v_pages.data_ptr() % 16:
+        raise ValueError("q and pages must be 16-byte aligned (16-byte "
+                         "loads)")
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
@@ -152,7 +184,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
         dequant scales for int8 pools (both or neither).
 
     Returns ``[B, T, H, hd]`` in ``q.dtype``. CPU tensors run the plain
-    version; CUDA tensors launch the Hopper kernel or raise.
+    version; CUDA tensors launch the Hopper kernel (bf16: the split-K
+    tensor-core kernel and its merge; f32: the scalar kernel) or raise.
     """
     if (key_scales is None) != (value_scales is None):
         raise ValueError("pass both key_scales and value_scales or neither")
@@ -170,7 +203,12 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
     B, T, H, hd = q.shape
     _, bs, Hk, _ = k_pages.shape
     quant = key_scales is not None
+    MB = block_tables.shape[1]
     out = torch.empty_like(q)
+    bf16 = q.dtype == torch.bfloat16
+    TG = T * (H // Hk)
+    bm, splits, per = split_plan(B, Hk, TG, MB * bs, sm_count(q.device))
+    part = partial_scratch(B, Hk, TG, hd, splits, q.device) if bf16 else None
     vp = ctypes.c_void_p
     rc = lib.dk_paged_attention(
         vp(q.data_ptr()), vp(k_pages.data_ptr()), vp(v_pages.data_ptr()),
@@ -178,18 +216,22 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
         vp(value_scales.data_ptr() if quant else 0),
         vp(block_tables.data_ptr()), vp(seq_lens.data_ptr()),
         vp(out.data_ptr()),
-        B, T, H, Hk, hd, bs, block_tables.shape[1],
-        int(q.dtype == torch.bfloat16), int(quant),
+        B, T, H, Hk, hd, bs, MB, int(bf16), int(quant),
         ctypes.c_float(hd ** -0.5),
         vp(torch.cuda.current_stream(q.device).cuda_stream),
+        vp(part.data_ptr() if part is not None else 0), bm, splits, per,
     )
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"{build.error_string(rc)} (cuda error {rc})")
     paged_attention.launches += 1
+    route = launch_route("paged", bf16, bm, splits)
+    paged_attention.routes[route] = paged_attention.routes.get(route, 0) + 1
     return out
 
 
-# kernel launches made through the wrapper (chip_smoke.py zeroes it
-# before the serving phase and reads it after)
+# wrapper calls that launched the kernel (the merge included: one per
+# call), and the same calls by route (``launch_route``); chip_smoke.py
+# zeroes both before the serving phase and reads them after
 paged_attention.launches = 0
+paged_attention.routes = {}

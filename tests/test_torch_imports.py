@@ -3,7 +3,8 @@ module (the serving, training and sequence-parallel slices alike) loads no ``jax
 ``flax``, ``optax`` or ``distkeras_tpu`` module (checked
 in a fresh interpreter, since this test process imports both packages),
 and ``chip_smoke.py`` imports none of them either (checked on its
-syntax tree). Importing a module builds no kernel and needs no card."""
+syntax tree), nor does ``ab_serving_kernels.py``. Importing a module
+builds no kernel and needs no card."""
 
 import ast
 import os
@@ -84,6 +85,14 @@ def _imported_roots(path):
 
 def test_chip_smoke_imports_no_jax():
     roots = _imported_roots(os.path.join(ROOT, "chip_smoke.py"))
+    assert "distkeras_torch" in roots
+    assert not roots & set(FORBIDDEN)
+
+
+def test_ab_script_imports_no_jax():
+    """The parent-against-change timing script loads the port and
+    chip_smoke.py, nothing of the reference package."""
+    roots = _imported_roots(os.path.join(ROOT, "ab_serving_kernels.py"))
     assert "distkeras_torch" in roots
     assert not roots & set(FORBIDDEN)
 

@@ -114,6 +114,79 @@ def test_splash_kernel_matches_plain(dtype, T, hd, L):
     assert (got.float() - ref).abs().max().item() <= tol
 
 
+def _split_keys(dev, B, Hk, TG, nkeys):
+    """Keys per split of the bf16 kernels' plan for this launch."""
+    _, splits, per = sp.split_plan(B, Hk, TG, nkeys, sp.sm_count(dev))
+    assert splits > 1  # the cases below exercise the merge
+    return per * sp.STAGE_KEYS
+
+
+# T * G off multiples of 16 and 64 (T=5, T=17), G=1 and G=8, hd 64 and 128
+_EDGES = [(5, 8, 2, 128), (17, 8, 2, 64), (3, 2, 2, 256), (2, 16, 2, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,H,Hk,hd", _EDGES)
+def test_paged_kernel_split_edges(quant, dtype, T, H, Hk, hd):
+    """Four rows over 32 pages: a zero-length row, a row whose last query
+    ends on a split boundary, one whose first query starts on one, and a
+    deep row; the short rows' tails point at the trash page, so their
+    last splits are all trash."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(11)
+    B, bs, NB = 4, 16, 32
+    split = _split_keys(dev, B, Hk, T * (H // Hk), NB * bs)
+    q, kp, vp, ks, vs, _, _ = _paged_inputs(rng, B, T, H, Hk, hd, bs, NB,
+                                            quant)
+    lens = np.asarray([0, split - T, split, NB * bs - T - 5], np.int32)
+    tables = _tables(rng, B, NB, B * NB + 1,
+                     [-(-(int(n) + T) // bs) for n in lens])
+    c = lambda a: None if a is None else torch.from_numpy(a).to(dev)  # noqa: E731
+    qd, kd, vd = c(q).to(dt), c(kp), c(vp)
+    if not quant:
+        kd, vd = kd.to(dt), vd.to(dt)
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(qd, kd, vd, c(tables), c(lens), c(ks), c(vs))
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    ref = pa.paged_attention_reference(
+        qd.float(), kd if quant else kd.float(), vd if quant else vd.float(),
+        c(tables), c(lens), c(ks), c(vs))
+    assert got.dtype == dt and torch.isfinite(got.float()).all()
+    tol = 1e-5 if dt == torch.float32 else 1e-2
+    assert (got.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,H,Hk,hd", _EDGES)
+def test_splash_kernel_split_edges(dtype, T, H, Hk, hd):
+    """Rows at depth 0, ending on a split boundary, starting on one, and
+    at the deepest start, over L=512 (many splits)."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(12)
+    B, L = 4, 512
+    split = _split_keys(dev, B, Hk, T * (H // Hk), L)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dev).to(dt)
+               for s in ((B, T, H, hd), (B, L, Hk, hd), (B, L, Hk, hd)))
+    starts = torch.tensor([0, split - T, split, L - T], dtype=torch.int32,
+                          device=dev)
+    before = sp.splash_prefill_attention.launches
+    got = sp.splash_prefill_attention(q, k, v, starts)
+    torch.cuda.synchronize()
+    assert sp.splash_prefill_attention.launches == before + 1
+    ref = sp.splash_prefill_reference(q.float(), k.float(), v.float(),
+                                      starts)
+    assert got.dtype == dt and torch.isfinite(got.float()).all()
+    tol = 1e-5 if dt == torch.float32 else 1e-2
+    assert (got.float() - ref).abs().max().item() <= tol
+
+
 @pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take():
     dev = _card()
@@ -349,3 +422,26 @@ def test_pair_wrappers_raise_on_what_the_kernels_do_not_take():
     z = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="Tq == Tk"):
         pp.pair_attention_fwd(z, z[:, :32], z[:, :32], True)
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void paged_split_kernel<signed char, 256, 64>(__nv_bfloat16 const*, "
+     "signed char const*)", "paged_attention"),
+    ("_Z18paged_split_kernelIaLi256ELi16EEvPK13__nv_bfloat16", "paged_attention"),
+    ("void paged_merge_kernel<256>(float const*, __nv_bfloat16*, int)",
+     "paged_attention"),
+    ("void splash_split_kernel<256, 64>(__nv_bfloat16 const*)",
+     "splash_prefill"),
+    ("_Z19splash_merge_kernelILi128EEvPKfP13__nv_bfloat16iiiii",
+     "splash_prefill"),
+    ("void dk::attn_kernel<signed char, 256, true>(float const*)",
+     "paged_attention"),
+    ("void dk::attn_kernel<float, 64, false>(float const*)",
+     "splash_prefill"),
+])
+def test_profile_groups_place_the_serving_kernels(name, group):
+    """bench.py's profile puts every serving kernel, the merges included,
+    under its op (demangled or mangled names), never under 'other'."""
+    from distkeras_torch.bench import _group
+
+    assert _group(name) == group

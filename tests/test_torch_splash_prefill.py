@@ -3,8 +3,10 @@
 kernel (distkeras_tpu/ops/splash_prefill.py, interpret mode on the CPU
 as its own tests run it): same numpy inputs, f32, atol 1e-5 — GQA/MHA
 chunk shapes and rows at distinct depths (0 / mid / max), plus
-``choose_kv_block`` and the Hopper gates. The kernel itself is held
-against its plain version on the card by tests/test_torch_kernels.py."""
+``choose_kv_block`` and the Hopper gates, and the bf16 kernel's
+split-K math (per-split partials and their merge) in plain PyTorch. The
+kernel itself is held against its plain version on the card by
+tests/test_torch_kernels.py."""
 
 import numpy as np
 import pytest
@@ -76,3 +78,24 @@ def test_gates_are_chosen_for_hopper():
     assert sp.supports(3, 128, 1024)
     assert not sp.preferred(64, 256, 2048, device="cpu")
     assert sp.preferred(64, 256, 2048, device="cuda")
+
+
+@pytest.mark.parametrize("keys_per_split", [16, 32])
+@pytest.mark.parametrize("T", [2, 5])
+@pytest.mark.parametrize("H,Hk", [(4, 4), (16, 2)])
+def test_split_reference_matches_jax_kernel(keys_per_split, T, H, Hk):
+    """The kernel's split-K partials and merge, in plain PyTorch, against
+    the TPU kernel: a row at depth 0 (every later split empty), rows
+    whose chunk ends and starts on a split boundary, the deepest row;
+    MHA and GQA with G=8."""
+    rng = np.random.default_rng(9)
+    B, hd, L = 4, 16, 64
+    q, k, v = _inputs(rng, B, T, H, Hk, hd, L)
+    starts = np.asarray([0, keys_per_split - T, keys_per_split, L - T],
+                        np.int32)
+    want = np.asarray(jax_sp.splash_prefill_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(starts)))
+    got = sp.splash_prefill_split_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(starts), keys_per_split).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
