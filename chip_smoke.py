@@ -10,7 +10,10 @@ Phases (any failure exits non-zero):
 1. **Environment + build.** The card's name and power limit as
    ``nvidia-smi`` reports them, the torch / CUDA / nvcc versions, and the
    time to build the hand-written kernels (four sources, one ``nvcc``
-   each, in parallel) from ``distkeras_torch/csrc``.
+   each, in parallel) from ``distkeras_torch/csrc``, and the hd=256
+   training forwards' build facts: registers and spill bytes from nvcc's
+   ``-Xptxas -v`` report kept beside each library, and the dynamic
+   shared memory a launch requests.
 2. **Kernels.** Each kernel against its plain PyTorch version on the
    card at the serving path's shapes — paged attention (8 rows, T in
    {1, 64}, H=8, Hk=2, hd=256, 16-token pages, 128 pages per row, bf16
@@ -85,12 +88,15 @@ Phases (any failure exits non-zero):
    (7b).
 
 Output: JSON lines per phase, the ``nvidia-smi`` line, one
-``{"kernels": [...]}`` line, and as the last line
+``{"kernels": [...]}`` line (the three forward rows also carry their
+``build`` facts), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -99,7 +105,7 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, no sparsity
 FLUSH_BYTES = 64 << 20  # > the 50 MB L2
 # ~1 ms at the H100's clock: covers one enqueue (0: no spin, the timer
-# of earlier chip runs; ab_serving_kernels.py --no-spin)
+# of earlier chip runs; ab_kernels.py --no-spin)
 SPIN_CYCLES = 2_000_000
 
 DEV = "cuda"
@@ -602,6 +608,52 @@ def pair_times(torch, F, pp, q, k, v, o, lse, do, dlse, causal):
     return t
 
 
+# -- the forward kernels' build facts (kernels line, rows 3, 6 and 7) ----
+
+
+# row -> (source, template flags <CAUSAL, PAIR> of its forward instantiation)
+FWD_INSTANCES = {"causal_attention_fwd": ("causal_attention.cu", "ELb1ELb0E"),
+                 "pair_wedge_fwd": ("pair_attention.cu", "ELb1ELb1E"),
+                 "pair_rect_fwd": ("pair_attention.cu", "ELb0ELb1E")}
+
+
+def ptxas_facts(log, key):
+    """Registers and spill bytes of the kernel whose mangled name holds
+    ``key``, from nvcc's ``-Xptxas -v`` report ``log``."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and key in line:
+            block = []
+            for nxt in lines[i + 1:]:
+                if "Compiling entry function" in nxt:
+                    break
+                block.append(nxt)
+            text = "\n".join(block)
+            regs = re.search(r"Used (\d+) registers", text)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", text)
+            if regs and spill:
+                return {"registers": int(regs.group(1)),
+                        "spill_store_bytes": int(spill.group(1)),
+                        "spill_load_bytes": int(spill.group(2))}
+    raise AssertionError(f"no ptxas report for a kernel named like {key}")
+
+
+def fwd_build_facts(build, kern, hd):
+    """Per forward row: the hd instantiation's registers at entry (the
+    consumers then take 240 with setmaxnreg, the producer 24) and spill
+    bytes from the report ``build`` keeps beside each library, and the
+    dynamic shared memory a launch requests."""
+    smem = kern.libs["causal_attention.cu"].dk_attention_fwd_smem
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    facts = {}
+    for row, (source, flags) in FWD_INSTANCES.items():
+        log = build._target(source).with_suffix(".log").read_text()
+        facts[row] = dict(ptxas_facts(log, f"sm9010fwd_kernelILi{hd}{flags}"),
+                          smem_bytes=smem(hd))
+    return facts
+
+
 # -- phase 6: the flagship training step at full width --------------------
 
 
@@ -1017,11 +1069,12 @@ def main() -> int:
 
     smi = nvidia_smi()
     kern = build.load()
+    fwd_facts = fwd_build_facts(build, kern, CAUSAL["hd"])
     _emit({"env": {
         "nvidia_smi": smi, "torch": torch.__version__,
         "cuda": torch.version.cuda, "nvcc": _nvcc_version(build),
         "python": sys.version.split()[0],
-        "kernel_build_s": kern.seconds,
+        "kernel_build_s": kern.seconds, "forward_build": fwd_facts,
         "device": torch.cuda.get_device_name(0),
     }})
     t0 = time.perf_counter()
@@ -1111,6 +1164,8 @@ def main() -> int:
             "bound_by": main_causal[f"{kern}_bound_by"],
             "library_ms": lib,
         })
+        if name in fwd_facts:
+            rows[-1]["build"] = fwd_facts[name]
     lines = {"fwd": (148, 128), "dq": (301, 281), "dkv": (380, 359)}
     for kern, err_keys, lib in (
             ("fwd", ("out_abs_err",), "fwd_library_ms"),
@@ -1134,6 +1189,8 @@ def main() -> int:
                 "bound_by": main[f"{kern}_bound_by"],
                 "library_ms": main[lib] if lib else None,
             })
+            if name in fwd_facts:
+                rows[-1]["build"] = fwd_facts[name]
     print(smi, flush=True)
     _emit({"kernels": rows})
     _emit({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
 // Causal flash attention for training: a forward kernel, a dq kernel and
 // a dk/dv kernel, on bf16 [B, T, H, hd] tensors with f32 accumulation.
-// The kernels are the CAUSAL, non-PAIR instantiations of flash_mma.cuh,
-// which sets out their design.
+// The kernels are the CAUSAL, non-PAIR instantiations of
+// flash_fwd_sm90.cuh (the forward: wgmma, TMA, warp-specialized) and
+// flash_mma.cuh (dq, dk/dv), which set out their designs.
 //
 // Replaces the Pallas TPU kernels of distkeras_tpu/ops/pallas_attention.py:
 //   dk_causal_attention_fwd <- _fwd :150 (_fwd_kernel :100)
@@ -16,6 +17,7 @@
 // for the three kernels against 268-470 MB of traffic — about 500
 // FLOPs per byte, above the card's ~295 bf16 ridge point.
 
+#include "flash_fwd_sm90.cuh"
 #include "flash_mma.cuh"
 
 // causal self-attention: q scaled in-kernel, lse stored [B, H, T]
@@ -88,4 +90,16 @@ extern "C" int dk_causal_attention_dkv(const void* q, const void* k,
   a.dk = (ca::bf16*)dk;
   a.dv = (ca::bf16*)dv;
   CA_DISPATCH(launch_dkv)
+}
+
+// The dynamic shared memory a forward launch requests at head dim hd
+// (flash_fwd_sm90.cuh; nvcc's report gives registers and spills, not
+// this), or -1 for a head dim the kernels are not compiled for.
+extern "C" int dk_attention_fwd_smem(int hd) {
+  switch (hd) {
+    case 64: return (int)ca::sm90::Tiles<64>::SMEM;
+    case 128: return (int)ca::sm90::Tiles<128>::SMEM;
+    case 256: return (int)ca::sm90::Tiles<256>::SMEM;
+    default: return -1;
+  }
 }

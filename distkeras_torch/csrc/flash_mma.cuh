@@ -1,6 +1,6 @@
-// Flash attention on the tensor cores for training: a forward kernel, a dq
-// kernel and a dk/dv kernel, bf16 operands with f32 accumulation, shared by
-// two sources that instantiate them:
+// Flash attention on the tensor cores for training, the backward half: a
+// dq kernel and a dk/dv kernel, bf16 operands with f32 accumulation,
+// shared by two sources that instantiate them:
 //
 //   causal_attention.cu  CAUSAL, !PAIR: causal self-attention over
 //                        [B, T, H, hd]; q is scaled in-kernel.
@@ -8,17 +8,18 @@
 //                        ring, q arriving pre-scaled, Tq x Tk (the causal
 //                        wedge needs Tq == Tk), lse cotangent folded in.
 //
-// The three kernels are the Dao recompute split as the TPU kernels split
-// it: the forward keeps an f32 online softmax and writes O and the per-row
-// logsumexp lse = m + log(max(l, 1e-30)); the backward recomputes
-// P = exp(s - lse), with delta = rowsum(dO * O) in f32 recomputed in-kernel,
-// P cast to bf16 before dV, dS cast to bf16 before dQ and dK. Without PAIR,
-// q is scaled in f32 and cast back to bf16 before q k^T, and dQ is scaled
-// at the end; with PAIR, q is used as given and dQ is the gradient of the
-// pre-scaled q. dK is unscaled either way. With PAIR, the lse is a public
-// output whose cotangent dlse enters as dS = P * (dP - delta + dlse). Keys
-// past a query's position (CAUSAL) or past Tk are masked with -1e30, as
-// the TPU kernels mask them.
+// The forward (flash_fwd_sm90.cuh, on wgmma and TMA) writes O and the
+// per-row logsumexp lse = m + log(max(l, 1e-30)); this file also holds the
+// structs and helpers the two sources and the serving core share. The
+// backward is the Dao recompute split as the TPU kernels split it: it
+// recomputes P = exp(s - lse), with delta = rowsum(dO * O) in f32
+// recomputed in-kernel, P cast to bf16 before dV, dS cast to bf16 before
+// dQ and dK. Without PAIR, q is scaled in f32 and cast back to bf16 before
+// q k^T, and dQ is scaled at the end; with PAIR, q is used as given and dQ
+// is the gradient of the pre-scaled q. dK is unscaled either way. With
+// PAIR, the lse is a public output whose cotangent dlse enters as
+// dS = P * (dP - delta + dlse). Keys past a query's position (CAUSAL) or
+// past Tk are masked with -1e30, as the TPU kernels mask them.
 //
 // What bounds them on the H100: operations, at the flagship shapes (about
 // 500 FLOPs per byte for the causal [8, 2048, 8, 256] kernels, more for
@@ -27,19 +28,19 @@
 // accumulate), each warp owning 16 rows of a product, operand tiles staged
 // in shared memory (rows padded by 16 bytes so fragment loads do not
 // conflict), and the softmax in registers between the two products (the S
-// fragment is re-packed as the A operand of P V without touching shared
-// memory).
+// fragment is re-packed as the A operand of the next product without
+// touching shared memory).
 //
-// The TPU carries the softmax state across a sequential grid axis. Here
-// each block loops inside itself: the forward and dq kernels take one
-// block per (b*h, 64-row query tile i) and walk key tiles (j <= i when
-// CAUSAL, all of Tk otherwise); the dk/dv kernel takes one block per
-// (b*h, 64-key tile j) and walks query tiles (i >= j when CAUSAL). The TPU's
-// pruned wedge enumeration (_tri_rows / _tri_cols) becomes these loop
-// bounds: what it prunes is never visited. dq and dk/dv stay two kernels,
-// as on the TPU, so no atomics are needed and the gradients are the same
-// from run to run. The causal wedge makes blocks unequal, so the heavy
-// tiles take the low block indices and start first.
+// The TPU carries the gradient sums across a sequential grid axis. Here
+// each block loops inside itself: the dq kernel takes one block per (b*h,
+// 64-row query tile i) and walks key tiles (j <= i when CAUSAL, all of Tk
+// otherwise); the dk/dv kernel takes one block per (b*h, 64-key tile j)
+// and walks query tiles (i >= j when CAUSAL). The TPU's pruned wedge
+// enumeration (_tri_rows / _tri_cols) becomes these loop bounds: what it
+// prunes is never visited. dq and dk/dv stay two kernels, as on the TPU,
+// so no atomics are needed and the gradients are the same from run to
+// run. The causal wedge makes blocks unequal, so the heavy tiles take the
+// low block indices and start first.
 //
 // Layout: q is read through its own batch and token strides, k and v
 // through theirs (the head stride is hd and the last axis is contiguous),
@@ -50,20 +51,19 @@
 // taken: rows and keys past them are zero-filled in shared memory, masked,
 // and never written.
 //
-// Registers at hd=256: the forward and dq accumulators are 16 x 256 f32
-// per warp (128 per lane). dk/dv would need two such accumulators, so its
-// block (8 warps, 64 keys) splits the output by head dimension: each warp
-// owns 16 keys x 128 channels of both dK and dV (128 per lane), and the
-// eight warps first compute P^T and dS^T for the 64 keys x 32 queries of a
-// step together, through shared memory. Every key tile re-reads q, dO and
-// O for its queries, so wider key tiles mean less traffic. At ~230
-// registers a lane only one such block fits an SM, so the kernel
-// double-buffers its per-step tiles: cp.async copies step i+1's q, dO, O,
-// lse (and dlse) into shared memory while step i computes (180 KB of
-// shared memory).
+// Registers at hd=256: the dq accumulator is 16 x 256 f32 per warp (128
+// per lane). dk/dv would need two such accumulators, so its block (8
+// warps, 64 keys) splits the output by head dimension: each warp owns 16
+// keys x 128 channels of both dK and dV (128 per lane), and the eight
+// warps first compute P^T and dS^T for the 64 keys x 32 queries of a step
+// together, through shared memory. Every key tile re-reads q, dO and O for
+// its queries, so wider key tiles mean less traffic. At ~230 registers a
+// lane only one such block fits an SM, so the kernel double-buffers its
+// per-step tiles: cp.async copies step i+1's q, dO, O, lse (and dlse) into
+// shared memory while step i computes (180 KB of shared memory).
 //
-// Otherwise simple rather than fast: the forward and dq kernels load their
-// tiles synchronously (two blocks per SM overlap them), no wgmma, accurate
+// Otherwise simple rather than fast: the dq kernel loads its tiles
+// synchronously (two blocks per SM overlap them), no wgmma, accurate
 // expf. Times sit beside the bounds in PERF.md.
 
 #pragma once
@@ -307,142 +307,6 @@ template <bool CAUSAL, int BR, int BC>
 __device__ __forceinline__ int key_tiles(const Shape& a, int qt) {
   return CAUSAL ? (min(a.Tk, (qt + 1) * BR) - 1) / BC + 1
                 : (a.Tk + BC - 1) / BC;
-}
-
-// ---------------------------------------------------------------------------
-// forward: block = (b*h, 64-row query tile), 4 warps x 16 rows, 64-key tiles
-// ---------------------------------------------------------------------------
-
-constexpr int kFwdRows = 64, kFwdKeys = 64, kFwdThreads = 128;
-
-template <int HD, bool CAUSAL, bool PAIR>
-__global__ void __launch_bounds__(kFwdThreads)
-    fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ out,
-               float* __restrict__ lse_out, const Shape a) {
-  constexpr int LD = HD + 8, BR = kFwdRows, BC = kFwdKeys;
-  constexpr int NO = HD / 8, NS = BC / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BR * LD;
-  bf16* sV = sK + BC * LD;
-
-  const int nq = (a.Tq + BR - 1) / BR;
-  const int qt = nq - 1 - blockIdx.y;  // heavy (late) query tiles first
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const long long qbase = (long long)b * a.qsb + (long long)h * HD;
-  const long long kbase = (long long)b * a.ksb + (long long)h * HD;
-  const long long ost = (long long)a.H * HD;
-  const long long obase = (long long)b * a.Tq * ost + (long long)h * HD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const int row0 = qt * BR + warp * 16 + g;  // and row0 + 8
-
-  load_rows<HD, BR, kFwdThreads, !PAIR>(sQ, q + qbase, a.qst, qt * BR, a.Tq,
-                                        a.scale);
-
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  const int nkt = key_tiles<CAUSAL, BR, BC>(a, qt);
-  for (int kt = 0; kt < nkt; ++kt) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows<HD, BC, kFwdThreads, false>(sK, k + kbase, a.kst, kt * BC,
-                                          a.Tk, 0.f);
-    load_rows<HD, BC, kFwdThreads, false>(sV, v + kbase, a.kst, kt * BC,
-                                          a.Tk, 0.f);
-    __syncthreads();
-
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a4[4];
-      frag_a<LD>(a4, sQ, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        uint32_t b0, b1;
-        frag_b_nk<LD>(b0, b1, sK, n * 8, kk * 16, lane);
-        mma16816(s[n], a4, b0, b1);
-      }
-    }
-    // causal: only a tile that reaches past this warp's first row needs
-    // the mask; otherwise only a ragged last tile (keys past Tk)
-    if (CAUSAL ? kt * BC + BC - 1 > qt * BR + warp * 16
-               : kt * BC + BC > a.Tk) {
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kpos = kt * BC + n * 8 + c2 + (e & 1);
-          if (CAUSAL ? kpos > row0 + (e >> 1) * 8 : kpos >= a.Tk)
-            s[n][e] = kNegInf;
-        }
-    }
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float corr0 = expf(m0 - mx0), corr1 = expf(m1 - mx1);
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      s[n][0] = expf(s[n][0] - mx0);
-      s[n][1] = expf(s[n][1] - mx0);
-      s[n][2] = expf(s[n][2] - mx1);
-      s[n][3] = expf(s[n][3] - mx1);
-      rs0 += s[n][0] + s[n][1];
-      rs1 += s[n][2] + s[n][3];
-    }
-    l0 = l0 * corr0 + quad_sum(rs0);
-    l1 = l1 * corr1 + quad_sum(rs1);
-    m0 = mx0;
-    m1 = mx1;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= corr0;
-      acc[n][1] *= corr0;
-      acc[n][2] *= corr1;
-      acc[n][3] *= corr1;
-    }
-    // P (bf16) V: the S accumulator re-packed as A fragments
-#pragma unroll
-    for (int kk = 0; kk < BC / 16; ++kk) {
-      uint32_t a4[4];
-      a4[0] = pack_f32(s[2 * kk][0], s[2 * kk][1]);
-      a4[1] = pack_f32(s[2 * kk][2], s[2 * kk][3]);
-      a4[2] = pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a4[3] = pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        uint32_t b0, b1;
-        frag_b_kn<LD>(b0, b1, sV, kk * 16, n * 8, lane);
-        mma16816(acc[n], a4, b0, b1);
-      }
-    }
-  }
-
-  const float ls0 = fmaxf(l0, 1e-30f), ls1 = fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + half * 8;
-    if (row >= a.Tq) continue;
-    const float ls = half ? ls1 : ls0;
-    bf16* orow = out + obase + (long long)row * ost;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + c2) =
-          pack_f32(acc[n][2 * half] / ls, acc[n][2 * half + 1] / ls);
-    if ((lane & 3) == 0)
-      lse_out[lse_at(a, b, h, row)] = (half ? m1 : m0) + logf(ls);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -748,8 +612,7 @@ __global__ void __launch_bounds__(kDkvThreads)
 }
 
 // ---------------------------------------------------------------------------
-// launchers: B * H blocks along x, query (forward, dq) or key (dk/dv)
-// tiles along y
+// launchers: B * H blocks along x, query (dq) or key (dk/dv) tiles along y
 // ---------------------------------------------------------------------------
 
 template <typename K>
@@ -757,18 +620,6 @@ static cudaError_t prepare(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
-}
-
-template <int HD, bool CAUSAL, bool PAIR>
-static int launch_fwd(const Attn& a, int B, cudaStream_t stream) {
-  constexpr int LD = HD + 8;
-  const size_t smem = (size_t)(kFwdRows + 2 * kFwdKeys) * LD * sizeof(bf16);
-  cudaError_t err = prepare(fwd_kernel<HD, CAUSAL, PAIR>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * a.s.H, (a.s.Tq + kFwdRows - 1) / kFwdRows);
-  fwd_kernel<HD, CAUSAL, PAIR><<<grid, kFwdThreads, smem, stream>>>(
-      a.q, a.k, a.v, a.out, a.lse_out, a.s);
-  return (int)cudaGetLastError();
 }
 
 template <int HD, bool CAUSAL, bool PAIR>

@@ -3,7 +3,8 @@
 // against k, v [B, Tk, H, hd], bf16 with f32 accumulation, in two
 // variants: the causal wedge (a chunk against itself, local positions
 // q_pos >= k_pos, Tq == Tk) and the full rectangle. The kernels are the
-// PAIR instantiations of flash_mma.cuh, which sets out their design.
+// PAIR instantiations of flash_fwd_sm90.cuh (the forward) and
+// flash_mma.cuh (dq, dk/dv), which set out their designs.
 //
 // Replaces the Pallas TPU kernels of distkeras_tpu/ops/pallas_pair.py:
 //   dk_pair_attention_fwd  <- _fwd :171 (_fwd_kernel_tri :148 wedge,
@@ -25,6 +26,7 @@
 // The TPU enumerates the wedge's (i, j) tiles into scalar-prefetched
 // index vectors; here a block's loop bounds skip the upper triangle.
 
+#include "flash_fwd_sm90.cuh"
 #include "flash_mma.cuh"
 
 // a pair: q pre-scaled, its own strides; k and v share theirs; lse and

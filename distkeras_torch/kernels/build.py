@@ -33,7 +33,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "distkeras_torch"
 SOURCES = ("paged_attention.cu", "splash_prefill.cu", "causal_attention.cu",
            "pair_attention.cu")
-HEADERS = ("attn_common.cuh", "flash_mma.cuh", "serve_mma.cuh")
+HEADERS = ("attn_common.cuh", "flash_fwd_sm90.cuh", "flash_mma.cuh",
+           "serve_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

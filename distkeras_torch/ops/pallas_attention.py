@@ -6,8 +6,10 @@ port of :mod:`distkeras_tpu.ops.pallas_attention`.
 hand-written Hopper forward kernel of ``csrc/causal_attention.cu`` and
 saves ``(q, k, v, out, lse)``; its backward launches the dq kernel, then
 the dk/dv kernel (the Dao recompute, split as the TPU kernels split it).
-Each kernel walks only its causal wedge of 64-row tiles on the tensor
-cores (``mma.sync``, bf16 in, f32 accumulate).
+Each kernel walks only its causal wedge on the tensor cores, bf16 in,
+f32 accumulate: the forward (``csrc/flash_fwd_sm90.cuh``) on ``wgmma``
+with TMA loads, 128 query rows a work item; dq and dk/dv
+(``csrc/flash_mma.cuh``) on ``mma.sync`` in 64-row tiles.
 
 CPU tensors take the plain versions beside it,
 :func:`causal_attention_reference` and

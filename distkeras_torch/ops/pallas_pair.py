@@ -19,9 +19,10 @@
   ``Tk``.
 
 On CUDA tensors each entry point launches its hand-written Hopper kernel
-(``csrc/pair_attention.cu``: the PAIR instantiations of the forward, dq
-and dk/dv kernels of ``csrc/flash_mma.cuh``, ``mma.sync`` m16n8k16, bf16
-in, f32 accumulate); CPU tensors take the plain versions beside them,
+(``csrc/pair_attention.cu``: the PAIR instantiations of the ``wgmma``
+forward of ``csrc/flash_fwd_sm90.cuh`` and of the ``mma.sync`` dq and
+dk/dv kernels of ``csrc/flash_mma.cuh``, bf16 in, f32 accumulate); CPU
+tensors take the plain versions beside them,
 :func:`pair_attention_reference`, :func:`pair_attention_dq_reference`
 and :func:`pair_attention_dkv_reference` — dense in f32 from the same
 inputs, with the reference's roundings (probabilities cast to v's dtype

@@ -3,7 +3,7 @@ module (the serving, training and sequence-parallel slices alike) loads no ``jax
 ``flax``, ``optax`` or ``distkeras_tpu`` module (checked
 in a fresh interpreter, since this test process imports both packages),
 and ``chip_smoke.py`` imports none of them either (checked on its
-syntax tree), nor does ``ab_serving_kernels.py``. Importing a module
+syntax tree), nor does ``ab_kernels.py``. Importing a module
 builds no kernel and needs no card."""
 
 import ast
@@ -92,7 +92,7 @@ def test_chip_smoke_imports_no_jax():
 def test_ab_script_imports_no_jax():
     """The parent-against-change timing script loads the port and
     chip_smoke.py, nothing of the reference package."""
-    roots = _imported_roots(os.path.join(ROOT, "ab_serving_kernels.py"))
+    roots = _imported_roots(os.path.join(ROOT, "ab_kernels.py"))
     assert "distkeras_torch" in roots
     assert not roots & set(FORBIDDEN)
 

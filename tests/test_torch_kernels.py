@@ -289,6 +289,70 @@ def test_causal_kernels_take_unaligned_views():
         assert torch.equal(a, b)
 
 
+def _check_causal_fwd(q, k, v, out, lse):
+    ref_out, ref_lse = fa.causal_attention_reference(q, k, v)
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref_out).abs().max().item() <= 1e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("T", [1, 63, 129, 191, 257])
+def test_causal_forward_at_the_tile_edges(T, hd):
+    """The forward's ragged edges: T against the consumer warpgroups'
+    64-row halves, the 128-row blocks and the key tile (64 keys at hd
+    256, 128 below)."""
+    dev = _card()
+    q, k, v, _ = _causal_inputs(dev, 1, T, 2, hd, seed=100 + T + hd)
+    out, lse = fa.causal_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    _check_causal_fwd(q, k, v, out, lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_causal_forward_reads_a_fused_projection(hd):
+    """q, k and v as strided views of one fused [B, T, 3, H, hd]
+    projection: the same bits as contiguous copies, within the plain
+    version's tolerance, and two launches give equal bits."""
+    dev = _card()
+    B, T, H = 2, 200, 2
+    rng = np.random.default_rng(hd)
+    qkv = torch.from_numpy(rng.standard_normal((B, T, 3, H, hd)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    out, lse = fa.causal_attention_fwd(q, k, v)
+    again, lse_again = fa.causal_attention_fwd(q, k, v)
+    copied, lse_copied = fa.causal_attention_fwd(
+        q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    assert torch.equal(out, copied) and torch.equal(lse, lse_copied)
+    _check_causal_fwd(q, k, v, out, lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("causal,Tq,Tk", [(False, 200, 328),
+                                          (False, 1, 130),
+                                          (True, 129, 129)])
+def test_pair_forward_at_the_tile_edges(causal, Tq, Tk, hd):
+    """Rectangles with Tq != Tk, both ragged, and the wedge at C=129,
+    against the plain version; two launches give equal bits."""
+    dev = _card()
+    q, k, v, _, _ = _pair_inputs(dev, 1, Tq, Tk, 2, hd, seed=Tq + Tk + hd)
+    o, lse = pp.pair_attention_fwd(q, k, v, causal)
+    o2, lse2 = pp.pair_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ref_o, ref_lse = pp.pair_attention_reference(q, k, v, causal)
+    assert torch.isfinite(o.float()).all()
+    assert (o.float() - ref_o).abs().max().item() <= 1e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
 @pytest.mark.cuda
 def test_causal_wrappers_raise_on_what_the_kernels_do_not_take():
     dev = _card()
@@ -442,6 +506,26 @@ def test_pair_wrappers_raise_on_what_the_kernels_do_not_take():
 def test_profile_groups_place_the_serving_kernels(name, group):
     """bench.py's profile puts every serving kernel, the merges included,
     under its op (demangled or mangled names), never under 'other'."""
+    from distkeras_torch.bench import _group
+
+    assert _group(name) == group
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void ca::sm90::fwd_kernel<256, true, false>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, float*, ca::Shape, "
+     "int, int)", "causal_attention"),
+    ("_ZN2ca4sm9010fwd_kernelILi256ELb1ELb0EEEv14CUtensorMap_stS2_S2_P13__"
+     "nv_bfloat16PfNS_5ShapeEii", "causal_attention"),
+    ("void ca::sm90::fwd_kernel<256, true, true>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, float*, ca::Shape, "
+     "int, int)", "pair_attention"),
+    ("_ZN2ca4sm9010fwd_kernelILi256ELb0ELb1EEEv14CUtensorMap_stS2_S2_P13__"
+     "nv_bfloat16PfNS_5ShapeEii", "pair_attention"),
+])
+def test_profile_groups_place_the_training_forwards(name, group):
+    """The wgmma forward (namespace ca::sm90) lands under the causal or
+    the pair group by its PAIR flag, as the backward kernels do."""
     from distkeras_torch.bench import _group
 
     assert _group(name) == group
