@@ -10,10 +10,13 @@ Phases (any failure exits non-zero):
 1. **Environment + build.** The card's name and power limit as
    ``nvidia-smi`` reports them, the torch / CUDA / nvcc versions, and the
    time to build the hand-written kernels (four sources, one ``nvcc``
-   each, in parallel) from ``distkeras_torch/csrc``, and the hd=256
-   training forwards' build facts: registers and spill bytes from nvcc's
-   ``-Xptxas -v`` report kept beside each library, and the dynamic
-   shared memory a launch requests.
+   each, in parallel) from ``distkeras_torch/csrc``, and the build facts
+   of the hd=256 training forwards and of the causal backward kernels at
+   hd 64, 128 and 256: registers and spill bytes from nvcc's ``-Xptxas
+   -v`` report kept beside each library, the dynamic shared memory a
+   launch requests, and (backward) the ``HGMMA`` / ``HMMA`` /
+   ``WARPGROUP.DEPBAR`` counts of ``cuobjdump -sass``; a backward
+   instantiation without ``HGMMA``, with ``HMMA`` or with a spill fails.
 2. **Kernels.** Each kernel against its plain PyTorch version on the
    card at the serving path's shapes — paged attention (8 rows, T in
    {1, 64}, H=8, Hk=2, hd=256, 16-token pages, 128 pages per row, bf16
@@ -55,7 +58,11 @@ Phases (any failure exits non-zero):
    value. Times of each kernel, its plain version and the library
    yardstick (``F.scaled_dot_product_attention(is_causal=True)``: its
    forward beside the forward kernel, its forward + backward beside
-   fwd + dq + dk/dv), with the bound from this run's exact causal count.
+   fwd + dq + dk/dv, its backward alone over one saved forward beside
+   dq + dk/dv as the backward runs them, with the backend that ran),
+   with the bound from this run's exact causal count. dq and dk/dv
+   called alone each include the prep pass (q's scaling, delta); the
+   backward runs it once.
 5b. **Pair kernels.** The zigzag ring's pair forward, dq and dk/dv
    kernels, both variants (causal wedge and rectangle), against their
    plain versions at the flagship's ring chunk [8, 1024, 8, 256] and at
@@ -88,8 +95,10 @@ Phases (any failure exits non-zero):
    (7b).
 
 Output: JSON lines per phase, the ``nvidia-smi`` line, one
-``{"kernels": [...]}`` line (the three forward rows also carry their
-``build`` facts), and as the last line
+``{"kernels": [...]}`` line (the three forward rows and the causal dq
+and dk/dv rows also carry their ``build`` facts; dq and dk/dv carry
+``bwd_ms``, the two as the backward runs them with one prep pass, and
+``bwd_library_ms``, SDPA's backward), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -490,6 +499,17 @@ def causal_times(torch, F, fa, q, k, v, out, lse, do):
         q, k, v, out, lse, do))
     t["dkv_ms"] = time_ms(torch, lambda: fa.causal_attention_dkv(
         q, k, v, out, lse, do))
+
+    # as autograd runs them: one prep pass serves both (ab_kernels.py's
+    # parent trees have no prep pass to share: the two calls as they are)
+    prep = getattr(fa, "bwd_scratch", None)
+
+    def backward():
+        kw = {"scratch": prep(q)} if prep else {}
+        fa.causal_attention_dq(q, k, v, out, lse, do, **kw)
+        fa.causal_attention_dkv(q, k, v, out, lse, do, **kw)
+
+    t["bwd_ms"] = time_ms(torch, backward)
     t["fwd_plain_ms"] = time_ms(
         torch, lambda: fa.causal_attention_reference(q, k, v), iters=5)
     t["dq_plain_ms"] = time_ms(torch, lambda: fa.causal_attention_dq_reference(
@@ -508,6 +528,17 @@ def causal_times(torch, F, fa, q, k, v, out, lse, do):
         torch.autograd.grad(o, (qh, kh, vh), doh)
 
     t["fwd_bwd_library_ms"] = time_ms(torch, sdpa_fwd_bwd)
+    # SDPA's backward alone, over one saved forward: the yardstick of dq
+    # and dk/dv together
+    saved = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+    def sdpa_bwd():
+        torch.autograd.grad(saved, (qh, kh, vh), doh, retain_graph=True)
+
+    t["bwd_library_ms"] = time_ms(torch, sdpa_bwd)
+    t["sdpa_backend"], t["bwd_library_kernels"] = sdpa_backend(torch,
+                                                                sdpa_bwd)
+    del saved
     t["fwd_bwd_ms"] = t["fwd_ms"] + t["dq_ms"] + t["dkv_ms"]
     for name, mms, nbytes in (
             ("fwd", 2, 4 * row + lse_b),
@@ -516,6 +547,27 @@ def causal_times(torch, F, fa, q, k, v, out, lse, do):
         t[f"{name}_bound_ms"], t[f"{name}_bound_by"] = bound(
             nbytes, mms * 2.0 * pairs * hd, "bfloat16")
     return t
+
+
+def sdpa_backend(torch, fn):
+    """Which SDPA backend ``fn`` ran, from the names of the device kernels
+    one profiled call launched: ``(backend, names)``."""
+    if DEV != "cuda":
+        return None, []
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(torch)
+    names = sorted({e.key for e in prof.key_averages()
+                    if getattr(e, "device_type", None) is not None
+                    and "cuda" in str(e.device_type).lower()})
+    low = " ".join(names).lower()
+    backend = ("cudnn" if "cudnn" in low else "flash" if "flash" in low
+               else "efficient" if ("fmha" in low or "efficient" in low
+                                    or "mem_eff" in low) else "math")
+    return backend, [n[:120] for n in names]
 
 
 # -- phase 5b: the ring's pair kernels against their plain versions ------
@@ -608,7 +660,7 @@ def pair_times(torch, F, pp, q, k, v, o, lse, do, dlse, causal):
     return t
 
 
-# -- the forward kernels' build facts (kernels line, rows 3, 6 and 7) ----
+# -- the kernels' build facts (kernels line, rows 3-7) ------------------
 
 
 # row -> (source, template flags <CAUSAL, PAIR> of its forward instantiation)
@@ -639,18 +691,75 @@ def ptxas_facts(log, key):
     raise AssertionError(f"no ptxas report for a kernel named like {key}")
 
 
+def _smem_fn(kern):
+    smem = kern.libs["causal_attention.cu"].dk_attention_smem
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return smem
+
+
 def fwd_build_facts(build, kern, hd):
     """Per forward row: the hd instantiation's registers at entry (the
     consumers then take 240 with setmaxnreg, the producer 24) and spill
     bytes from the report ``build`` keeps beside each library, and the
     dynamic shared memory a launch requests."""
-    smem = kern.libs["causal_attention.cu"].dk_attention_fwd_smem
-    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    smem = _smem_fn(kern)
     facts = {}
     for row, (source, flags) in FWD_INSTANCES.items():
         log = build._target(source).with_suffix(".log").read_text()
         facts[row] = dict(ptxas_facts(log, f"sm9010fwd_kernelILi{hd}{flags}"),
-                          smem_bytes=smem(hd))
+                          smem_bytes=smem(hd, 0))
+    return facts
+
+
+# row -> (mangled name stem, the smem query's kernel index) of the causal
+# backward kernels (csrc/flash_bwd_sm90.cuh), instantiated at every hd
+BWD_INSTANCES = {"causal_attention_dq": ("sm909dq_kernelILi", 1),
+                 "causal_attention_dkv": ("sm9010dkv_kernelILi", 2)}
+
+
+def sass_counts(sass, key):
+    """``HGMMA``, ``HMMA`` and ``WARPGROUP.DEPBAR`` instructions of the
+    kernel whose mangled name holds ``key``, in ``cuobjdump -sass``
+    output."""
+    counts, inside = None, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = key in line
+            if inside:
+                counts = {"HGMMA": 0, "HMMA": 0, "WARPGROUP_DEPBAR": 0}
+            continue
+        if inside:
+            counts["HGMMA"] += len(re.findall(r"\bHGMMA\.", line))
+            counts["HMMA"] += len(re.findall(r"\bHMMA\.", line))
+            counts["WARPGROUP_DEPBAR"] += line.count("WARPGROUP.DEPBAR")
+    if counts is None:
+        raise AssertionError(f"no SASS for a kernel named like {key}")
+    return counts
+
+
+def bwd_build_facts(build, kern):
+    """Per backward row and head dim: registers and spill bytes (nvcc's
+    report), the dynamic shared memory a launch requests, and the tensor
+    instructions in the kernel's SASS. Fails unless every instantiation
+    issues HGMMA, no HMMA, and spills nothing."""
+    smem = _smem_fn(kern)
+    lib = build._target("causal_attention.cu")
+    log = lib.with_suffix(".log").read_text()
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    facts = {}
+    for row, (stem, which) in BWD_INSTANCES.items():
+        facts[row] = {}
+        for hd in (64, 128, 256):
+            key = f"{stem}{hd}E"
+            f = dict(ptxas_facts(log, key), smem_bytes=smem(hd, which),
+                     **sass_counts(sass, key))
+            if (f["HGMMA"] == 0 or f["HMMA"] or f["spill_store_bytes"]
+                    or f["spill_load_bytes"]):
+                raise AssertionError(f"{row} hd={hd}: want HGMMA, no HMMA "
+                                     f"and no spills: {f}")
+            facts[row][str(hd)] = f
     return facts
 
 
@@ -1070,11 +1179,13 @@ def main() -> int:
     smi = nvidia_smi()
     kern = build.load()
     fwd_facts = fwd_build_facts(build, kern, CAUSAL["hd"])
+    bwd_facts = bwd_build_facts(build, kern)
     _emit({"env": {
         "nvidia_smi": smi, "torch": torch.__version__,
         "cuda": torch.version.cuda, "nvcc": _nvcc_version(build),
         "python": sys.version.split()[0],
         "kernel_build_s": kern.seconds, "forward_build": fwd_facts,
+        "backward_build": bwd_facts,
         "device": torch.cuda.get_device_name(0),
     }})
     t0 = time.perf_counter()
@@ -1166,6 +1277,13 @@ def main() -> int:
         })
         if name in fwd_facts:
             rows[-1]["build"] = fwd_facts[name]
+        if name in bwd_facts:
+            # by hd; SDPA's backward alone is the yardstick of dq and dk/dv
+            # together (no single call computes either alone)
+            rows[-1]["build"] = bwd_facts[name]
+            rows[-1]["bwd_ms"] = main_causal["bwd_ms"]
+            rows[-1]["bwd_library_ms"] = main_causal["bwd_library_ms"]
+            rows[-1]["sdpa_backend"] = main_causal["sdpa_backend"]
     lines = {"fwd": (148, 128), "dq": (301, 281), "dkv": (380, 359)}
     for kern, err_keys, lib in (
             ("fwd", ("out_abs_err",), "fwd_library_ms"),

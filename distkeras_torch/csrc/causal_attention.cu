@@ -1,8 +1,9 @@
 // Causal flash attention for training: a forward kernel, a dq kernel and
 // a dk/dv kernel, on bf16 [B, T, H, hd] tensors with f32 accumulation.
-// The kernels are the CAUSAL, non-PAIR instantiations of
-// flash_fwd_sm90.cuh (the forward: wgmma, TMA, warp-specialized) and
-// flash_mma.cuh (dq, dk/dv), which set out their designs.
+// The kernels are the causal instantiations of flash_fwd_sm90.cuh (the
+// forward) and flash_bwd_sm90.cuh (dq, dk/dv), all three on wgmma with
+// TMA copies and warp specialization, whose notes set out their designs.
+// flash_mma.cuh's mma.sync backward serves the pair kernels only.
 //
 // Replaces the Pallas TPU kernels of distkeras_tpu/ops/pallas_attention.py:
 //   dk_causal_attention_fwd <- _fwd :150 (_fwd_kernel :100)
@@ -17,8 +18,8 @@
 // for the three kernels against 268-470 MB of traffic — about 500
 // FLOPs per byte, above the card's ~295 bf16 ridge point.
 
+#include "flash_bwd_sm90.cuh"
 #include "flash_fwd_sm90.cuh"
-#include "flash_mma.cuh"
 
 // causal self-attention: q scaled in-kernel, lse stored [B, H, T]
 static ca::Attn causal_args(const void* q, const void* k, const void* v,
@@ -40,13 +41,20 @@ static ca::Attn causal_args(const void* q, const void* k, const void* v,
 }
 
 // one instantiation per head dimension the kernels are compiled for
-#define CA_DISPATCH(FN)                                              \
-  switch (hd) {                                                      \
-    case 64: return ca::FN<64, true, false>(a, B, (cudaStream_t)stream);   \
-    case 128: return ca::FN<128, true, false>(a, B, (cudaStream_t)stream); \
-    case 256: return ca::FN<256, true, false>(a, B, (cudaStream_t)stream); \
-    default: return (int)cudaErrorInvalidValue;                      \
+#define CA_DISPATCH(CALL)                          \
+  switch (hd) {                                    \
+    case 64: return CALL(64);                      \
+    case 128: return CALL(128);                    \
+    case 256: return CALL(256);                    \
+    default: return (int)cudaErrorInvalidValue;    \
   }
+#define CA_FWD(HD) ca::launch_fwd<HD, true, false>(a, B, (cudaStream_t)stream)
+#define CA_DQ(HD)                                                     \
+  ca::sm90::launch_dq<HD>(a, B, (ca::bf16*)qs, (float*)delta,         \
+                          (cudaStream_t)stream)
+#define CA_DKV(HD)                                                    \
+  ca::sm90::launch_dkv<HD>(a, B, (ca::bf16*)qs, (float*)delta, prep,  \
+                           (cudaStream_t)stream)
 
 extern "C" int dk_causal_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
@@ -57,13 +65,17 @@ extern "C" int dk_causal_attention_fwd(const void* q, const void* k,
   ca::Attn a = causal_args(q, k, v, T, H, sb, st, scale);
   a.out = (ca::bf16*)o;
   a.lse_out = (float*)lse;
-  CA_DISPATCH(launch_fwd)
+  CA_DISPATCH(CA_FWD)
 }
 
+// qs ([B, T, H, hd] bf16) and delta ([B, H, T] f32) are scratch the
+// caller allocates: the prep kernel first writes q * scale and
+// rowsum(dO * O) there, for this launch and the same backward's dk/dv.
 extern "C" int dk_causal_attention_dq(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
-                                      void* dq, int B, int T, int H, int hd,
+                                      void* dq, void* qs, void* delta, int B,
+                                      int T, int H, int hd,
                                       long long sb, long long st, float scale,
                                       void* stream) {
   if (T < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
@@ -72,13 +84,17 @@ extern "C" int dk_causal_attention_dq(const void* q, const void* k,
   a.dout = (const ca::bf16*)dout;
   a.lse = (const float*)lse;
   a.dq = (ca::bf16*)dq;
-  CA_DISPATCH(launch_dq)
+  CA_DISPATCH(CA_DQ)
 }
 
+// qs and delta as for dk_causal_attention_dq: with `prep` set the prep
+// kernel fills them first, without it they hold what the same backward's
+// dq launch wrote
 extern "C" int dk_causal_attention_dkv(const void* q, const void* k,
                                        const void* v, const void* o,
                                        const void* dout, const void* lse,
-                                       void* dk, void* dv, int B, int T,
+                                       void* dk, void* dv, void* qs,
+                                       void* delta, int prep, int B, int T,
                                        int H, int hd, long long sb,
                                        long long st, float scale,
                                        void* stream) {
@@ -89,17 +105,27 @@ extern "C" int dk_causal_attention_dkv(const void* q, const void* k,
   a.lse = (const float*)lse;
   a.dk = (ca::bf16*)dk;
   a.dv = (ca::bf16*)dv;
-  CA_DISPATCH(launch_dkv)
+  CA_DISPATCH(CA_DKV)
 }
 
-// The dynamic shared memory a forward launch requests at head dim hd
-// (flash_fwd_sm90.cuh; nvcc's report gives registers and spills, not
-// this), or -1 for a head dim the kernels are not compiled for.
-extern "C" int dk_attention_fwd_smem(int hd) {
+// The dynamic shared memory a launch requests at head dim hd (nvcc's
+// report gives registers and spills, not this): kernel 0 the forward, 1
+// dq, 2 dk/dv; -1 for a head dim the kernels are not compiled for.
+template <int HD>
+static int smem_of(int kernel) {
+  switch (kernel) {
+    case 0: return (int)ca::sm90::Tiles<HD>::SMEM;
+    case 1: return (int)ca::sm90::DqTiles<HD>::SMEM;
+    case 2: return (int)ca::sm90::DkvTiles<HD>::SMEM;
+    default: return -1;
+  }
+}
+
+extern "C" int dk_attention_smem(int hd, int kernel) {
   switch (hd) {
-    case 64: return (int)ca::sm90::Tiles<64>::SMEM;
-    case 128: return (int)ca::sm90::Tiles<128>::SMEM;
-    case 256: return (int)ca::sm90::Tiles<256>::SMEM;
+    case 64: return smem_of<64>(kernel);
+    case 128: return smem_of<128>(kernel);
+    case 256: return smem_of<256>(kernel);
     default: return -1;
   }
 }

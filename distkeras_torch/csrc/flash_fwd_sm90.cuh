@@ -738,6 +738,21 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // -- host side: tensor maps and the launch ---------------------------------
 
+// heads per group: as many as keep `per_head` bytes each within
+// kL2GroupBytes
+static int head_group(int BH, long long per_head) {
+  return (int)std::max(
+      1LL, std::min((long long)BH, kL2GroupBytes / std::max(per_head, 1LL)));
+}
+
+static int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)e;
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -795,9 +810,17 @@ static int make_map(CUtensorMap* m, const void* base, int HD, int H, int T,
 template <int HD, bool CAUSAL, bool PAIR>
 static int launch_fwd(const Attn& a, int B, cudaStream_t stream) {
   using T = sm90::Tiles<HD>;
+  // runtime calls first: they bind the device's context to this thread
+  // (a backward thread that recomputes a forward may have none yet),
+  // which cuTensorMapEncodeTiled needs
+  int sms = 0;
+  int err = sm90::sm_count(&sms);
+  if (err == 0)
+    err = (int)prepare(sm90::fwd_kernel<HD, CAUSAL, PAIR>, T::SMEM);
   CUtensorMap mq, mk, mv;
-  int err = sm90::make_map(&mq, a.q, HD, a.s.H, a.s.Tq, B, a.s.qsb, a.s.qst,
-                           sm90::kWgRows);
+  if (err == 0)
+    err = sm90::make_map(&mq, a.q, HD, a.s.H, a.s.Tq, B, a.s.qsb, a.s.qst,
+                         sm90::kWgRows);
   if (err == 0)
     err = sm90::make_map(&mk, a.k, HD, a.s.H, a.s.Tk, B, a.s.ksb, a.s.kst,
                          T::BC);
@@ -805,19 +828,12 @@ static int launch_fwd(const Attn& a, int B, cudaStream_t stream) {
     err = sm90::make_map(&mv, a.v, HD, a.s.H, a.s.Tk, B, a.s.ksb, a.s.kst,
                          T::BC);
   if (err != 0) return err;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = prepare(sm90::fwd_kernel<HD, CAUSAL, PAIR>, T::SMEM);
-  if (e != cudaSuccess) return (int)e;
   const int BH = B * a.s.H, nq = (a.s.Tq + sm90::kRows - 1) / sm90::kRows;
-  // heads per group: as many as keep their K/V within kL2GroupBytes
-  const int group = (int)std::max(
-      1LL, std::min((long long)BH, sm90::kL2GroupBytes / (4LL * a.s.Tk * HD)));
+  // heads per group: as many as keep their K/V in L2
   sm90::fwd_kernel<HD, CAUSAL, PAIR>
       <<<std::min(BH * nq, sms), sm90::kThreads, T::SMEM, stream>>>(
-          mq, mk, mv, a.out, a.lse_out, a.s, BH, group);
+          mq, mk, mv, a.out, a.lse_out, a.s, BH,
+          sm90::head_group(BH, 4LL * a.s.Tk * HD));
   return (int)cudaGetLastError();
 }
 

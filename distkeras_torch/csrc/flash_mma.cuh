@@ -1,29 +1,25 @@
-// Flash attention on the tensor cores for training, the backward half: a
-// dq kernel and a dk/dv kernel, bf16 operands with f32 accumulation,
-// shared by two sources that instantiate them:
-//
-//   causal_attention.cu  CAUSAL, !PAIR: causal self-attention over
-//                        [B, T, H, hd]; q is scaled in-kernel.
-//   pair_attention.cu    PAIR, CAUSAL or not: one chunk pair of the zigzag
-//                        ring, q arriving pre-scaled, Tq x Tk (the causal
-//                        wedge needs Tq == Tk), lse cotangent folded in.
+// Flash attention on the tensor cores for training, the backward half of
+// the ring's pair kernels: a dq kernel and a dk/dv kernel, bf16 operands
+// with f32 accumulation, instantiated by pair_attention.cu (PAIR, CAUSAL
+// or not: one chunk pair of the zigzag ring, q arriving pre-scaled, Tq x
+// Tk (the causal wedge needs Tq == Tk), lse cotangent folded in); causal
+// self-attention's backward is flash_bwd_sm90.cuh (wgmma, TMA).
 //
 // The forward (flash_fwd_sm90.cuh, on wgmma and TMA) writes O and the
 // per-row logsumexp lse = m + log(max(l, 1e-30)); this file also holds the
-// structs and helpers the two sources and the serving core share. The
+// structs and helpers every source and the serving core share. The
 // backward is the Dao recompute split as the TPU kernels split it: it
 // recomputes P = exp(s - lse), with delta = rowsum(dO * O) in f32
 // recomputed in-kernel, P cast to bf16 before dV, dS cast to bf16 before
-// dQ and dK. Without PAIR, q is scaled in f32 and cast back to bf16 before
-// q k^T, and dQ is scaled at the end; with PAIR, q is used as given and dQ
-// is the gradient of the pre-scaled q. dK is unscaled either way. With
-// PAIR, the lse is a public output whose cotangent dlse enters as
+// dQ and dK. q is used as given (the ring hands it over pre-scaled), so dQ
+// is the gradient of the pre-scaled q and dK is unscaled. The lse is a
+// public output whose cotangent dlse enters as
 // dS = P * (dP - delta + dlse). Keys past a query's position (CAUSAL) or
 // past Tk are masked with -1e30, as the TPU kernels mask them.
 //
-// What bounds them on the H100: operations, at the flagship shapes (about
-// 500 FLOPs per byte for the causal [8, 2048, 8, 256] kernels, more for
-// the rectangle pairs), above the card's ~295 bf16 ridge point. So every
+// What bounds them on the H100: operations for the rectangle pairs (about
+// 500 FLOPs per byte at [8, 1024, 8, 256]), bytes for the wedge at that
+// shape, against the card's ~295 bf16 ridge point. So every
 // product runs on the tensor cores: mma.sync m16n8k16 (bf16 in, f32
 // accumulate), each warp owning 16 rows of a product, operand tiles staged
 // in shared memory (rows padded by 16 bytes so fragment loads do not
@@ -64,7 +60,8 @@
 //
 // Otherwise simple rather than fast: the dq kernel loads its tiles
 // synchronously (two blocks per SM overlap them), no wgmma, accurate
-// expf. Times sit beside the bounds in PERF.md.
+// expf. Times sit beside the bounds in PERF.md; flash_bwd_sm90.cuh is the
+// template their redesign follows.
 
 #pragma once
 
@@ -191,28 +188,19 @@ __device__ __forceinline__ void frag_b_kn(uint32_t& b0, uint32_t& b1,
 
 // Stage rows [row0, row0 + ROWS) of a [T, HD] operand (rows `stride`
 // elements apart) into shared memory with leading dimension HD + 8, in
-// 16-byte vectors; rows at or past T are zero. SCALE multiplies each
-// value by `scale` in f32 and rounds back to bf16 (the TPU's q scaling).
-template <int HD, int ROWS, int NT, bool SCALE>
+// 16-byte vectors; rows at or past T are zero.
+template <int HD, int ROWS, int NT>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          long long stride, int row0, int T,
-                                          float scale) {
+                                          long long stride, int row0, int T) {
   constexpr int LD = HD + 8;
   constexpr int CPR = HD / 8;
   for (int c = threadIdx.x; c < ROWS * CPR; c += NT) {
     const int r = c / CPR;
     const int col = (c % CPR) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < T) {
+    if (row0 + r < T)
       v = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * stride +
                                           col);
-      if (SCALE) {
-        bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          e[i] = __float2bfloat16(__bfloat162float(e[i]) * scale);
-      }
-    }
     *reinterpret_cast<uint4*>(dst + r * LD + col) = v;
   }
 }
@@ -246,7 +234,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// load_rows without the scaling, as cp.async copies (rows past T
+// load_rows as cp.async copies (rows past T
 // zero-filled); the caller commits and waits.
 template <int HD, int ROWS, int NT>
 __device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
@@ -260,24 +248,6 @@ __device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
     const bool in = row0 + r < T;
     cp_async16(dst + r * LD + col,
                src + (long long)(in ? row0 + r : 0) * stride + col, in);
-  }
-}
-
-// load_rows' q scaling applied in shared memory after load_rows_async:
-// each thread rescales the vectors it copied itself, so its own
-// cp_async_wait is enough before, and a barrier is needed after.
-template <int HD, int ROWS, int NT>
-__device__ __forceinline__ void scale_rows(bf16* t, float scale) {
-  constexpr int LD = HD + 8;
-  constexpr int CPR = HD / 8;
-  for (int c = threadIdx.x; c < ROWS * CPR; c += NT) {
-    uint4* p = reinterpret_cast<uint4*>(t + (c / CPR) * LD + (c % CPR) * 8);
-    uint4 v = *p;
-    bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      e[i] = __float2bfloat16(__bfloat162float(e[i]) * scale);
-    *p = v;
   }
 }
 
@@ -322,6 +292,7 @@ __global__ void __launch_bounds__(kDqThreads)
               const bf16* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ dlse, bf16* __restrict__ dq,
               const Shape a) {
+  static_assert(PAIR, "the causal backward is flash_bwd_sm90.cuh's");
   constexpr int LD = HD + 8, BR = kDqRows, BC = kDqKeys;
   constexpr int NO = HD / 8, NS = BC / 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -345,14 +316,12 @@ __global__ void __launch_bounds__(kDqThreads)
   const int lr0 = warp * 16 + g;  // local rows lr0, lr0 + 8
   const int row0 = qt * BR + lr0;
 
-  load_rows<HD, BR, kDqThreads, !PAIR>(sQ, q + qbase, a.qst, qt * BR, a.Tq,
-                                       a.scale);
-  load_rows<HD, BR, kDqThreads, false>(sDO, dout + obase, ost, qt * BR,
-                                       a.Tq, 0.f);
+  load_rows<HD, BR, kDqThreads>(sQ, q + qbase, a.qst, qt * BR, a.Tq);
+  load_rows<HD, BR, kDqThreads>(sDO, dout + obase, ost, qt * BR, a.Tq);
   for (int r = threadIdx.x; r < BR; r += kDqThreads) {
     const bool in = qt * BR + r < a.Tq;
     sL[r] = in ? lse[lse_at(a, b, h, qt * BR + r)] : 0.f;
-    if (PAIR) sG[r] = in ? dlse[lse_at(a, b, h, qt * BR + r)] : 0.f;
+    sG[r] = in ? dlse[lse_at(a, b, h, qt * BR + r)] : 0.f;
   }
   __syncthreads();
   row_delta<HD, BR, kDqThreads>(sD, sDO, o + obase + (long long)qt * BR * ost,
@@ -360,7 +329,7 @@ __global__ void __launch_bounds__(kDqThreads)
   __syncthreads();
   const float lse0 = sL[lr0], lse1 = sL[lr0 + 8];
   const float dl0 = sD[lr0], dl1 = sD[lr0 + 8];
-  const float dg0 = PAIR ? sG[lr0] : 0.f, dg1 = PAIR ? sG[lr0 + 8] : 0.f;
+  const float dg0 = sG[lr0], dg1 = sG[lr0 + 8];
 
   float acc[NO][4];
 #pragma unroll
@@ -369,10 +338,8 @@ __global__ void __launch_bounds__(kDqThreads)
   const int nkt = key_tiles<CAUSAL, BR, BC>(a, qt);
   for (int kt = 0; kt < nkt; ++kt) {
     __syncthreads();
-    load_rows<HD, BC, kDqThreads, false>(sK, k + kbase, a.kst, kt * BC,
-                                         a.Tk, 0.f);
-    load_rows<HD, BC, kDqThreads, false>(sV, v + kbase, a.kst, kt * BC,
-                                         a.Tk, 0.f);
+    load_rows<HD, BC, kDqThreads>(sK, k + kbase, a.kst, kt * BC, a.Tk);
+    load_rows<HD, BC, kDqThreads>(sV, v + kbase, a.kst, kt * BC, a.Tk);
     __syncthreads();
 
     float s[NS][4], dp[NS][4];
@@ -406,9 +373,8 @@ __global__ void __launch_bounds__(kDqThreads)
         if (edge && (CAUSAL ? kpos > row0 + hi * 8 : kpos >= a.Tk))
           sv = kNegInf;
         const float p = expf(sv - (hi ? lse1 : lse0));
-        // dS; with PAIR the lse cotangent rides the softmax-weighted path
-        s[n][e] = PAIR ? p * (dp[n][e] - (hi ? dl1 : dl0) + (hi ? dg1 : dg0))
-                       : p * (dp[n][e] - (hi ? dl1 : dl0));
+        // dS; the lse cotangent rides the softmax-weighted path
+        s[n][e] = p * (dp[n][e] - (hi ? dl1 : dl0) + (hi ? dg1 : dg0));
       }
     // dQ += dS (bf16) K
 #pragma unroll
@@ -427,8 +393,7 @@ __global__ void __launch_bounds__(kDqThreads)
     }
   }
 
-  // with PAIR q arrived pre-scaled, so the sum IS d/d(pre-scaled q)
-  const float out_scale = PAIR ? 1.f : a.scale;
+  // q arrived pre-scaled, so the sum IS d/d(pre-scaled q)
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + half * 8;
@@ -436,8 +401,8 @@ __global__ void __launch_bounds__(kDqThreads)
     bf16* drow = dq + obase + (long long)row * ost;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(drow + n * 8 + c2) = pack_f32(
-          acc[n][2 * half] * out_scale, acc[n][2 * half + 1] * out_scale);
+      *reinterpret_cast<uint32_t*>(drow + n * 8 + c2) =
+          pack_f32(acc[n][2 * half], acc[n][2 * half + 1]);
   }
 }
 
@@ -458,6 +423,7 @@ __global__ void __launch_bounds__(kDkvThreads)
                const bf16* __restrict__ dout, const float* __restrict__ lse,
                const float* __restrict__ dlse, bf16* __restrict__ dk,
                bf16* __restrict__ dv, const Shape a) {
+  static_assert(PAIR, "the causal backward is flash_bwd_sm90.cuh's");
   constexpr int LD = HD + 8, BC = kDkvKeys, BQ = kDkvRows;
   constexpr int LP = BQ + 8;      // leading dimension of the P^T / dS^T tiles
   constexpr int NH = HD / 16;     // 8-channel tiles in a warp's half of HD
@@ -486,7 +452,7 @@ __global__ void __launch_bounds__(kDkvThreads)
   const int kg = warp % (BC / 16);  // keys kg*16.. of the tile (both phases)
   const int hw = warp / (BC / 16);  // phase A: queries hw*16..; B: channels
 
-  // the copies of query step `it`'s q (unscaled), dO, O rows, lse and
+  // the copies of query step `it`'s q, dO, O rows, lse and
   // dlse into buffer `buf`
   auto issue = [&](int it, int buf) {
     load_rows_async<HD, BQ, NT>(sQ2 + buf * BQ * LD, q + qbase, a.qst,
@@ -499,7 +465,7 @@ __global__ void __launch_bounds__(kDkvThreads)
       const bool in = it * BQ + r < a.Tq;
       const long long at = lse_at(a, b, h, in ? it * BQ + r : 0);
       cp_async4(sL2 + buf * BQ + r, lse + at, in);
-      if (PAIR) cp_async4(sG2 + buf * BQ + r, dlse + at, in);
+      cp_async4(sG2 + buf * BQ + r, dlse + at, in);
     }
   };
 
@@ -526,7 +492,6 @@ __global__ void __launch_bounds__(kDkvThreads)
     if (it + 1 < nqt) issue(it + 1, buf ^ 1);
     cp_async_commit();
     cp_async_wait<1>();  // this step's copies (and K, V) have landed
-    if (!PAIR) scale_rows<HD, BQ, NT>(sQ, a.scale);
     __syncthreads();
     row_delta<HD, BQ, NT>(sD, sDO, sO2 + buf * BQ * LD, LD, a.Tq - it * BQ);
     __syncthreads();
@@ -564,8 +529,7 @@ __global__ void __launch_bounds__(kDkvThreads)
           const float sv =
               (!CAUSAL || qpos >= key) ? s[n][2 * half + j] : kNegInf;
           p[j] = qpos < a.Tq ? expf(sv - sL[ql]) : 0.f;
-          ds[j] = PAIR ? p[j] * (dp[n][2 * half + j] - sD[ql] + sG[ql])
-                       : p[j] * (dp[n][2 * half + j] - sD[ql]);
+          ds[j] = p[j] * (dp[n][2 * half + j] - sD[ql] + sG[ql]);
         }
         const int off = (kg * 16 + g + half * 8) * LP + hw * 16 + n * 8 + c2;
         *reinterpret_cast<uint32_t*>(sP + off) = pack_f32(p[0], p[1]);
@@ -574,7 +538,7 @@ __global__ void __launch_bounds__(kDkvThreads)
     }
     __syncthreads();
 
-    // phase B: dV += P^T dO and dK += dS^T q (scaled) over this warp's
+    // phase B: dV += P^T dO and dK += dS^T q over this warp's
     // 16 keys x HD/2 channels
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
@@ -625,9 +589,9 @@ static cudaError_t prepare(K kernel, size_t smem) {
 template <int HD, bool CAUSAL, bool PAIR>
 static int launch_dq(const Attn& a, int B, cudaStream_t stream) {
   constexpr int LD = HD + 8;
-  // q, dO, K, V; lse, delta (and dlse with PAIR)
+  // q, dO, K, V; lse, delta, dlse
   const size_t smem = (size_t)(2 * kDqRows + 2 * kDqKeys) * LD * sizeof(bf16) +
-                      (PAIR ? 3 : 2) * kDqRows * sizeof(float);
+                      3 * kDqRows * sizeof(float);
   cudaError_t err = prepare(dq_kernel<HD, CAUSAL, PAIR>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * a.s.H, (a.s.Tq + kDqRows - 1) / kDqRows);
@@ -639,12 +603,12 @@ static int launch_dq(const Attn& a, int B, cudaStream_t stream) {
 template <int HD, bool CAUSAL, bool PAIR>
 static int launch_dkv(const Attn& a, int B, cudaStream_t stream) {
   constexpr int LD = HD + 8, LP = kDkvRows + 8;
-  // K, V; two buffers of q, dO, O; P^T, dS^T; two of lse, one of delta
-  // (and two of dlse with PAIR)
+  // K, V; two buffers of q, dO, O; P^T, dS^T; two of lse, one of delta,
+  // two of dlse
   const size_t smem =
       (size_t)(2 * kDkvKeys + 6 * kDkvRows) * LD * sizeof(bf16) +
       (size_t)2 * kDkvKeys * LP * sizeof(bf16) +
-      (PAIR ? 5 : 3) * kDkvRows * sizeof(float);
+      5 * kDkvRows * sizeof(float);
   cudaError_t err = prepare(dkv_kernel<HD, CAUSAL, PAIR>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * a.s.H, (a.s.Tk + kDkvKeys - 1) / kDkvKeys);

@@ -33,8 +33,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "distkeras_torch"
 SOURCES = ("paged_attention.cu", "splash_prefill.cu", "causal_attention.cu",
            "pair_attention.cu")
-HEADERS = ("attn_common.cuh", "flash_fwd_sm90.cuh", "flash_mma.cuh",
-           "serve_mma.cuh")
+HEADERS = ("attn_common.cuh", "flash_bwd_sm90.cuh", "flash_fwd_sm90.cuh",
+           "flash_mma.cuh", "serve_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,8 +46,8 @@ _SIGNATURES = {
     "dk_paged_attention": [_vp] * 8 + [_i] * 9 + [_f, _vp, _vp] + [_i] * 3,
     "dk_splash_prefill": [_vp] * 5 + [_i] * 7 + [_f, _vp, _vp] + [_i] * 3,
     "dk_causal_attention_fwd": [_vp] * 5 + [_i] * 4 + [_ll, _ll, _f, _vp],
-    "dk_causal_attention_dq": [_vp] * 7 + [_i] * 4 + [_ll, _ll, _f, _vp],
-    "dk_causal_attention_dkv": [_vp] * 8 + [_i] * 4 + [_ll, _ll, _f, _vp],
+    "dk_causal_attention_dq": [_vp] * 9 + [_i] * 4 + [_ll, _ll, _f, _vp],
+    "dk_causal_attention_dkv": [_vp] * 10 + [_i] * 5 + [_ll, _ll, _f, _vp],
     "dk_pair_attention_fwd": [_vp] * 5 + [_i] * 6 + [_ll] * 4 + [_vp],
     "dk_pair_attention_dq": [_vp] * 8 + [_i] * 6 + [_ll] * 4 + [_vp],
     "dk_pair_attention_dkv": [_vp] * 9 + [_i] * 6 + [_ll] * 4 + [_vp],

@@ -7,9 +7,13 @@ hand-written Hopper forward kernel of ``csrc/causal_attention.cu`` and
 saves ``(q, k, v, out, lse)``; its backward launches the dq kernel, then
 the dk/dv kernel (the Dao recompute, split as the TPU kernels split it).
 Each kernel walks only its causal wedge on the tensor cores, bf16 in,
-f32 accumulate: the forward (``csrc/flash_fwd_sm90.cuh``) on ``wgmma``
-with TMA loads, 128 query rows a work item; dq and dk/dv
-(``csrc/flash_mma.cuh``) on ``mma.sync`` in 64-row tiles.
+f32 accumulate, on ``wgmma`` with TMA loads and warp-specialized blocks:
+the forward (``csrc/flash_fwd_sm90.cuh``) and dq
+(``csrc/flash_bwd_sm90.cuh``) take 128 query rows a work item, dk/dv
+(the same header) 64 keys. A prep pass writes ``q * scale`` and
+``delta = rowsum(dO * O)`` once per row into :func:`bwd_scratch`: the dq
+launch runs it and the backward's dk/dv launch reads it (a dk/dv call on
+its own runs it itself).
 
 CPU tensors take the plain versions beside it,
 :func:`causal_attention_reference` and
@@ -32,8 +36,8 @@ from typing import Optional
 import torch
 
 _NEG_INF = -1e30
-# the kernels' query/key tile (64 rows; the dk/dv kernel steps 32 queries
-# at a time inside it) and the head dims they are compiled for
+# the kernels' tile (dq's 64-row consumer halves and key tiles, dk/dv's
+# key items and query steps) and the head dims they are compiled for
 BLOCK = 64
 KERNEL_HEAD_DIMS = (64, 128, 256)
 
@@ -218,22 +222,34 @@ def _bwd_args(q, k, v, out, lse, do):
     return (q, k, v, out, lse, do), ptrs, sb, st
 
 
-def _dq_kernel(q, k, v, out, lse, do):
+def bwd_scratch(q):
+    """Scratch of the backward's prep pass for inputs shaped like ``q``:
+    ``(qs, delta)`` — ``q * scale`` rounded to bf16, ``[B, T, H, hd]``, and
+    ``delta = rowsum(dO * O)``, ``[B, H, T]`` f32. The dq kernel's launch
+    fills it; the same backward's dk/dv launch reads it."""
+    B, T, H, hd = q.shape
+    return (torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device),
+            torch.empty((B, H, T), dtype=torch.float32, device=q.device))
+
+
+def _dq_kernel(q, k, v, out, lse, do, scratch):
     from distkeras_torch.kernels import build
 
     lib = build.load()
     held, ptrs, sb, st = _bwd_args(q, k, v, out, lse, do)
     B, T, H, hd = held[0].shape
     dq = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
+    qs, delta = scratch if scratch is not None else bwd_scratch(held[0])
+    vp = ctypes.c_void_p
     rc = lib.dk_causal_attention_dq(
-        *ptrs, ctypes.c_void_p(dq.data_ptr()), B, T, H, hd, sb, st,
-        ctypes.c_float(1.0 / math.sqrt(hd)), _stream(q))
+        *ptrs, vp(dq.data_ptr()), vp(qs.data_ptr()), vp(delta.data_ptr()),
+        B, T, H, hd, sb, st, ctypes.c_float(1.0 / math.sqrt(hd)), _stream(q))
     _raise_on(rc, "dq")
     causal_attention_dq.launches += 1
     return dq
 
 
-def _dkv_kernel(q, k, v, out, lse, do):
+def _dkv_kernel(q, k, v, out, lse, do, scratch):
     from distkeras_torch.kernels import build
 
     lib = build.load()
@@ -241,9 +257,13 @@ def _dkv_kernel(q, k, v, out, lse, do):
     B, T, H, hd = held[0].shape
     dk = torch.empty((B, T, H, hd), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    # without the dq launch's scratch, the prep pass runs here first
+    prep = scratch is None
+    qs, delta = bwd_scratch(held[0]) if prep else scratch
     vp = ctypes.c_void_p
     rc = lib.dk_causal_attention_dkv(
-        *ptrs, vp(dk.data_ptr()), vp(dv.data_ptr()), B, T, H, hd, sb, st,
+        *ptrs, vp(dk.data_ptr()), vp(dv.data_ptr()), vp(qs.data_ptr()),
+        vp(delta.data_ptr()), int(prep), B, T, H, hd, sb, st,
         ctypes.c_float(1.0 / math.sqrt(hd)), _stream(q))
     _raise_on(rc, "dk/dv")
     causal_attention_dkv.launches += 1
@@ -272,19 +292,25 @@ def causal_attention_fwd(q, k, v, block: Optional[int] = None):
     return out.to(q.dtype), lse
 
 
-def causal_attention_dq(q, k, v, out, lse, do, block: Optional[int] = None):
-    """dq of the backward, in ``q.dtype``: the dq kernel on CUDA tensors,
-    the plain version on CPU tensors."""
+def causal_attention_dq(q, k, v, out, lse, do, block: Optional[int] = None,
+                        scratch=None):
+    """dq of the backward, in ``q.dtype``: the dq kernel (after its prep
+    pass) on CUDA tensors, the plain version on CPU tensors. ``scratch``
+    (:func:`bwd_scratch`), when given, keeps what the prep pass wrote for
+    the same backward's :func:`causal_attention_dkv` call."""
     if _on_card(q, k, v, block):
-        return _dq_kernel(q, k, v, out, lse, do)
+        return _dq_kernel(q, k, v, out, lse, do, scratch)
     return causal_attention_dq_reference(q, k, v, out, lse, do).to(q.dtype)
 
 
-def causal_attention_dkv(q, k, v, out, lse, do, block: Optional[int] = None):
+def causal_attention_dkv(q, k, v, out, lse, do, block: Optional[int] = None,
+                         scratch=None):
     """(dk, dv) of the backward, in their primals' dtypes: the dk/dv
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+    kernel on CUDA tensors, the plain version on CPU tensors. ``scratch``
+    filled by :func:`causal_attention_dq` on the same inputs skips the
+    kernel's own prep pass; without it the prep pass runs first."""
     if _on_card(q, k, v, block):
-        return _dkv_kernel(q, k, v, out, lse, do)
+        return _dkv_kernel(q, k, v, out, lse, do, scratch)
     dk, dv = causal_attention_dkv_reference(q, k, v, out, lse, do)
     return dk.to(k.dtype), dv.to(v.dtype)
 
@@ -311,8 +337,11 @@ class _PallasCausalAttention(torch.autograd.Function):
             dq, dk, dv = causal_attention_bwd_reference(q, k, v, out, lse,
                                                         do)
             return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
-        dq = causal_attention_dq(q, k, v, out, lse, do, ctx.block)
-        dk, dv = causal_attention_dkv(q, k, v, out, lse, do, ctx.block)
+        # one prep pass (scaled q, delta) serves both kernels
+        scratch = bwd_scratch(q)
+        dq = causal_attention_dq(q, k, v, out, lse, do, ctx.block, scratch)
+        dk, dv = causal_attention_dkv(q, k, v, out, lse, do, ctx.block,
+                                      scratch)
         return dq, dk, dv, None
 
 

@@ -1,5 +1,6 @@
 """The parts of ``chip_smoke.py`` that run without a card: reading the
-forward kernels' build facts from nvcc's ``-Xptxas -v`` report."""
+kernels' build facts from nvcc's ``-Xptxas -v`` report and the tensor
+instructions from ``cuobjdump -sass``."""
 
 import os
 import sys
@@ -42,3 +43,37 @@ def test_ptxas_facts_reads_each_kernels_own_block(flags, want):
 def test_ptxas_facts_raises_for_a_kernel_not_in_the_report():
     with pytest.raises(AssertionError, match="no ptxas report"):
         chip_smoke.ptxas_facts(_LOG, "sm9010fwd_kernelILi128ELb1ELb0E")
+
+
+_SASS = """
+	code for sm_90a
+		Function : _ZN2ca4sm909dq_kernelILi256EEEv14CUtensorMap_st
+	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0a40*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;
+        /*0a50*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24 ;
+        /*0a60*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+		Function : _ZN2ca9dq_kernelILi256ELb1ELb1EEEvPK13__nv_bfloat16
+        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0110*/                   HMMA.16816.F32.BF16 R20, R8, R14, R20 ;
+		Function : _ZN2ca4sm9010dkv_kernelILi256EEEv14CUtensorMap_st
+        /*0200*/                   HGMMA.64x32x16.F32.BF16 R24, gdesc[UR4], RZ ;
+"""
+
+
+@pytest.mark.parametrize("key,want", [
+    ("sm909dq_kernelILi256E", {"HGMMA": 2, "HMMA": 0,
+                               "WARPGROUP_DEPBAR": 1}),
+    ("ca9dq_kernelILi256ELb1ELb1E", {"HGMMA": 0, "HMMA": 2,
+                                     "WARPGROUP_DEPBAR": 0}),
+    ("sm9010dkv_kernelILi256E", {"HGMMA": 1, "HMMA": 0,
+                                 "WARPGROUP_DEPBAR": 0}),
+])
+def test_sass_counts_reads_each_kernels_own_function(key, want):
+    """Each kernel's HGMMA / HMMA / WARPGROUP.DEPBAR counts come from its
+    own function in the SASS listing."""
+    assert chip_smoke.sass_counts(_SASS, key) == want
+
+
+def test_sass_counts_raises_for_a_kernel_not_in_the_listing():
+    with pytest.raises(AssertionError, match="no SASS"):
+        chip_smoke.sass_counts(_SASS, "sm909dq_kernelILi64E")

@@ -333,6 +333,64 @@ def test_causal_forward_reads_a_fused_projection(hd):
     _check_causal_fwd(q, k, v, out, lse)
 
 
+def _check_causal_bwd(q, k, v, out, lse, do, grads):
+    for got, ref in zip(grads, fa.causal_attention_bwd_reference(
+            q, k, v, out, lse, do)):
+        assert got.dtype == torch.bfloat16
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - ref).abs().max().item()
+        assert err <= 2e-2 * ref.abs().max().item() + 1e-4
+
+
+def _causal_bwd(q, k, v, out, lse, do):
+    return (fa.causal_attention_dq(q, k, v, out, lse, do),
+            *fa.causal_attention_dkv(q, k, v, out, lse, do))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("T", [1, 63, 129, 191, 257, 1000])
+def test_causal_backward_at_the_tile_edges(T, hd):
+    """dq and dk/dv at their ragged edges: T against dq's 64-row halves
+    and 128-row items, the 64-key tiles and dk/dv's 64-query steps (and
+    a ragged T=1000 over many of them), against the plain version; two
+    launches give equal bits."""
+    dev = _card()
+    q, k, v, do = _causal_inputs(dev, 1, T, 2, hd, seed=200 + T + hd)
+    out, lse = fa.causal_attention_fwd(q, k, v)
+    grads = _causal_bwd(q, k, v, out, lse, do)
+    again = _causal_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+    _check_causal_bwd(q, k, v, out, lse, do, grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_causal_backward_reads_a_fused_projection(hd):
+    """The backward with q, k and v as strided views of one fused
+    [B, T, 3, H, hd] projection: the same bits as contiguous copies,
+    within the plain version's tolerance."""
+    dev = _card()
+    B, T, H = 2, 200, 2
+    rng = np.random.default_rng(300 + hd)
+    qkv = torch.from_numpy(rng.standard_normal((B, T, 3, H, hd)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    do = torch.from_numpy(rng.standard_normal((B, T, H, hd)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    out, lse = fa.causal_attention_fwd(q, k, v)
+    grads = _causal_bwd(q, k, v, out, lse, do)
+    copied = _causal_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                         out, lse, do)
+    torch.cuda.synchronize()
+    for a, b in zip(grads, copied):
+        assert torch.equal(a, b)
+    _check_causal_bwd(q, k, v, out, lse, do, grads)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("causal,Tq,Tk", [(False, 200, 328),
@@ -522,10 +580,34 @@ def test_profile_groups_place_the_serving_kernels(name, group):
      "int, int)", "pair_attention"),
     ("_ZN2ca4sm9010fwd_kernelILi256ELb0ELb1EEEv14CUtensorMap_stS2_S2_P13__"
      "nv_bfloat16PfNS_5ShapeEii", "pair_attention"),
+    # the causal backward (flash_bwd_sm90.cuh: templated on hd alone) and
+    # the pair backward (flash_mma.cuh)
+    ("void ca::sm90::dq_kernel<256>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16 const*, __nv_bfloat16 "
+     "const*, float const*, __nv_bfloat16*, ca::Shape, int, int)",
+     "causal_attention"),
+    ("_ZN2ca4sm909dq_kernelILi256EEEv14CUtensorMap_stS2_S2_S2_PK13__nv_"
+     "bfloat16S5_PKfPS3_NS_5ShapeEii", "causal_attention"),
+    ("void ca::sm90::dkv_kernel<128>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, "
+     "__nv_bfloat16*, __nv_bfloat16*, ca::Shape, int, int)",
+     "causal_attention"),
+    ("_ZN2ca4sm9010dkv_kernelILi64EEEv14CUtensorMap_stS2_S2_S2_PKfS4_P13__"
+     "nv_bfloat16S6_NS_5ShapeEii", "causal_attention"),
+    ("void ca::sm90::prep_kernel<256>(__nv_bfloat16 const*, __nv_bfloat16 "
+     "const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, ca::Shape, int)",
+     "causal_attention"),
+    ("_ZN2ca4sm9011prep_kernelILi64EEEvPK13__nv_bfloat16S4_S4_PS2_PfNS_5"
+     "ShapeEi", "causal_attention"),
+    ("void ca::dkv_kernel<256, true, true>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*)", "pair_attention"),
+    ("_ZN2ca9dq_kernelILi256ELb0ELb1EEEvPK13__nv_bfloat16", "pair_attention"),
 ])
 def test_profile_groups_place_the_training_forwards(name, group):
-    """The wgmma forward (namespace ca::sm90) lands under the causal or
-    the pair group by its PAIR flag, as the backward kernels do."""
+    """The wgmma forward and causal backward (namespace ca::sm90) and the
+    pair backward land under the causal or the pair group: the pair
+    kernels by their PAIR flag, the causal backward, templated on hd
+    alone, never mistaken for one."""
     from distkeras_torch.bench import _group
 
     assert _group(name) == group
