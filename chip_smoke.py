@@ -11,12 +11,13 @@ Phases (any failure exits non-zero):
    ``nvidia-smi`` reports them, the torch / CUDA / nvcc versions, and the
    time to build the hand-written kernels (four sources, one ``nvcc``
    each, in parallel) from ``distkeras_torch/csrc``, and the build facts
-   of the hd=256 training forwards and of the causal backward kernels at
-   hd 64, 128 and 256: registers and spill bytes from nvcc's ``-Xptxas
-   -v`` report kept beside each library, the dynamic shared memory a
-   launch requests, and (backward) the ``HGMMA`` / ``HMMA`` /
-   ``WARPGROUP.DEPBAR`` counts of ``cuobjdump -sass``; a backward
-   instantiation without ``HGMMA``, with ``HMMA`` or with a spill fails.
+   of the hd=256 training forwards and of the backward kernels (causal,
+   pair wedge and pair rectangle dq and dk/dv) at hd 64, 128 and 256:
+   registers and spill bytes from nvcc's ``-Xptxas -v`` report kept
+   beside each library, the dynamic shared memory a launch requests, and
+   (backward) the ``HGMMA`` / ``HMMA`` / ``WARPGROUP.DEPBAR`` counts of
+   ``cuobjdump -sass``; a backward instantiation without ``HGMMA``, with
+   ``HMMA`` or with a spill fails.
 2. **Kernels.** Each kernel against its plain PyTorch version on the
    card at the serving path's shapes — paged attention (8 rows, T in
    {1, 64}, H=8, Hk=2, hd=256, 16-token pages, 128 pages per row, bf16
@@ -70,7 +71,10 @@ Phases (any failure exits non-zero):
    tolerances of phase 5. Times of each kernel, its plain version and
    the library yardstick (``F.scaled_dot_product_attention`` at
    ``scale=1.0``, ``is_causal`` for the wedge; it returns no lse), with
-   the bound from the exact count of each variant.
+   the bound from the exact count of each variant; dq + dk/dv as the
+   backward runs them (one prep pass) beside SDPA's backward alone over
+   one saved forward (the same products without the lse cotangent: no
+   single call computes the pair backward).
 6. **Training at full width.** The flagship training step of the
    reference's ``lm_bench`` (d_model 2048, 8 heads of 256, 8 layers,
    vocab 8192, bf16, sinusoidal, MHA; T=2048, B=8; AdamW lr 3e-4 with a
@@ -95,10 +99,11 @@ Phases (any failure exits non-zero):
    (7b).
 
 Output: JSON lines per phase, the ``nvidia-smi`` line, one
-``{"kernels": [...]}`` line (the three forward rows and the causal dq
-and dk/dv rows also carry their ``build`` facts; dq and dk/dv carry
-``bwd_ms``, the two as the backward runs them with one prep pass, and
-``bwd_library_ms``, SDPA's backward), and as the last line
+``{"kernels": [...]}`` line (the three forward rows and the causal and
+pair dq and dk/dv rows also carry their ``build`` facts; the dq and
+dk/dv rows carry ``bwd_ms``, the two as the backward runs them with one
+prep pass, ``bwd_library_ms``, SDPA's backward, and ``sdpa_backend``),
+and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -651,6 +656,34 @@ def pair_times(torch, F, pp, q, k, v, o, lse, do, dlse, causal):
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     t["fwd_library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qh, kh, vh, is_causal=causal, scale=1.0))
+
+    # dq and dk/dv as autograd runs them: one prep pass serves both
+    # (ab_kernels.py's parent trees may have no pair scratch to share: the
+    # two calls as they are)
+    prep = getattr(pp, "bwd_scratch", None)
+
+    def backward():
+        kw = {"scratch": prep(q)} if prep else {}
+        pp.pair_attention_dq(q, k, v, o, lse, do, dlse, causal, **kw)
+        pp.pair_attention_dkv(q, k, v, o, lse, do, dlse, causal, **kw)
+
+    t["bwd_ms"] = time_ms(torch, backward)
+    # the yardstick of dq and dk/dv together: SDPA's backward alone over
+    # one saved forward, the same products without the lse cotangent (no
+    # single call computes the pair backward)
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (qh, kh, vh))
+    doh = do.transpose(1, 2).contiguous()
+    saved = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                           scale=1.0)
+
+    def sdpa_bwd():
+        torch.autograd.grad(saved, (qg, kg, vg), doh, retain_graph=True)
+
+    t["bwd_library_ms"] = time_ms(torch, sdpa_bwd)
+    t["bwd_library_what"] = "same products, no lse cotangent"
+    t["sdpa_backend"], t["bwd_library_kernels"] = sdpa_backend(torch,
+                                                                sdpa_bwd)
+    del saved
     for name, mms, nbytes in (
             ("fwd", 2, 4 * row + lse_b),
             ("dq", 3, 6 * row + 2 * lse_b),
@@ -711,10 +744,23 @@ def fwd_build_facts(build, kern, hd):
     return facts
 
 
-# row -> (mangled name stem, the smem query's kernel index) of the causal
-# backward kernels (csrc/flash_bwd_sm90.cuh), instantiated at every hd
-BWD_INSTANCES = {"causal_attention_dq": ("sm909dq_kernelILi", 1),
-                 "causal_attention_dkv": ("sm9010dkv_kernelILi", 2)}
+# row -> (source, mangled name stem, template flags <CAUSAL, PAIR>, the
+# smem query's kernel index) of the backward kernels
+# (csrc/flash_bwd_sm90.cuh), each instantiated at every hd
+BWD_INSTANCES = {
+    "causal_attention_dq": ("causal_attention.cu", "sm909dq_kernelILi",
+                            "ELb1ELb0E", 1),
+    "causal_attention_dkv": ("causal_attention.cu", "sm9010dkv_kernelILi",
+                             "ELb1ELb0E", 2),
+    "pair_wedge_dq": ("pair_attention.cu", "sm909dq_kernelILi", "ELb1ELb1E",
+                      1),
+    "pair_rect_dq": ("pair_attention.cu", "sm909dq_kernelILi", "ELb0ELb1E",
+                     1),
+    "pair_wedge_dkv": ("pair_attention.cu", "sm9010dkv_kernelILi",
+                       "ELb1ELb1E", 2),
+    "pair_rect_dkv": ("pair_attention.cu", "sm9010dkv_kernelILi",
+                      "ELb0ELb1E", 2),
+}
 
 
 def sass_counts(sass, key):
@@ -743,16 +789,20 @@ def bwd_build_facts(build, kern):
     instructions in the kernel's SASS. Fails unless every instantiation
     issues HGMMA, no HMMA, and spills nothing."""
     smem = _smem_fn(kern)
-    lib = build._target("causal_attention.cu")
-    log = lib.with_suffix(".log").read_text()
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
+    listings = {}  # source -> (nvcc's report, SASS)
+    for source in {v[0] for v in BWD_INSTANCES.values()}:
+        lib = build._target(source)
+        listings[source] = (lib.with_suffix(".log").read_text(),
+                            subprocess.run([cuobjdump, "-sass", str(lib)],
+                                           capture_output=True, text=True,
+                                           timeout=300, check=True).stdout)
     facts = {}
-    for row, (stem, which) in BWD_INSTANCES.items():
+    for row, (source, stem, flags, which) in BWD_INSTANCES.items():
+        log, sass = listings[source]
         facts[row] = {}
         for hd in (64, 128, 256):
-            key = f"{stem}{hd}E"
+            key = f"{stem}{hd}{flags}"
             f = dict(ptxas_facts(log, key), smem_bytes=smem(hd, which),
                      **sass_counts(sass, key))
             if (f["HGMMA"] == 0 or f["HMMA"] or f["spill_store_bytes"]
@@ -1309,6 +1359,13 @@ def main() -> int:
             })
             if name in fwd_facts:
                 rows[-1]["build"] = fwd_facts[name]
+            if name in bwd_facts:
+                # by hd; SDPA's backward alone (the same products, no lse
+                # cotangent) is the yardstick of dq and dk/dv together
+                rows[-1]["build"] = bwd_facts[name]
+                rows[-1]["bwd_ms"] = main["bwd_ms"]
+                rows[-1]["bwd_library_ms"] = main["bwd_library_ms"]
+                rows[-1]["sdpa_backend"] = main["sdpa_backend"]
     print(smi, flush=True)
     _emit({"kernels": rows})
     _emit({"ok": True, "device": {"platform": "gpu",

@@ -200,8 +200,9 @@ def lm_bench(calls: int = 3, attention: str = "standard") -> dict:
 def _group(name: str) -> str:
     if "ca::" in name or name.startswith("_ZN2ca"):
         # the training kernels: the pair instantiations carry PAIR = true
-        # as the last template argument (demangled or mangled); the
-        # causal backward of flash_bwd_sm90.cuh is templated on hd alone
+        # as the last template argument (demangled or mangled), the
+        # forward, dq and dk/dv (<hd, causal, PAIR>) and the backward's
+        # prep pass (<hd, PAIR>) alike; the causal ones carry false
         return ("pair_attention" if (", true>(" in name
                                      or "ELb1EEEv" in name)
                 else "causal_attention")

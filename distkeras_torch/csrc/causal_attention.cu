@@ -1,9 +1,10 @@
 // Causal flash attention for training: a forward kernel, a dq kernel and
 // a dk/dv kernel, on bf16 [B, T, H, hd] tensors with f32 accumulation.
-// The kernels are the causal instantiations of flash_fwd_sm90.cuh (the
-// forward) and flash_bwd_sm90.cuh (dq, dk/dv), all three on wgmma with
-// TMA copies and warp specialization, whose notes set out their designs.
-// flash_mma.cuh's mma.sync backward serves the pair kernels only.
+// The kernels are the causal instantiations (<HD, true, false>) of
+// flash_fwd_sm90.cuh (the forward) and flash_bwd_sm90.cuh (dq, dk/dv), all
+// three on wgmma with TMA copies and warp specialization, whose notes set
+// out their designs; pair_attention.cu instantiates the same templates
+// with PAIR.
 //
 // Replaces the Pallas TPU kernels of distkeras_tpu/ops/pallas_attention.py:
 //   dk_causal_attention_fwd <- _fwd :150 (_fwd_kernel :100)
@@ -49,12 +50,13 @@ static ca::Attn causal_args(const void* q, const void* k, const void* v,
     default: return (int)cudaErrorInvalidValue;    \
   }
 #define CA_FWD(HD) ca::launch_fwd<HD, true, false>(a, B, (cudaStream_t)stream)
-#define CA_DQ(HD)                                                     \
-  ca::sm90::launch_dq<HD>(a, B, (ca::bf16*)qs, (float*)delta,         \
-                          (cudaStream_t)stream)
-#define CA_DKV(HD)                                                    \
-  ca::sm90::launch_dkv<HD>(a, B, (ca::bf16*)qs, (float*)delta, prep,  \
-                           (cudaStream_t)stream)
+#define CA_DQ(HD)                                                          \
+  ca::sm90::launch_dq<HD, true, false>(a, B, (ca::bf16*)qs, (float*)delta, \
+                                       (cudaStream_t)stream)
+#define CA_DKV(HD)                                                       \
+  ca::sm90::launch_dkv<HD, true, false>(a, B, (ca::bf16*)qs,             \
+                                        (float*)delta, prep,             \
+                                        (cudaStream_t)stream)
 
 extern "C" int dk_causal_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
@@ -110,7 +112,8 @@ extern "C" int dk_causal_attention_dkv(const void* q, const void* k,
 
 // The dynamic shared memory a launch requests at head dim hd (nvcc's
 // report gives registers and spills, not this): kernel 0 the forward, 1
-// dq, 2 dk/dv; -1 for a head dim the kernels are not compiled for.
+// dq, 2 dk/dv; -1 for a head dim the kernels are not compiled for. The
+// pair instantiations request the same (the tiles depend on hd alone).
 template <int HD>
 static int smem_of(int kernel) {
   switch (kernel) {

@@ -1,43 +1,65 @@
-// The causal training attention backward written for Hopper (sm_90a): a dq
+// The training attention backward written for Hopper (sm_90a): a dq
 // kernel and a dk/dv kernel with every product on wgmma, tiles brought in
 // by TMA through mbarrier rings that one producer thread keeps full, and
 // two consumer warpgroups per block, built from the forward's pieces in
 // flash_fwd_sm90.cuh (barriers, copies, descriptors, wgmma shapes, the
-// persistent item order), and a prep pass they share. Instantiated as
-// ca::sm90::launch_dq and ca::sm90::launch_dkv by causal_attention.cu
-// (causal self-attention, q scaled on the card); the pair kernels'
-// backward stays in flash_mma.cuh.
+// persistent item order), and a prep pass they share. Templated, as the
+// forward is, on <HD, CAUSAL, PAIR>, compile-time flags (a wgmma under a
+// runtime branch made ptxas serialize every one), and instantiated as
+// ca::sm90::launch_dq and ca::sm90::launch_dkv by
+//   causal_attention.cu  <HD, true, false>: causal self-attention, q
+//                        scaled on the card, lse [B, H, T];
+//   pair_attention.cu    <HD, CAUSAL, true>: one chunk pair of the zigzag
+//                        ring, q arriving pre-scaled, lse [B, Tq, H] and
+//                        its cotangent dlse; the causal wedge (a chunk
+//                        against itself, Tq == Tk, local positions) or
+//                        the full rectangle (any Tq and Tk, no mask).
 //
-// Replaces the backward Pallas TPU kernels of
-// distkeras_tpu/ops/pallas_attention.py:
-//   dq_kernel   <- _dq_kernel :193 (pallas_call :305)
-//   dkv_kernel  <- _dkv_kernel :240 (pallas_call :333)
+// Replaces the backward Pallas TPU kernels:
+//   distkeras_tpu/ops/pallas_attention.py  _dq_kernel :193 (pallas_call
+//                                          :305), _dkv_kernel :240 (:333)
+//   distkeras_tpu/ops/pallas_pair.py       _bwd_impl :403: _dq_kernel_tri
+//                                          :301 (pallas_call :420),
+//                                          _dkv_kernel_tri :380 (:444),
+//                                          _dq_kernel :281 (:492),
+//                                          _dkv_kernel :359 (:510)
 // Same function and roundings as they compute: P = exp(s - lse) is
-// recomputed from s = (q * scale rounded to bf16) k^T, masked scores are
-// -1e30 (P = 0), dS = P * (dP - delta) with delta = rowsum(dO * O) in f32,
-// P is rounded to bf16 before dV and dS before dQ and dK, dQ is scaled at
-// the end and dK is left unscaled (the q it multiplies was scaled). exp
-// runs as ex2 with log2(e) folded in. No atomics and a fixed order: two
-// launches give equal bits.
+// recomputed from s = q k^T, with q scaled and rounded to bf16 first
+// (!PAIR) or as given (PAIR); masked scores are -1e30 (P = 0); dS = P *
+// (dP - delta) with delta = rowsum(dO * O) in f32; P is rounded to bf16
+// before dV and dS before dQ and dK; dQ is multiplied by the scale at the
+// end (1 for a pair, so exact) and dK is left unscaled (the q it
+// multiplies was scaled). With PAIR the lse cotangent enters as
+// dS = P * (dP - delta + dlse); the prep pass folds it into delta, and the
+// kernels compute P * (dP - delta') with delta' = delta - dlse, as the
+// reference says ("the lse cotangent folded into delta",
+// pallas_pair.py:242). In f32, dP - (delta - dlse) differs from
+// (dP - delta) + dlse only by the rounding of one subtraction, an ulp.
+// exp runs as ex2 with log2(e) folded in. No atomics and a fixed order:
+// two launches give equal bits.
 //
 // What bounds them on the H100: operations. At the flagship shape
-// [8, 2048, 8, 256] dq does three products over the causal wedge (206
-// GFLOP) and dk/dv four (275 GFLOP), against 403 and 470 MB of traffic:
-// ~510 and ~585 FLOPs a byte, above the card's ~295 bf16 ridge point. So
-// the design keeps the tensor cores fed: wgmma for every product, copies
-// by TMA that cost the consumers no instructions, two consumers whose
-// products fill the tensor cores while the other computes, and the
+// [8, 2048, 8, 256] the causal dq does three products over the causal
+// wedge (206 GFLOP) and dk/dv four (275 GFLOP), against 403 and 470 MB of
+// traffic: ~510 and ~585 FLOPs a byte, above the card's ~295 bf16 ridge
+// point. The ring's rectangle at [8, 1024, 8, 256] is ~500 FLOPs a byte;
+// its wedge does half the products over the same bytes, near the ridge.
+// So the design keeps the tensor cores fed: wgmma for every product,
+// copies by TMA that cost the consumers no instructions, two consumers
+// whose products fill the tensor cores while the other computes, and the
 // per-row work (q's scaling, delta) done once, outside both kernels.
 //
-// The prep pass (one warp a row) writes q * scale rounded to bf16 and
-// delta once per row into scratch the caller allocates, so no work item
-// re-reads O or rescales q. The dq launcher runs it; the dk/dv launcher
-// of the same backward reads what it wrote, and runs it itself only when
-// called alone. At the flagship shape it takes ~0.086 ms (268 MB).
+// The prep pass (one warp a row) writes delta once per row, in lse's
+// layout, into scratch the caller allocates: rowsum(dO * O) (!PAIR, which
+// also writes q * scale rounded to bf16, contiguous) or rowsum(dO * O) -
+// dlse (PAIR, whose q is read through its own strides). So no work item
+// re-reads O or rescales q. The dq launcher runs it; the dk/dv launcher of
+// the same backward reads what it wrote, and runs it itself only when
+// called alone. At the causal flagship shape it takes ~0.086 ms (268 MB).
 //
 // dq (one work item = 128 query rows of one (batch, head), 64 rows a
 // consumer warpgroup; 64-key tiles):
-// - The producer loads each consumer's scaled Q and dO rows on one barrier
+// - The producer loads each consumer's Q (scaled) and dO rows on one barrier
 //   and streams K and V tiles through two rings: K in two stages, as K
 //   serves S = Q K^T early in step i and dQ += dS K late in it; V in two
 //   stages below hd 256 and one at hd 256, where it is freed as soon as
@@ -48,7 +70,13 @@
 //   transpose bit), waits for all three, computes dS(i) and issues dQ(i).
 //   The other consumer's products fill the tensor cores while one
 //   computes; every wgmma is issued in straight-line code.
-// - Each thread reads the lse and delta of its two rows while Q lands.
+// - Each thread reads the lse and delta of its two rows while Q lands
+//   (with PAIR at stride H floats, lse's [B, Tq, H] layout: gathers).
+// - CAUSAL walks the key tiles up to the diagonal and masks keys past each
+//   row; the rectangle walks all ceil(Tk / 64) of them, and masks keys at
+//   or past Tk on the last one: TMA zero-fills rows past Tk, so s = 0 there
+//   and exp(-lse) would not be 0 (the causal mask hides this, as a live
+//   row's keys lie below T).
 // - Registers at hd 256: dQ 128 + S 32 + dP 32 + packed dS 16 a thread,
 //   under the 240 that setmaxnreg gives the consumers. Overlapping dS(i)
 //   with dQ(i - 1) as the forward overlaps its softmax spilled (372 bytes)
@@ -59,8 +87,11 @@
 //   halved products re-read Q and dO from shared memory twice as often.
 //
 // dk/dv (one work item = 64 keys of one (batch, head); 64-query steps
-// from the diagonal to the end):
-// - The item's K and V arrive once, the steps' scaled q and dO tiles
+// from the diagonal to the end with CAUSAL, over all ceil(Tq / 64) query
+// tiles from 0 for the rectangle, where queries at or past Tq are the only
+// mask; keys at or past Tk compute rows of dK and dV that are never
+// stored):
+// - The item's K and V arrive once, the steps' q (scaled) and dO tiles
 //   through a two-stage ring; lse and delta are read per step like lse
 //   in dq.
 // - Each consumer computes S^T = K q^T and dP^T = V dO^T for its 32 of
@@ -85,7 +116,12 @@
 //
 // Both kernels are persistent (at most one block per SM) and walk their
 // items heaviest first inside groups of heads whose streamed operands fit
-// in L2, as the forward does.
+// in L2, as the forward does. The rectangle's items are all equal.
+//
+// PAIR changes nothing inside dq and dk/dv: it selects the prep pass's
+// delta' and q's map (the caller's strided q, not the scaled copy), and
+// names the instantiation apart from the causal one. The wedge is the
+// causal kernel on local positions.
 
 #pragma once
 
@@ -283,14 +319,16 @@ __device__ __forceinline__ void issue_dkv(float (&dk)[DkvTiles<HD>::N / 2],
 
 // -- the prep pass -----------------------------------------------------------
 
-// q * scale rounded to bf16 (qs, contiguous [B, T, H, HD]) and delta =
-// rowsum(dO * O) in f32 ([B, H, T] through lse's strides): one warp a
-// row, rows in (b, t, h) order
-template <int HD>
+// delta = rowsum(dO * O) in f32 through lse's strides ([B, H, T] causal,
+// [B, Tq, H] for a pair) and, without PAIR, q * scale rounded to bf16 (qs,
+// contiguous [B, T, H, HD]); with PAIR, delta' = delta - dlse and no qs.
+// One warp a row, rows in (b, t, h) order.
+template <int HD, bool PAIR>
 __global__ void __launch_bounds__(256)
     prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ o,
-                const bf16* __restrict__ dout, bf16* __restrict__ qs,
-                float* __restrict__ delta, const Shape a, int rows) {
+                const bf16* __restrict__ dout, const float* __restrict__ dlse,
+                bf16* __restrict__ qs, float* __restrict__ delta,
+                const Shape a, int rows) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= rows) return;
   const int h = row % a.H, t = (row / a.H) % a.Tq, b = row / (a.H * a.Tq);
@@ -302,12 +340,14 @@ __global__ void __launch_bounds__(256)
   float part = 0.f;
 #pragma unroll
   for (int d = lane * 8; d < HD; d += 256) {
-    uint4 v = *reinterpret_cast<const uint4*>(qrow + d);
-    bf16* e = reinterpret_cast<bf16*>(&v);
+    if (!PAIR) {
+      uint4 v = *reinterpret_cast<const uint4*>(qrow + d);
+      bf16* e = reinterpret_cast<bf16*>(&v);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      e[i] = __float2bfloat16(__bfloat162float(e[i]) * a.scale);
-    *reinterpret_cast<uint4*>(qs + at + d) = v;
+      for (int i = 0; i < 8; ++i)
+        e[i] = __float2bfloat16(__bfloat162float(e[i]) * a.scale);
+      *reinterpret_cast<uint4*>(qs + at + d) = v;
+    }
     const uint4 x = *reinterpret_cast<const uint4*>(dout + at + d);
     const uint4 y = *reinterpret_cast<const uint4*>(o + at + d);
     const bf16* xe = reinterpret_cast<const bf16*>(&x);
@@ -317,34 +357,39 @@ __global__ void __launch_bounds__(256)
       part = fmaf(__bfloat162float(xe[i]), __bfloat162float(ye[i]), part);
   }
   const float dl = warp_sum(part);
-  if (lane == 0) delta[lse_at(a, b, h, t)] = dl;
+  if (lane == 0) {
+    const long long l = lse_at(a, b, h, t);
+    delta[l] = PAIR ? dl - dlse[l] : dl;
+  }
 }
 
 // -- dq ----------------------------------------------------------------------
 
 // dS of tile kt in place of S (f32): P = exp(s - lse) with the causal
-// diagonal masked, times dP - delta. l0/l1 are the rows' lse * log2(e),
-// d0/d1 their delta.
-template <int BC>
+// diagonal (CAUSAL) or the keys at or past Tk masked, times dP - delta.
+// l0/l1 are the rows' lse * log2(e), d0/d1 their delta.
+template <int BC, bool CAUSAL>
 __device__ __forceinline__ void ds_tile(float (&s)[BC / 2],
                                         const float (&dp)[BC / 2], int kt,
-                                        int row0w, int rowt, int c2, float l0,
-                                        float l1, float d0, float d1) {
-  const bool edge = kt * BC + BC - 1 > row0w;
+                                        int row0w, int rowt, int c2, int Tk,
+                                        float l0, float l1, float d0,
+                                        float d1) {
+  const bool edge = CAUSAL ? kt * BC + BC - 1 > row0w : kt * BC + BC > Tk;
 #pragma unroll
   for (int n = 0; n < BC / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int hi = e >> 1;
       const int kpos = kt * BC + n * 8 + c2 + (e & 1);
-      const float p = (edge && kpos > rowt + hi * 8)
+      const bool masked = CAUSAL ? kpos > rowt + hi * 8 : kpos >= Tk;
+      const float p = (edge && masked)
                           ? 0.f
                           : ex2(fmaf(s[4 * n + e], kLog2e, -(hi ? l1 : l0)));
       s[4 * n + e] = p * (dp[4 * n + e] - (hi ? d1 : d0));
     }
 }
 
-template <int HD>
+template <int HD, bool CAUSAL, bool PAIR>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_kernel(const __grid_constant__ CUtensorMap tq,
               const __grid_constant__ CUtensorMap tdo,
@@ -400,7 +445,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         int qt, bh;
         item_tile(L, nq, BH, group, qt, bh);
         const int b = bh / a.H, h = bh % a.H;
-        const int nkt = key_tiles<true, kRows, BC>(a, qt);
+        const int nkt = key_tiles<CAUSAL, kRows, BC>(a, qt);
         for (int w = 0; w < 2; ++w) {
           const int r0 = qt * kRows + w * kWgRows;
           if (r0 >= a.Tq) continue;  // that consumer has no live row
@@ -464,11 +509,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       int qt, bh;
       item_tile(L, nq, BH, group, qt, bh);
       const int b = bh / a.H, h = bh % a.H;
-      const int nkt = key_tiles<true, kRows, BC>(a, qt);
+      const int nkt = key_tiles<CAUSAL, kRows, BC>(a, qt);
       const int row0w = qt * kRows + w * kWgRows;  // the warpgroup's first
       const int rowt = row0w + warp * 16 + g;      // this thread's: +0, +8
-      const int nkt_me =
-          row0w >= a.Tq ? 0 : (min(a.Tk, row0w + kWgRows) - 1) / BC + 1;
+      // tiles this warpgroup computes (none if all its rows lie past Tq)
+      const int nkt_me = row0w >= a.Tq ? 0
+                         : CAUSAL ? (min(a.Tk, row0w + kWgRows) - 1) / BC + 1
+                                  : nkt;
       const long long ost = (long long)a.H * HD;
       const long long obase = (long long)b * a.Tq * ost + (long long)h * HD;
 
@@ -509,7 +556,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           arrive(vbar(1, cc));                  // V(i) is read
           if (i >= 1) arrive(kbar(1, cc - 1));  // so is K(i - 1)
           if (i == nkt_me - 1) release_q();     // the item's last S and dP
-          ds_tile<BC>(s, dp, i, row0w, rowt, c2, l0, l1, d0, d1);
+          ds_tile<BC, CAUSAL>(s, dp, i, row0w, rowt, c2, a.Tk, l0, l1, d0,
+                              d1);
           pack_p<BC>(dsp, s);
           issue_pv<HD, BC>(acc, dsp, opaque(k_at(cc)));
         }
@@ -544,7 +592,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // -- dk/dv -------------------------------------------------------------------
 
-template <int HD>
+template <int HD, bool CAUSAL, bool PAIR>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tdo,
@@ -595,6 +643,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         int x, bh;
         item_tile(L, nk, BH, group, x, bh);
         const int kt = nk - 1 - x;  // the heaviest (first) key tiles first
+        const int q0 = CAUSAL ? kt : 0;  // the first query tile it sees
         const int b = bh / a.H, h = bh % a.H;
         if (k >= 1)  // both consumers are done with the last item's K, V
           mbar_wait(bar_kv + 8, (k - 1) & 1);
@@ -607,7 +656,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           tma_load(base + T::V_OFF + off, &tv, bar_kv, 64 * j, h,
                    kt * kBwdKeys, b);
         }
-        const int nst = nqt - kt;  // query steps from the diagonal on
+        const int nst = nqt - q0;  // query steps (CAUSAL: from the diagonal)
         for (int s = 0; s < nst; ++s) {
           const int cc = c + s;
           if (cc >= kStages) mbar_wait(qbar(1, cc), (cc / kStages - 1) & 1);
@@ -616,9 +665,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int j = 0; j < T::NB; ++j) {
             const uint32_t off = j * BQ * 128;
             tma_load(q_at(cc) + off, &tq, qbar(0, cc), 64 * j, h,
-                     (kt + s) * BQ, b);
+                     (q0 + s) * BQ, b);
             tma_load(q_at(cc) + T::QS_BYTES + off, &tdo, qbar(0, cc), 64 * j,
-                     h, (kt + s) * BQ, b);
+                     h, (q0 + s) * BQ, b);
           }
         }
         c += nst;
@@ -653,8 +702,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       int x, bh;
       item_tile(L, nk, BH, group, x, bh);
       const int kt = nk - 1 - x;
+      const int q0 = CAUSAL ? kt : 0;
       const int b = bh / a.H, h = bh % a.H;
-      const int nst = nqt - kt;
+      const int nst = nqt - q0;
       const int key0 = kt * kBwdKeys + warp * 16 + g;  // this thread's: +0, +8
 
       float dka[T::N / 2], dva[T::N / 2];
@@ -669,7 +719,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int n = 0; n < 4; ++n)
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            const int qp = (kt + s) * BQ + w * 32 + n * 8 + c2 + j;
+            const int qp = (q0 + s) * BQ + w * 32 + n * 8 + c2 + j;
             const long long at = lse_at(a, b, h, qp < a.Tq ? qp : 0);
             lq[2 * n + j] = qp < a.Tq ? lse[at] * kLog2e : 0.f;
             dl[2 * n + j] = qp < a.Tq ? delta[at] : 0.f;
@@ -689,8 +739,8 @@ __global__ void __launch_bounds__(kThreads, 1)
             float p[2], ds[2];
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
-              const int qp = (kt + s) * BQ + col + j;
-              p[j] = (qp >= key && qp < a.Tq)
+              const int qp = (q0 + s) * BQ + col + j;
+              p[j] = (CAUSAL ? qp >= key && qp < a.Tq : qp < a.Tq)
                          ? ex2(fmaf(st[4 * n + 2 * hi + j], kLog2e,
                                     -lq[2 * n + j]))
                          : 0.f;
@@ -808,27 +858,32 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // -- host side ---------------------------------------------------------------
 
-// The prep kernel into the caller's scratch: qs [B, T, H, HD] bf16 and
-// delta with lse's layout. The dq launcher runs it; the dk/dv launcher
-// runs it only when `prep` is set (called without the same backward's dq).
-template <int HD>
+// The prep kernel into the caller's scratch: delta with lse's layout and,
+// without PAIR, qs [B, T, H, HD] bf16 (with PAIR qs is unused and may be
+// null). The dq launcher runs it; the dk/dv launcher runs it only when
+// `prep` is set (called without the same backward's dq).
+template <int HD, bool PAIR>
 static int launch_prep(const Attn& a, int B, bf16* qs, float* delta,
                        cudaStream_t stream) {
   const int rows = B * a.s.Tq * a.s.H;
-  prep_kernel<HD><<<(rows + 7) / 8, 256, 0, stream>>>(a.q, a.o, a.dout, qs,
-                                                      delta, a.s, rows);
+  prep_kernel<HD, PAIR><<<(rows + 7) / 8, 256, 0, stream>>>(
+      a.q, a.o, a.dout, a.dlse, qs, delta, a.s, rows);
   return (int)cudaGetLastError();
 }
 
-// The maps both kernels read: the scaled q (qs) and dO, contiguous
-// [B, T, H, HD], in boxes of `qrows`; k and v through their own strides,
-// in boxes of kBwdKeys
-template <int HD>
+// The maps both kernels read, q and dO in boxes of `qrows`: q as the
+// scaled copy (qs, contiguous [B, T, H, HD]) or, with PAIR, the caller's
+// pre-scaled q through its own strides; dO contiguous; k and v through
+// their own strides, in boxes of kBwdKeys
+template <int HD, bool PAIR>
 static int bwd_maps(const Attn& a, int B, const bf16* qs, int qrows,
                     CUtensorMap* mq, CUtensorMap* mdo, CUtensorMap* mk,
                     CUtensorMap* mv) {
   const long long ost = (long long)a.s.H * HD;
-  int err = make_map(mq, qs, HD, a.s.H, a.s.Tq, B, a.s.Tq * ost, ost, qrows);
+  int err = PAIR ? make_map(mq, a.q, HD, a.s.H, a.s.Tq, B, a.s.qsb,
+                            a.s.qst, qrows)
+                 : make_map(mq, qs, HD, a.s.H, a.s.Tq, B, a.s.Tq * ost, ost,
+                            qrows);
   if (err == 0)
     err = make_map(mdo, a.dout, HD, a.s.H, a.s.Tq, B, a.s.Tq * ost, ost,
                    qrows);
@@ -841,9 +896,9 @@ static int bwd_maps(const Attn& a, int B, const bf16* qs, int qrows,
   return err;
 }
 
-// dq: the prep pass, then a persistent grid over the B * H * ceil(T / 128)
-// items
-template <int HD>
+// dq: the prep pass, then a persistent grid over the B * H * ceil(Tq /
+// 128) items
+template <int HD, bool CAUSAL, bool PAIR>
 static int launch_dq(const Attn& a, int B, bf16* qs, float* delta,
                      cudaStream_t stream) {
   using T = DqTiles<HD>;
@@ -852,35 +907,39 @@ static int launch_dq(const Attn& a, int B, bf16* qs, float* delta,
   // cuTensorMapEncodeTiled needs
   int sms = 0;
   int err = sm_count(&sms);
-  if (err == 0) err = (int)prepare(dq_kernel<HD>, T::SMEM);
-  if (err == 0) err = launch_prep<HD>(a, B, qs, delta, stream);
+  if (err == 0) err = (int)prepare(dq_kernel<HD, CAUSAL, PAIR>, T::SMEM);
+  if (err == 0) err = launch_prep<HD, PAIR>(a, B, qs, delta, stream);
   CUtensorMap mq, mdo, mk, mv;
-  if (err == 0) err = bwd_maps<HD>(a, B, qs, kWgRows, &mq, &mdo, &mk, &mv);
+  if (err == 0)
+    err = bwd_maps<HD, PAIR>(a, B, qs, kWgRows, &mq, &mdo, &mk, &mv);
   if (err != 0) return err;
   const int BH = B * a.s.H, nq = (a.s.Tq + kRows - 1) / kRows;
-  dq_kernel<HD><<<std::min(BH * nq, sms), kThreads, T::SMEM, stream>>>(
-      mq, mdo, mk, mv, a.lse, delta, a.dq, a.s, BH,
-      head_group(BH, 4LL * a.s.Tk * HD));
+  dq_kernel<HD, CAUSAL, PAIR>
+      <<<std::min(BH * nq, sms), kThreads, T::SMEM, stream>>>(
+          mq, mdo, mk, mv, a.lse, delta, a.dq, a.s, BH,
+          head_group(BH, 4LL * a.s.Tk * HD));
   return (int)cudaGetLastError();
 }
 
 // dk/dv: the prep pass (when `prep`), then a persistent grid over the
-// B * H * ceil(T / 64) items
-template <int HD>
+// B * H * ceil(Tk / 64) items
+template <int HD, bool CAUSAL, bool PAIR>
 static int launch_dkv(const Attn& a, int B, bf16* qs, float* delta, int prep,
                       cudaStream_t stream) {
   using T = DkvTiles<HD>;
   int sms = 0;
   int err = sm_count(&sms);
-  if (err == 0) err = (int)prepare(dkv_kernel<HD>, T::SMEM);
-  if (err == 0 && prep) err = launch_prep<HD>(a, B, qs, delta, stream);
+  if (err == 0) err = (int)prepare(dkv_kernel<HD, CAUSAL, PAIR>, T::SMEM);
+  if (err == 0 && prep) err = launch_prep<HD, PAIR>(a, B, qs, delta, stream);
   CUtensorMap mq, mdo, mk, mv;
-  if (err == 0) err = bwd_maps<HD>(a, B, qs, kBwdRows, &mq, &mdo, &mk, &mv);
+  if (err == 0)
+    err = bwd_maps<HD, PAIR>(a, B, qs, kBwdRows, &mq, &mdo, &mk, &mv);
   if (err != 0) return err;
   const int BH = B * a.s.H, nk = (a.s.Tk + kBwdKeys - 1) / kBwdKeys;
-  dkv_kernel<HD><<<std::min(BH * nk, sms), kThreads, T::SMEM, stream>>>(
-      mq, mdo, mk, mv, a.lse, delta, a.dk, a.dv, a.s, BH,
-      head_group(BH, 4LL * a.s.Tq * HD));
+  dkv_kernel<HD, CAUSAL, PAIR>
+      <<<std::min(BH * nk, sms), kThreads, T::SMEM, stream>>>(
+          mq, mdo, mk, mv, a.lse, delta, a.dk, a.dv, a.s, BH,
+          head_group(BH, 4LL * a.s.Tq * HD));
   return (int)cudaGetLastError();
 }
 

@@ -3,7 +3,7 @@
 // that one producer warp keeps full, two consumer warpgroups per block.
 // Instantiated as ca::launch_fwd by causal_attention.cu (CAUSAL, !PAIR)
 // and pair_attention.cu (PAIR: the causal wedge or the rectangle); the
-// backward kernels stay in flash_mma.cuh.
+// backward is flash_bwd_sm90.cuh, built from the pieces defined here.
 //
 // Replaces the forward Pallas TPU kernels:
 //   distkeras_tpu/ops/pallas_attention.py  _fwd_kernel :100 (causal)

@@ -3,8 +3,11 @@
 // against k, v [B, Tk, H, hd], bf16 with f32 accumulation, in two
 // variants: the causal wedge (a chunk against itself, local positions
 // q_pos >= k_pos, Tq == Tk) and the full rectangle. The kernels are the
-// PAIR instantiations of flash_fwd_sm90.cuh (the forward) and
-// flash_mma.cuh (dq, dk/dv), which set out their designs.
+// PAIR instantiations (<HD, CAUSAL, true>) of flash_fwd_sm90.cuh (the
+// forward) and flash_bwd_sm90.cuh (dq, dk/dv and their prep pass), the
+// templates causal self-attention also instantiates (causal_attention.cu):
+// wgmma for every product, TMA through mbarrier rings, a producer and two
+// consumer warpgroups, persistent grids. Their notes set out the designs.
 //
 // Replaces the Pallas TPU kernels of distkeras_tpu/ops/pallas_pair.py:
 //   dk_pair_attention_fwd  <- _fwd :171 (_fwd_kernel_tri :148 wedge,
@@ -16,18 +19,18 @@
 // Same function and the same roundings: o normalized within the pair and
 // lse = m + log(max(l, 1e-30)) returned [B, Tq, H] f32 (not
 // lane-replicated); q used as given, so dQ is the gradient of the
-// pre-scaled q and is not rescaled; the lse cotangent folded in as
-// dS = P * (dP - delta + dlse); P cast to bf16 before P V and dV, dS
-// before dQ and dK.
+// pre-scaled q and is not rescaled; the lse cotangent folded into delta
+// by the backward's prep pass, dS = P * (dP - (delta - dlse)); P cast to
+// bf16 before P V and dV, dS before dQ and dK.
 //
 // What bounds it on the H100: operations for the rectangle (at the
-// flagship's ring chunk, [8, 1024, 8, 256], ~512 FLOPs per byte), bytes
+// flagship's ring chunk, [8, 1024, 8, 256], ~500 FLOPs per byte), bytes
 // for the wedge at that shape (half the products over the same traffic).
 // The TPU enumerates the wedge's (i, j) tiles into scalar-prefetched
-// index vectors; here a block's loop bounds skip the upper triangle.
+// index vectors; here a work item's loop bounds skip the upper triangle.
 
+#include "flash_bwd_sm90.cuh"
 #include "flash_fwd_sm90.cuh"
-#include "flash_mma.cuh"
 
 // a pair: q pre-scaled, its own strides; k and v share theirs; lse and
 // dlse [B, Tq, H]
@@ -57,23 +60,21 @@ static bool bad_shape(int B, int Tq, int Tk, int H, int causal) {
 }
 
 // one instantiation per head dimension and variant
-#define PAIR_DISPATCH(FN)                                               \
-  {                                                                     \
-    cudaStream_t s = (cudaStream_t)stream;                              \
-    switch (hd) {                                                       \
-      case 64:                                                          \
-        return causal ? ca::FN<64, true, true>(a, B, s)                 \
-                      : ca::FN<64, false, true>(a, B, s);               \
-      case 128:                                                         \
-        return causal ? ca::FN<128, true, true>(a, B, s)                \
-                      : ca::FN<128, false, true>(a, B, s);              \
-      case 256:                                                         \
-        return causal ? ca::FN<256, true, true>(a, B, s)                \
-                      : ca::FN<256, false, true>(a, B, s);              \
-      default:                                                          \
-        return (int)cudaErrorInvalidValue;                              \
-    }                                                                   \
+#define PAIR_DISPATCH(CALL)                                         \
+  switch (hd) {                                                     \
+    case 64: return causal ? CALL(64, true) : CALL(64, false);      \
+    case 128: return causal ? CALL(128, true) : CALL(128, false);   \
+    case 256: return causal ? CALL(256, true) : CALL(256, false);   \
+    default: return (int)cudaErrorInvalidValue;                     \
   }
+#define PAIR_FWD(HD, C) \
+  ca::launch_fwd<HD, C, true>(a, B, (cudaStream_t)stream)
+#define PAIR_DQ(HD, C)                                            \
+  ca::sm90::launch_dq<HD, C, true>(a, B, nullptr, (float*)delta,  \
+                                   (cudaStream_t)stream)
+#define PAIR_DKV(HD, C)                                                  \
+  ca::sm90::launch_dkv<HD, C, true>(a, B, nullptr, (float*)delta, prep,  \
+                                    (cudaStream_t)stream)
 
 extern "C" int dk_pair_attention_fwd(const void* q, const void* k,
                                      const void* v, void* o, void* lse, int B,
@@ -85,15 +86,18 @@ extern "C" int dk_pair_attention_fwd(const void* q, const void* k,
   ca::Attn a = pair_args(q, k, v, Tq, Tk, H, qsb, qst, ksb, kst);
   a.out = (ca::bf16*)o;
   a.lse_out = (float*)lse;
-  PAIR_DISPATCH(launch_fwd)
+  PAIR_DISPATCH(PAIR_FWD)
 }
 
+// delta ([B, Tq, H] f32) is scratch the caller allocates: the prep kernel
+// first writes rowsum(dO * O) - dlse there, for this launch and the same
+// backward's dk/dv.
 extern "C" int dk_pair_attention_dq(const void* q, const void* k,
                                     const void* v, const void* o,
                                     const void* dout, const void* lse,
-                                    const void* dlse, void* dq, int B, int Tq,
-                                    int Tk, int H, int hd, int causal,
-                                    long long qsb, long long qst,
+                                    const void* dlse, void* dq, void* delta,
+                                    int B, int Tq, int Tk, int H, int hd,
+                                    int causal, long long qsb, long long qst,
                                     long long ksb, long long kst,
                                     void* stream) {
   if (bad_shape(B, Tq, Tk, H, causal)) return (int)cudaErrorInvalidValue;
@@ -103,15 +107,19 @@ extern "C" int dk_pair_attention_dq(const void* q, const void* k,
   a.lse = (const float*)lse;
   a.dlse = (const float*)dlse;
   a.dq = (ca::bf16*)dq;
-  PAIR_DISPATCH(launch_dq)
+  PAIR_DISPATCH(PAIR_DQ)
 }
 
+// delta as for dk_pair_attention_dq: with `prep` set the prep kernel fills
+// it first, without it it holds what the same backward's dq launch wrote
+// (from the same o, dO and dlse)
 extern "C" int dk_pair_attention_dkv(const void* q, const void* k,
                                      const void* v, const void* o,
                                      const void* dout, const void* lse,
                                      const void* dlse, void* dk, void* dv,
-                                     int B, int Tq, int Tk, int H, int hd,
-                                     int causal, long long qsb, long long qst,
+                                     void* delta, int prep, int B, int Tq,
+                                     int Tk, int H, int hd, int causal,
+                                     long long qsb, long long qst,
                                      long long ksb, long long kst,
                                      void* stream) {
   if (bad_shape(B, Tq, Tk, H, causal)) return (int)cudaErrorInvalidValue;
@@ -122,5 +130,5 @@ extern "C" int dk_pair_attention_dkv(const void* q, const void* k,
   a.dlse = (const float*)dlse;
   a.dk = (ca::bf16*)dk;
   a.dv = (ca::bf16*)dv;
-  PAIR_DISPATCH(launch_dkv)
+  PAIR_DISPATCH(PAIR_DKV)
 }

@@ -49,8 +49,8 @@ _SIGNATURES = {
     "dk_causal_attention_dq": [_vp] * 9 + [_i] * 4 + [_ll, _ll, _f, _vp],
     "dk_causal_attention_dkv": [_vp] * 10 + [_i] * 5 + [_ll, _ll, _f, _vp],
     "dk_pair_attention_fwd": [_vp] * 5 + [_i] * 6 + [_ll] * 4 + [_vp],
-    "dk_pair_attention_dq": [_vp] * 8 + [_i] * 6 + [_ll] * 4 + [_vp],
-    "dk_pair_attention_dkv": [_vp] * 9 + [_i] * 6 + [_ll] * 4 + [_vp],
+    "dk_pair_attention_dq": [_vp] * 9 + [_i] * 6 + [_ll] * 4 + [_vp],
+    "dk_pair_attention_dkv": [_vp] * 10 + [_i] * 7 + [_ll] * 4 + [_vp],
 }
 
 

@@ -19,15 +19,22 @@
   ``Tk``.
 
 On CUDA tensors each entry point launches its hand-written Hopper kernel
-(``csrc/pair_attention.cu``: the PAIR instantiations of the ``wgmma``
-forward of ``csrc/flash_fwd_sm90.cuh`` and of the ``mma.sync`` dq and
-dk/dv kernels of ``csrc/flash_mma.cuh``, bf16 in, f32 accumulate); CPU
-tensors take the plain versions beside them,
+(``csrc/pair_attention.cu``: the PAIR instantiations of the forward of
+``csrc/flash_fwd_sm90.cuh`` and of the dq and dk/dv kernels of
+``csrc/flash_bwd_sm90.cuh``, all on ``wgmma`` with TMA loads, bf16 in,
+f32 accumulate). The backward's prep pass writes
+``delta' = rowsum(dO * O) - dlse`` once per row into
+:func:`bwd_scratch` (the lse cotangent folded into delta, so the kernels
+compute ``dS = P * (dP - delta')``): the dq launch runs it and the
+backward's dk/dv launch reads it (a dk/dv call on its own runs it
+itself). CPU tensors take the plain versions beside them,
 :func:`pair_attention_reference`, :func:`pair_attention_dq_reference`
 and :func:`pair_attention_dkv_reference` — dense in f32 from the same
 inputs, with the reference's roundings (probabilities cast to v's dtype
 before ``P V`` and to dO's before ``dV``; ``dS`` cast to q's dtype
-before ``dQ`` and ``dK``). A CUDA call the kernels cannot take raises.
+before ``dQ`` and ``dK``) — and :func:`pair_attention_prep_reference`,
+the prep pass's. A CUDA call the kernels cannot take raises, and so
+does a launch that fails: there is no fallback.
 
 The gate, :func:`pair_supports`, is written for Hopper tiles, not for
 the TPU's ``hd % 128`` rule: bf16 operands, head dims 64/128/256, any
@@ -88,19 +95,31 @@ def pair_attention_reference(q, k, v, causal: bool = False):
     return o, lse.transpose(1, 2)
 
 
-def _bwd_common(q, k, v, o, lse, do, dlse, causal):
+def pair_attention_prep_reference(o, do, dlse):
+    """The backward prep pass's plain version: ``delta' = rowsum(dO * O)
+    - dlse``, ``[B, Tq, H]`` f32 — the lse cotangent folded into delta,
+    as the dq and dk/dv kernels read it."""
+    return (torch.einsum("bqhd,bqhd->bqh", do.float(), o.float())
+            - dlse.float())
+
+
+def _bwd_common(q, k, v, o, lse, do, dlse, causal, delta=None):
     """The Dao recompute the backward plain versions share, with the lse
     cotangent folded in: ``P = exp(s - lse)``, ``delta = rowsum(dO * O)``,
-    ``dS = P * (dO V^T - delta + dlse)`` rounded to q's dtype; returns
+    ``dS = P * (dO V^T - delta + dlse)`` rounded to q's dtype — or, given
+    the prep pass's ``delta'``, ``dS = P * (dO V^T - delta')``; returns
     ``(P, dS, dO)`` in f32."""
     do = do.to(q.dtype)
     p = torch.exp(_logits(q, k, causal)
                   - lse.float().transpose(1, 2)[..., None])
     dof = do.float()
-    delta = torch.einsum("bqhd,bqhd->bhq", dof, o.float())
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
-    ds = p * (dp - delta[..., None]
-              + dlse.float().transpose(1, 2)[..., None])
+    if delta is None:
+        delta = torch.einsum("bqhd,bqhd->bhq", dof, o.float())
+        ds = p * (dp - delta[..., None]
+                  + dlse.float().transpose(1, 2)[..., None])
+    else:
+        ds = p * (dp - delta.float().transpose(1, 2)[..., None])
     return p, ds.to(q.dtype).float(), dof
 
 
@@ -122,11 +141,14 @@ def pair_attention_dkv_reference(q, k, v, o, lse, do, dlse,
 
 
 def pair_attention_bwd_reference(q, k, v, o, lse, do, dlse,
-                                 causal: bool = False):
+                                 causal: bool = False, delta=None):
     """The backward's plain version: ``(dq, dk, dv)`` in f32 from one
     dense recompute (:func:`pair_attention_dq_reference` and
-    :func:`pair_attention_dkv_reference` together)."""
-    p, ds, dof = _bwd_common(q, k, v, o, lse, do, dlse, causal)
+    :func:`pair_attention_dkv_reference` together). Given ``delta`` (the
+    prep pass's ``delta'``, :func:`pair_attention_prep_reference`), ``dS``
+    takes the folded form the kernels compute, ``P * (dP - delta')``,
+    and ``o`` and ``dlse`` are not read."""
+    p, ds, dof = _bwd_common(q, k, v, o, lse, do, dlse, causal, delta)
     return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()),
             torch.einsum("bhqk,bqhd->bkhd", ds, q.float()),
             torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof))
@@ -199,22 +221,33 @@ def _bwd_args(q, k, v, o, lse, do, dlse):
     return held, [vp(t.data_ptr()) for t in held], (qsb, qst, ksb, kst)
 
 
-def _dq_kernel(q, k, v, o, lse, do, dlse, causal):
+def bwd_scratch(q):
+    """Scratch of the backward's prep pass for a pair whose q is shaped
+    like ``q``: ``delta' = rowsum(dO * O) - dlse``, ``[B, Tq, H]`` f32
+    (lse's layout). The dq kernel's launch fills it; the same backward's
+    dk/dv launch reads it."""
+    B, Tq, H, _ = q.shape
+    return torch.empty((B, Tq, H), dtype=torch.float32, device=q.device)
+
+
+def _dq_kernel(q, k, v, o, lse, do, dlse, causal, scratch):
     from distkeras_torch.kernels import build
 
     lib = build.load()
     held, ptrs, strides = _bwd_args(q, k, v, o, lse, do, dlse)
     B, Tq, H, hd = held[0].shape
     dq = torch.empty((B, Tq, H, hd), dtype=q.dtype, device=q.device)
+    delta = bwd_scratch(q) if scratch is None else scratch
+    vp = ctypes.c_void_p
     rc = lib.dk_pair_attention_dq(
-        *ptrs, ctypes.c_void_p(dq.data_ptr()), B, Tq, k.shape[1], H, hd,
-        int(causal), *strides, _stream(q))
+        *ptrs, vp(dq.data_ptr()), vp(delta.data_ptr()), B, Tq, k.shape[1],
+        H, hd, int(causal), *strides, _stream(q))
     _raise_on(rc, "dq")
     pair_attention_dq.launches[_variant(causal)] += 1
     return dq
 
 
-def _dkv_kernel(q, k, v, o, lse, do, dlse, causal):
+def _dkv_kernel(q, k, v, o, lse, do, dlse, causal, scratch):
     from distkeras_torch.kernels import build
 
     lib = build.load()
@@ -223,10 +256,13 @@ def _dkv_kernel(q, k, v, o, lse, do, dlse, causal):
     Tk = k.shape[1]
     dk = torch.empty((B, Tk, H, hd), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    # without the dq launch's scratch, the prep pass runs here first
+    prep = scratch is None
+    delta = bwd_scratch(q) if prep else scratch
     vp = ctypes.c_void_p
     rc = lib.dk_pair_attention_dkv(
-        *ptrs, vp(dk.data_ptr()), vp(dv.data_ptr()), B, Tq, Tk, H, hd,
-        int(causal), *strides, _stream(q))
+        *ptrs, vp(dk.data_ptr()), vp(dv.data_ptr()), vp(delta.data_ptr()),
+        int(prep), B, Tq, Tk, H, hd, int(causal), *strides, _stream(q))
     _raise_on(rc, "dk/dv")
     pair_attention_dkv.launches[_variant(causal)] += 1
     return dk, dv
@@ -278,21 +314,26 @@ def pair_attention_fwd(q, k, v, causal: bool = False,
 
 
 def pair_attention_dq(q, k, v, o, lse, do, dlse, causal: bool = False,
-                      block: Optional[int] = None):
-    """dq (of the pre-scaled q) in ``q.dtype``: the dq kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+                      block: Optional[int] = None, scratch=None):
+    """dq (of the pre-scaled q) in ``q.dtype``: the dq kernel (after its
+    prep pass) on CUDA tensors, the plain version on CPU tensors.
+    ``scratch`` (:func:`bwd_scratch`), when given, keeps what the prep
+    pass wrote for the same backward's :func:`pair_attention_dkv` call."""
     if _on_card(q, k, v, causal, block):
-        return _dq_kernel(q, k, v, o, lse, do, dlse, causal)
+        return _dq_kernel(q, k, v, o, lse, do, dlse, causal, scratch)
     return pair_attention_dq_reference(q, k, v, o, lse, do, dlse,
                                        causal).to(q.dtype)
 
 
 def pair_attention_dkv(q, k, v, o, lse, do, dlse, causal: bool = False,
-                       block: Optional[int] = None):
+                       block: Optional[int] = None, scratch=None):
     """(dk, dv) in their primals' dtypes: the dk/dv kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors, the plain version on CPU tensors. ``scratch`` filled by
+    :func:`pair_attention_dq` on the same inputs (``dlse`` included)
+    skips the kernel's own prep pass; without it the prep pass runs
+    first."""
     if _on_card(q, k, v, causal, block):
-        return _dkv_kernel(q, k, v, o, lse, do, dlse, causal)
+        return _dkv_kernel(q, k, v, o, lse, do, dlse, causal, scratch)
     dk, dv = pair_attention_dkv_reference(q, k, v, o, lse, do, dlse,
                                           causal)
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -327,10 +368,12 @@ class _PairAttention(torch.autograd.Function):
                                                       dlse, ctx.causal)
             return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None,
                     None)
+        # one prep pass (delta') serves both kernels
+        scratch = bwd_scratch(q)
         dq = pair_attention_dq(q, k, v, o, lse, do, dlse, ctx.causal,
-                               ctx.block)
+                               ctx.block, scratch)
         dk, dv = pair_attention_dkv(q, k, v, o, lse, do, dlse, ctx.causal,
-                                    ctx.block)
+                                    ctx.block, scratch)
         return dq, dk, dv, None, None
 
 

@@ -77,3 +77,39 @@ def test_sass_counts_reads_each_kernels_own_function(key, want):
 def test_sass_counts_raises_for_a_kernel_not_in_the_listing():
     with pytest.raises(AssertionError, match="no SASS"):
         chip_smoke.sass_counts(_SASS, "sm909dq_kernelILi64E")
+
+
+def _bwd_listing():
+    """A report and a SASS listing with every backward instantiation of
+    both libraries, each with its own register count and HGMMA count, the
+    pair's next to the causal ones of the same hd."""
+    log, sass, want = [], [], {}
+    n = 0
+    for row, (_, stem, flags, _) in chip_smoke.BWD_INSTANCES.items():
+        for hd in (64, 128, 256):
+            n += 1
+            name = f"_ZN2ca4{stem}{hd}{flags}EEv14CUtensorMap_st"
+            log += [f"ptxas info    : Compiling entry function '{name}' for "
+                    f"'sm_90a'",
+                    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                    "spill loads",
+                    f"ptxas info    : Used {100 + n} registers"]
+            sass += [f"\t\tFunction : {name}"] + [
+                "        /*0a40*/    HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], "
+                "R24 ;"] * n
+            want[(row, hd)] = n
+    return "\n".join(log), "\n".join(sass), want
+
+
+@pytest.mark.parametrize("row", sorted(chip_smoke.BWD_INSTANCES))
+def test_bwd_instances_pick_their_own_kernel(row):
+    """Each backward row's key (mangled stem, hd, <CAUSAL, PAIR> flags)
+    finds its own instantiation at every hd, never the causal kernel for
+    a pair row, the wedge for the rectangle, or another hd."""
+    log, sass, want = _bwd_listing()
+    _, stem, flags, _ = chip_smoke.BWD_INSTANCES[row]
+    for hd in (64, 128, 256):
+        key = f"{stem}{hd}{flags}"
+        n = want[(row, hd)]
+        assert chip_smoke.ptxas_facts(log, key)["registers"] == 100 + n
+        assert chip_smoke.sass_counts(sass, key)["HGMMA"] == n

@@ -19,6 +19,8 @@ CPU half of
 each wrapper's contract (plain version for CPU tensors, no launch
 counted) runs everywhere."""
 
+import hashlib
+
 import numpy as np
 import pytest
 
@@ -391,6 +393,47 @@ def test_causal_backward_reads_a_fused_projection(hd):
     _check_causal_bwd(q, k, v, out, lse, do, grads)
 
 
+def _causal_bwd_digest(T, hd):
+    """sha256 of the causal backward's dq, dk and dv bits (each wrapper
+    called alone) from seeded [2, T, 2, hd] inputs and the forward
+    kernel's out and lse."""
+    dev = _card()
+    q, k, v, do = _causal_inputs(dev, 2, T, 2, hd, seed=800 + T + hd)
+    out, lse = fa.causal_attention_fwd(q, k, v)
+    grads = _causal_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for g in grads:
+        h.update(g.contiguous().view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# _causal_bwd_digest of the causal backward kernels as they were before
+# flash_bwd_sm90.cuh was templated for the pair (NVIDIA H100 80GB HBM3,
+# CUDA 12.8's nvcc; another toolkit may compile other bits): the causal
+# instantiation <hd, true, false> must compute exactly these bits
+_CAUSAL_BWD_BITS = {
+    (63, 128):
+        "bcb4dd7b144ef932155b3e8eda2db7c95534813352a640ed289740558773cb2c",
+    (191, 256):
+        "604492be7c4f5df5096c5356b12f85c6be377e26801b78401aeec0606332f79c",
+    (257, 64):
+        "fbb7703f7ccd30f42001629e25c37e3b710363e55c17ecd4e8cd3bedbb9e4794",
+    (1000, 128):
+        "90b65e59ba14c03de2c70bed1cb25866f942bacf4b5b9a8e179cd90a0a35b0be",
+    (2048, 256):
+        "218417421e1cbaec4ebdda9588f3647d8f0938d53fc622c215d59eb75fe9551c",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,hd", sorted(_CAUSAL_BWD_BITS))
+def test_causal_backward_bits_are_pinned(T, hd):
+    """The causal dq and dk/dv give the bits they gave before the
+    backward was templated on <hd, causal, PAIR>."""
+    assert _causal_bwd_digest(T, hd) == _CAUSAL_BWD_BITS[(T, hd)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("causal,Tq,Tk", [(False, 200, 328),
@@ -546,6 +589,130 @@ def test_pair_wrappers_raise_on_what_the_kernels_do_not_take():
         pp.pair_attention_fwd(z, z[:, :32], z[:, :32], True)
 
 
+def _pair_bwd(q, k, v, o, lse, do, dlse, causal, scratch=None):
+    return (pp.pair_attention_dq(q, k, v, o, lse, do, dlse, causal,
+                                 scratch=scratch),
+            *pp.pair_attention_dkv(q, k, v, o, lse, do, dlse, causal,
+                                   scratch=scratch))
+
+
+def _check_pair_bwd(q, k, v, o, lse, do, dlse, causal, grads):
+    for got, ref in zip(grads, pp.pair_attention_bwd_reference(
+            q, k, v, o, lse, do, dlse, causal)):
+        assert got.dtype == torch.bfloat16
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - ref).abs().max().item()
+        assert err <= 2e-2 * ref.abs().max().item() + 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("causal,Tq,Tk", [
+    (True, 1, 1), (True, 63, 63), (True, 129, 129), (True, 191, 191),
+    (True, 257, 257), (True, 1000, 1000), (False, 1, 129), (False, 64, 320),
+    (False, 320, 64), (False, 1000, 257)])
+def test_pair_backward_at_the_tile_edges(causal, Tq, Tk, hd):
+    """The pair's dq and dk/dv at their ragged edges, with a nonzero lse
+    cotangent: the wedge's C against dq's 64-row halves and 128-row
+    items, the 64-key tiles and dk/dv's 64-query steps; rectangles with
+    Tq != Tk either way, a single query row, and keys past Tk on a
+    partial last tile; against the plain version, two launches equal."""
+    dev = _card()
+    q, k, v, do, dlse = _pair_inputs(dev, 1, Tq, Tk, 2, hd,
+                                     seed=400 + Tq + Tk + hd)
+    o, lse = pp.pair_attention_fwd(q, k, v, causal)
+    grads = _pair_bwd(q, k, v, o, lse, do, dlse, causal)
+    again = _pair_bwd(q, k, v, o, lse, do, dlse, causal)
+    torch.cuda.synchronize()
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+    _check_pair_bwd(q, k, v, o, lse, do, dlse, causal, grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero", ["do", "dlse"])
+@pytest.mark.parametrize("causal,Tq,Tk", [(True, 191, 191),
+                                          (False, 129, 320)])
+def test_pair_backward_with_a_zero_cotangent(zero, causal, Tq, Tk):
+    """One cotangent zero: with dO = 0 the gradients come from the lse
+    cotangent alone (dV = 0), with dlse = 0 from dO alone. The autograd
+    Function, given only the other output's cotangent, matches the
+    wrappers called with zeros."""
+    dev = _card()
+    q, k, v, do, dlse = _pair_inputs(dev, 1, Tq, Tk, 2, 128,
+                                     seed=500 + Tq + Tk)
+    if zero == "do":
+        do = torch.zeros_like(do)
+    else:
+        dlse = torch.zeros_like(dlse)
+    o, lse = pp.pair_attention_fwd(q, k, v, causal)
+    grads = _pair_bwd(q, k, v, o, lse, do, dlse, causal)
+    qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    oo, ll = pp.pallas_pair_attention(qq, kk, vv, causal)
+    loss = ((ll * dlse).sum() if zero == "do"
+            else (oo.float() * do.float()).sum())
+    loss.backward()
+    torch.cuda.synchronize()
+    _check_pair_bwd(q, k, v, o, lse, do, dlse, causal, grads)
+    if zero == "do":
+        assert not grads[2].any()  # dV = P^T dO
+    for got, want in zip((qq.grad, kk.grad, vv.grad), grads):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_pair_backward_reads_a_fused_projection(causal, hd):
+    """dq and dk/dv with q, k and v as strided views of one fused
+    [B, 2C, 3, H, hd] projection (a chunk against itself for the wedge,
+    against the next chunk for the rectangle): the same bits as
+    contiguous copies, within the plain version's tolerance."""
+    dev = _card()
+    B, C, H = 2, 136, 2
+    rng = np.random.default_rng(600 + hd)
+    x = rng.standard_normal((B, 2 * C, 3, H, hd)).astype(np.float32)
+    x[:, :, 0] *= hd ** -0.5  # q arrives pre-scaled
+    qkv = torch.from_numpy(x).to(dev).to(torch.bfloat16)
+    do = torch.from_numpy(rng.standard_normal((B, C, H, hd)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    dlse = torch.from_numpy(rng.standard_normal((B, C, H)).astype(
+        np.float32)).to(dev)
+    kv = slice(0, C) if causal else slice(C, 2 * C)
+    q, k, v = qkv[:, :C, 0], qkv[:, kv, 1], qkv[:, kv, 2]
+    assert not (q.is_contiguous() or k.is_contiguous())
+    o, lse = pp.pair_attention_fwd(q, k, v, causal)
+    grads = _pair_bwd(q, k, v, o, lse, do, dlse, causal)
+    copied = _pair_bwd(q.contiguous(), k.contiguous(), v.contiguous(), o,
+                       lse, do, dlse, causal)
+    torch.cuda.synchronize()
+    for a, b in zip(grads, copied):
+        assert torch.equal(a, b)
+    _check_pair_bwd(q, k, v, o, lse, do, dlse, causal, grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,Tq,Tk", [(True, 257, 257),
+                                          (False, 200, 328)])
+def test_pair_backward_shares_one_prep_pass(causal, Tq, Tk):
+    """dq and dk/dv sharing one scratch (the dq launch's prep pass, read
+    by dk/dv) give the bits of each called alone (each with its own prep
+    pass); the scratch holds delta' = rowsum(dO * O) - dlse."""
+    dev = _card()
+    q, k, v, do, dlse = _pair_inputs(dev, 2, Tq, Tk, 2, 64,
+                                     seed=700 + Tq + Tk)
+    o, lse = pp.pair_attention_fwd(q, k, v, causal)
+    scratch = pp.bwd_scratch(q)
+    shared = _pair_bwd(q, k, v, o, lse, do, dlse, causal, scratch)
+    alone = _pair_bwd(q, k, v, o, lse, do, dlse, causal)
+    torch.cuda.synchronize()
+    for a, b in zip(shared, alone):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(
+        scratch, pp.pair_attention_prep_reference(o, do, dlse), rtol=1e-5,
+        atol=1e-4)
+
+
 @pytest.mark.parametrize("name,group", [
     ("void paged_split_kernel<signed char, 256, 64>(__nv_bfloat16 const*, "
      "signed char const*)", "paged_attention"),
@@ -580,34 +747,48 @@ def test_profile_groups_place_the_serving_kernels(name, group):
      "int, int)", "pair_attention"),
     ("_ZN2ca4sm9010fwd_kernelILi256ELb0ELb1EEEv14CUtensorMap_stS2_S2_P13__"
      "nv_bfloat16PfNS_5ShapeEii", "pair_attention"),
-    # the causal backward (flash_bwd_sm90.cuh: templated on hd alone) and
-    # the pair backward (flash_mma.cuh)
-    ("void ca::sm90::dq_kernel<256>(CUtensorMap_st, CUtensorMap_st, "
-     "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16 const*, __nv_bfloat16 "
-     "const*, float const*, __nv_bfloat16*, ca::Shape, int, int)",
+    # the backward (flash_bwd_sm90.cuh: dq and dk/dv on <hd, causal, PAIR>,
+    # the prep pass on <hd, PAIR>), causal self-attention's and the pair's
+    ("void ca::sm90::dq_kernel<256, true, false>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, float "
+     "const*, __nv_bfloat16*, ca::Shape, int, int)", "causal_attention"),
+    ("_ZN2ca4sm909dq_kernelILi256ELb1ELb0EEEv14CUtensorMap_stS2_S2_S2_PKfS4_"
+     "P13__nv_bfloat16NS_5ShapeEii", "causal_attention"),
+    ("void ca::sm90::dkv_kernel<128, true, false>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, float "
+     "const*, __nv_bfloat16*, __nv_bfloat16*, ca::Shape, int, int)",
      "causal_attention"),
-    ("_ZN2ca4sm909dq_kernelILi256EEEv14CUtensorMap_stS2_S2_S2_PK13__nv_"
-     "bfloat16S5_PKfPS3_NS_5ShapeEii", "causal_attention"),
-    ("void ca::sm90::dkv_kernel<128>(CUtensorMap_st, CUtensorMap_st, "
-     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, "
-     "__nv_bfloat16*, __nv_bfloat16*, ca::Shape, int, int)",
-     "causal_attention"),
-    ("_ZN2ca4sm9010dkv_kernelILi64EEEv14CUtensorMap_stS2_S2_S2_PKfS4_P13__"
-     "nv_bfloat16S6_NS_5ShapeEii", "causal_attention"),
-    ("void ca::sm90::prep_kernel<256>(__nv_bfloat16 const*, __nv_bfloat16 "
-     "const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, ca::Shape, int)",
-     "causal_attention"),
-    ("_ZN2ca4sm9011prep_kernelILi64EEEvPK13__nv_bfloat16S4_S4_PS2_PfNS_5"
-     "ShapeEi", "causal_attention"),
-    ("void ca::dkv_kernel<256, true, true>(__nv_bfloat16 const*, "
-     "__nv_bfloat16 const*)", "pair_attention"),
-    ("_ZN2ca9dq_kernelILi256ELb0ELb1EEEvPK13__nv_bfloat16", "pair_attention"),
+    ("_ZN2ca4sm9010dkv_kernelILi64ELb1ELb0EEEv14CUtensorMap_stS2_S2_S2_PKfS4_"
+     "P13__nv_bfloat16S6_NS_5ShapeEii", "causal_attention"),
+    ("void ca::sm90::prep_kernel<256, false>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, float const*, "
+     "__nv_bfloat16*, float*, ca::Shape, int)", "causal_attention"),
+    ("_ZN2ca4sm9011prep_kernelILi64ELb0EEEvPK13__nv_bfloat16S4_S4_PKfPS2_PfNS"
+     "_5ShapeEi", "causal_attention"),
+    ("void ca::sm90::dkv_kernel<256, true, true>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, float "
+     "const*, __nv_bfloat16*, __nv_bfloat16*, ca::Shape, int, int)",
+     "pair_attention"),
+    ("_ZN2ca4sm909dq_kernelILi256ELb0ELb1EEEv14CUtensorMap_stS2_S2_S2_PKfS4_"
+     "P13__nv_bfloat16NS_5ShapeEii", "pair_attention"),
+    ("void ca::sm90::dq_kernel<256, false, true>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, float "
+     "const*, __nv_bfloat16*, ca::Shape, int, int)", "pair_attention"),
+    ("_ZN2ca4sm909dq_kernelILi128ELb1ELb1EEEv14CUtensorMap_stS2_S2_S2_PKfS4_"
+     "P13__nv_bfloat16NS_5ShapeEii", "pair_attention"),
+    ("_ZN2ca4sm9010dkv_kernelILi64ELb0ELb1EEEv14CUtensorMap_stS2_S2_S2_PKfS4_"
+     "P13__nv_bfloat16S6_NS_5ShapeEii", "pair_attention"),
+    ("void ca::sm90::prep_kernel<256, true>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, float const*, "
+     "__nv_bfloat16*, float*, ca::Shape, int)", "pair_attention"),
+    ("_ZN2ca4sm9011prep_kernelILi256ELb1EEEvPK13__nv_bfloat16S4_S4_PKfPS2_PfN"
+     "S_5ShapeEi", "pair_attention"),
 ])
 def test_profile_groups_place_the_training_forwards(name, group):
-    """The wgmma forward and causal backward (namespace ca::sm90) and the
-    pair backward land under the causal or the pair group: the pair
-    kernels by their PAIR flag, the causal backward, templated on hd
-    alone, never mistaken for one."""
+    """The wgmma forward, dq, dk/dv and prep kernels (namespace ca::sm90)
+    land under the causal or the pair group by their PAIR flag, the last
+    template argument, demangled or mangled: the pair's wedge (causal
+    true) never mistaken for causal self-attention."""
     from distkeras_torch.bench import _group
 
     assert _group(name) == group

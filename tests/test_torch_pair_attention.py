@@ -93,6 +93,55 @@ def test_pair_grads_with_lse_cotangent_match_jax_vjp(causal, Tq, Tk):
     assert (dq_no_lse - ts[0].grad).abs().max().item() > 1e-3
 
 
+@pytest.mark.parametrize("causal,Tq,Tk", CASES)
+def test_folded_prep_delta_matches_jax_vjp(causal, Tq, Tk):
+    """The kernels' form of the backward: the prep pass's plain version
+    folds the lse cotangent into delta (delta' = rowsum(dO * O) - dlse)
+    and dS = P * (dP - delta') — the same gradients as the JAX VJP,
+    which adds dlse to dP - delta."""
+    q, k, v, do, dlse = _inputs(1, 1, Tq, Tk, 2, 128)
+
+    def jloss(q, k, v):
+        o, lse = jax_pair(q, k, v, causal, 32)
+        return jnp.sum(o * do) + jnp.sum(lse * dlse)
+
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    qt, kt, vt, dot, dlt = map(torch.from_numpy, (q, k, v, do, dlse))
+    o, lse = pp.pair_attention_fwd(qt, kt, vt, causal)
+    delta = pp.pair_attention_prep_reference(o, dot, dlt)
+    assert delta.shape == (1, Tq, 2) and delta.dtype == torch.float32
+    np.testing.assert_allclose(
+        delta.numpy(), np.einsum("bqhd,bqhd->bqh", do, o.numpy()) - dlse,
+        rtol=1e-5, atol=1e-5)
+    # o and dlse are not read once delta' is given
+    got = pp.pair_attention_bwd_reference(qt, kt, vt, None, lse, dot, None,
+                                          causal, delta=delta)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-4,
+                                   atol=2e-5, err_msg=name)
+
+
+def test_bwd_scratch_holds_one_delta_per_row():
+    """A pair's prep scratch is delta' in lse's layout, [B, Tq, H] f32,
+    on q's device; CPU tensors take the plain versions and leave a given
+    scratch unread."""
+    q, k, v, do, dlse = (torch.from_numpy(a) for a in
+                         _inputs(4, 2, 24, 40, 3, 16))
+    scratch = pp.bwd_scratch(q.to(torch.bfloat16))
+    assert scratch.shape == (2, 24, 3) and scratch.dtype == torch.float32
+    assert scratch.device == q.device
+    o, lse = pp.pair_attention_fwd(q, k, v)
+    scratch.fill_(7.0)
+    assert torch.equal(pp.pair_attention_dq(q, k, v, o, lse, do, dlse,
+                                            scratch=scratch),
+                       pp.pair_attention_dq(q, k, v, o, lse, do, dlse))
+    got = pp.pair_attention_dkv(q, k, v, o, lse, do, dlse, scratch=scratch)
+    want = pp.pair_attention_dkv(q, k, v, o, lse, do, dlse)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (scratch == 7.0).all()
+
+
 def _dense_torch(q, k, v, causal):
     s = torch.einsum("bqhd,bkhd->bhqk", q, k)
     if causal:
