@@ -97,6 +97,26 @@ Phases (any failure exits non-zero):
    the same width and depth (batch 8): a finite history of 5 steps; then
    the same with ``attention='ring'`` and ``axes={"dp": 1, "sp": 1}``
    (7b).
+8. **The dist-keras core at full width.** (8a) The reference's CIFAR
+   training bench (bench.py:254-287): ``cifar_cnn`` at widths (64, 128,
+   256), Dense 256, 10 classes, bf16 compute with f32 parameters, on
+   seeded normal NHWC ``[2048, 32, 32, 3]`` bf16 inputs with one-hot
+   labels, SGD 0.05 with momentum 0.9, categorical cross-entropy,
+   through ``workers.make_window_step`` in windows of 10 steps: one
+   warm-up window, then 5 timed. Every loss finite, and the first step's
+   loss within 2e-2 of an f32 twin's from the same weights on the same
+   batch. Prints ms/window, samples/s, peak memory and MFU from the
+   analytic count of ``bench.cifar_step_flops``. (8b) The reference's
+   MNIST workflow (examples/mnist_workflow.py) on 8,192 seeded
+   MNIST-shaped rows (a noisy prototype per class): MinMax -> Reshape ->
+   OneHot, then ``SingleTrainer``, ``AveragingTrainer(2)``,
+   ``EnsembleTrainer(2)`` and ``DataParallelTrainer`` (a world of one)
+   each train ``mnist_cnn`` (Adam 1e-3, batch 128, 2 epochs), then
+   ``ModelPredictor`` -> ``LabelIndexTransformer`` ->
+   ``AccuracyEvaluator``: every history finite, every model at accuracy
+   >= 0.9; prints samples/s per trainer. This phase adds no hand-written
+   kernel: convolutions run through cuDNN and dense products through
+   cuBLAS, as XLA computes them in the reference.
 
 Output: JSON lines per phase, the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line (the three forward rows and the causal and
@@ -156,6 +176,15 @@ TRAIN = dict(vocab_size=8192, d_model=2048, num_heads=8, num_layers=8,
 TRAIN_B, TRAIN_W, TRAIN_LR = 8, 5, 3e-4
 TRAIN_LOSS_TOL = 5e-2  # kernel path vs the blocked twin, per step
 TRAINER_ROWS = 40
+# phase 8: the dist-keras core
+CIFAR_TIMED_WINDOWS = 5
+CIFAR_LOSS_TOL = 2e-2  # first step's bf16 loss vs the f32 twin's
+MNIST_ROWS = 8192
+# examples/mnist_workflow.py's settings
+MNIST_TRAIN = dict(worker_optimizer="adam", learning_rate=1e-3,
+                   loss="categorical_crossentropy", features_col="matrix",
+                   label_col="label_encoded", batch_size=128, num_epoch=2)
+MNIST_MIN_ACCURACY = 0.9
 
 
 def _fail(msg):
@@ -996,6 +1025,134 @@ def trainer_phase(torch, np, dk, attention="standard", axes=None):
             "history": hist, "wall_s": wall}
 
 
+# -- phase 8: the dist-keras core at full width ----------------------------
+
+
+def cifar_phase(torch, np, dk):
+    """8a: the reference's CIFAR training bench through the port's window
+    step."""
+    bench = dk["bench"]
+    B, W = bench.CIFAR_BATCH, bench.CIFAR_WINDOW
+    model = dk["get_model"]("cifar_cnn", device=DEV, seed=0)
+    twin = dk["get_model"]("cifar_cnn", dtype=torch.float32, device=DEV)
+    twin.load_state_dict(model.state_dict())
+    xs, ys = bench.cifar_batches(model.device, B, W)
+    loss_fn = dk["get_loss"]("categorical_crossentropy")
+    with torch.no_grad():
+        twin_loss = float(loss_fn(twin(xs[0]), ys[0]))
+    del twin
+    step = dk["make_window_step"](
+        model, loss_fn, dk["get_optimizer"]("momentum", bench.CIFAR_LR,
+                                            momentum=bench.CIFAR_MOMENTUM))
+    sync(torch)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(xs, ys)["loss"]]
+    sync(torch)
+    t1 = time.perf_counter()
+    for _ in range(CIFAR_TIMED_WINDOWS):
+        losses.append(step(xs, ys)["loss"])
+    sync(torch)
+    t2 = time.perf_counter()
+    peak = (torch.cuda.max_memory_allocated() / 2**20 if DEV == "cuda"
+            else None)
+    losses = torch.cat(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"CIFAR losses not finite: {losses}")
+    gap = abs(float(losses[0]) - twin_loss)
+    if not gap <= CIFAR_LOSS_TOL:
+        raise AssertionError(f"CIFAR first loss {losses[0]} vs the f32 "
+                             f"twin's {twin_loss}: {gap} > {CIFAR_LOSS_TOL}")
+    timed = t2 - t1
+    ms = timed * 1e3 / CIFAR_TIMED_WINDOWS
+    flops = bench.cifar_step_flops(B) * W
+    peak_flops = dk["peak_flops"](torch.cuda.get_device_name(0)
+                                  if DEV == "cuda" else "")
+    del step, model
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return {
+        "config": f"cifar_cnn-w64/128/256-d256-bf16-b{B}-sgd"
+                  f"{bench.CIFAR_LR}-m{bench.CIFAR_MOMENTUM}-W{W}",
+        "losses": losses.tolist(), "f32_twin_first_loss": twin_loss,
+        "first_loss_gap": gap, "tol": CIFAR_LOSS_TOL,
+        "warmup_window_s": t1 - t0, "ms_per_window": ms,
+        "samples_per_s": CIFAR_TIMED_WINDOWS * W * B / timed,
+        "peak_device_mb": peak, "flops_per_window": flops,
+        "mfu": (flops / (ms / 1e3) / peak_flops) if peak_flops else None,
+        "mfu_method": "analytic: 3 x forward convolution and dense "
+                      "products (distkeras_torch.bench.cifar_step_flops) "
+                      "over the bf16 peak of the device",
+    }
+
+
+def mnist_dataset(np, dk, rows=None):
+    """examples/mnist_workflow.py's synthetic digits (a noisy prototype per
+    class) through MinMax -> Reshape -> OneHot."""
+    rows = rows or MNIST_ROWS
+    rng = np.random.default_rng(0)
+    protos = rng.uniform(0, 255, size=(10, 784)).astype(np.float32)
+    y = rng.integers(0, 10, size=rows)
+    x = np.clip(protos[y] + rng.normal(scale=64.0, size=(rows, 784)), 0,
+                255).astype(np.float32)
+    ds = dk["PartitionedDataset"].from_arrays({"features": x, "label": y},
+                                              num_partitions=4)
+    ds = dk["MinMaxTransformer"](o_min=0.0, o_max=255.0,
+                                 input_col="features",
+                                 output_col="features_normalized"
+                                 ).transform(ds)
+    ds = dk["ReshapeTransformer"]("features_normalized", "matrix",
+                                  (28, 28, 1)).transform(ds)
+    return dk["OneHotTransformer"](10, "label", "label_encoded"
+                                   ).transform(ds)
+
+
+def mnist_phase(torch, np, dk, rows=None):
+    """8b: every dist-keras trainer of the port on the MNIST workflow."""
+    ds = mnist_dataset(np, dk, rows)
+    trainers = (
+        ("single", lambda m: dk["SingleTrainer"](m, **MNIST_TRAIN)),
+        ("averaging", lambda m: dk["AveragingTrainer"](m, num_workers=2,
+                                                       **MNIST_TRAIN)),
+        ("ensemble", lambda m: dk["EnsembleTrainer"](m, num_models=2,
+                                                     **MNIST_TRAIN)),
+        ("data_parallel", lambda m: dk["DataParallelTrainer"](
+            m, **MNIST_TRAIN)),
+    )
+    out = {}
+    for name, make in trainers:
+        trainer = make(dk["get_model"]("mnist_cnn", device=DEV, seed=0))
+        trained = trainer.train(ds, shuffle=True)
+        sync(torch)
+        wall = trainer.get_training_time()
+        models = trained if isinstance(trained, list) else [trained]
+        accs = []
+        for m in models:
+            pred = dk["ModelPredictor"](m, features_col="matrix").predict(ds)
+            pred = dk["LabelIndexTransformer"](input_col="prediction"
+                                               ).transform(pred)
+            accs.append(dk["AccuracyEvaluator"]("predicted_index", "label"
+                                                ).evaluate(pred))
+        hist = [r[k] for h in trainer.executor_histories for r in h
+                for k in ("loss", "accuracy")]
+        steps = sum(len(h) for h in trainer.executor_histories)
+        if not steps or not np.isfinite(hist).all():
+            raise AssertionError(f"{name}: history not finite or empty")
+        if not min(accs) >= MNIST_MIN_ACCURACY:
+            raise AssertionError(f"{name}: accuracy {accs} < "
+                                 f"{MNIST_MIN_ACCURACY}")
+        out[name] = {"accuracy": accs, "steps": steps, "train_s": wall,
+                     "samples_per_s": steps * MNIST_TRAIN["batch_size"]
+                     / wall,
+                     "final_loss": [h[-1]["loss"]
+                                    for h in trainer.executor_histories]}
+        del trainer, trained, models
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return {"rows": len(ds), "train": MNIST_TRAIN, "trainers": out}
+
+
 # -- phase 3: serving at full width ----------------------------------------
 
 
@@ -1196,7 +1353,7 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
-        from distkeras_torch import telemetry
+        from distkeras_torch import bench, telemetry
         from distkeras_torch.bench import (lm_step_flops, nvidia_smi,
                                            peak_flops, serving_requests)
         from distkeras_torch.data.dataset import PartitionedDataset
@@ -1212,7 +1369,10 @@ def main() -> int:
         from distkeras_torch.parallel.spmd import make_lm_train_step
         from distkeras_torch.serving import ServingEngine
         from distkeras_torch.trainers import LMTrainer
-        from distkeras_torch.utils.losses import get_optimizer
+        from distkeras_torch.utils.losses import get_loss, get_optimizer
+        from distkeras_torch.workers import make_window_step
+        from distkeras_torch import evaluators, predictors, trainers
+        from distkeras_torch import transformers as stages
     except ImportError as e:
         return _fail(f"run from a checkout of the repository ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1224,7 +1384,18 @@ def main() -> int:
           "get_optimizer": get_optimizer, "lm_step_flops": lm_step_flops,
           "peak_flops": peak_flops, "LMTrainer": LMTrainer,
           "PartitionedDataset": PartitionedDataset, "make_mesh": make_mesh,
-          "pair_kernel_block": _pair_kernel_block}
+          "pair_kernel_block": _pair_kernel_block, "bench": bench,
+          "get_loss": get_loss, "make_window_step": make_window_step,
+          "SingleTrainer": trainers.SingleTrainer,
+          "AveragingTrainer": trainers.AveragingTrainer,
+          "EnsembleTrainer": trainers.EnsembleTrainer,
+          "DataParallelTrainer": trainers.DataParallelTrainer,
+          "ModelPredictor": predictors.ModelPredictor,
+          "AccuracyEvaluator": evaluators.AccuracyEvaluator,
+          "MinMaxTransformer": stages.MinMaxTransformer,
+          "ReshapeTransformer": stages.ReshapeTransformer,
+          "OneHotTransformer": stages.OneHotTransformer,
+          "LabelIndexTransformer": stages.LabelIndexTransformer}
 
     smi = nvidia_smi()
     kern = build.load()
@@ -1286,6 +1457,16 @@ def main() -> int:
     ring_trainer = trainer_phase(torch, np, dk, "ring", {"dp": 1, "sp": 1})
     ring_trainer["seconds"] = time.perf_counter() - t0
     _emit({"ring_lm_trainer_phase": ring_trainer})
+
+    t0 = time.perf_counter()
+    cifar = cifar_phase(torch, np, dk)
+    cifar["seconds"] = time.perf_counter() - t0
+    _emit({"cifar_phase": cifar})
+
+    t0 = time.perf_counter()
+    mnist = mnist_phase(torch, np, dk)
+    mnist["seconds"] = time.perf_counter() - t0
+    _emit({"mnist_workflow_phase": mnist})
 
     main_paged = next(c for c in paged if c["T"] == 64 and c["pool"] == "int8")
     main_splash = next(c for c in splash if c["dtype"] == "bf16")

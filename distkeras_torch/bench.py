@@ -1,5 +1,5 @@
 """Where a full-width serving run's device time goes, and how fast the
-flagship trains, on one CUDA card.
+flagship LM and the CIFAR CNN train, on one CUDA card.
 
     python -m distkeras_torch.bench
 
@@ -14,9 +14,10 @@ JSON line with the environment, then one per cache layout (paged, then
 slot): wall time, ticks,
 device busy time (the sum of kernel times on the engine's one stream)
 and idle share, device time grouped by what ran (the two attention
-kernels, matrix products, everything else), and the top kernels.
+kernels, matrix products, elementwise and everything else), and the top
+kernels.
 
-The last two lines are the LM training lines (:func:`lm_bench`): tok/s
+The next two lines are the LM training lines (:func:`lm_bench`): tok/s
 of the flagship training step — the reference's ``lm_bench``
 (bench.py:130): d2048/h8/L8/v8192, T=2048, B=8, bf16, AdamW with a bf16
 first moment, fused chunked CE, windows of W=5 steps — first with
@@ -30,8 +31,20 @@ under ``torch.profiler`` (``lm_profile_window``: busy time, idle share,
 device time by kernel group and by named range such as
 ``Optimizer.step``, top kernels).
 
-``chip_smoke.py`` drives the same workload to prove the path; this
-script only measures it. It needs the card and raises without one.
+The last line is the CIFAR training line (:func:`cifar_bench`), the
+reference's headline (bench.py:254-323): ``cifar_cnn`` at its full
+widths (64, 128, 256; Dense 256; 10 classes; bf16 compute, f32
+parameters) on NHWC ``[2048, 32, 32, 3]`` seeded normal inputs with
+one-hot labels, SGD 0.05 with momentum 0.9, categorical cross-entropy,
+windows of 10 steps through :func:`distkeras_torch.workers.make_window_step`:
+``cifar10_cnn_train_samples_per_sec`` as the best of 3 blocks of 5
+windows, MFU from :func:`cifar_step_flops`, and one profiled window's
+device time by group (convolution, matmul, elementwise and the rest)
+and by named range (``Optimizer.step``), busy time and idle share. It
+never prints a ratio to the reference's TPU number.
+
+``chip_smoke.py`` drives the same workloads to prove the path; this
+script only measures them. It needs the card and raises without one.
 """
 
 from __future__ import annotations
@@ -57,6 +70,9 @@ PROMPT_LENS = (96, 1024, 300, 640, 128, 800, 512, 200, 1000, 296, 700, 150,
 LM_FLAGSHIP = dict(vocab_size=8192, d_model=2048, num_heads=8, num_layers=8,
                    max_len=2048)
 LM_BATCH, LM_WINDOW = 8, 5
+# the reference's CIFAR training bench (bench.py:254-287)
+CIFAR_BATCH, CIFAR_WINDOW, CIFAR_CALLS = 2048, 10, 5
+CIFAR_LR, CIFAR_MOMENTUM = 0.05, 0.9
 # dense bf16 tensor-core peak by device name (NVIDIA's data sheets, SXM
 # parts, no sparsity), keyed by name prefix as the reference's bench.py
 # keys PEAK_FLOPS by TPU kind
@@ -123,6 +139,91 @@ def lm_step_flops(D, H, L, V, B, T, block=64) -> float:
     attn = L * B * H * (nq * (nq + 1) // 2) * 9 * 2.0 * block * block * (
         D // H)
     return dense + attn
+
+
+def cifar_step_flops(batch: int = 1, widths=(64, 128, 256), dense: int = 256,
+                     num_classes: int = 10, input_shape=(32, 32, 3)) -> float:
+    """Analytic FLOPs of one training step of ``cifar_cnn``: 3x the
+    forward (forward, and a backward of twice its products). The forward
+    is ``2 H W Cin Cout 9`` for each 3x3 convolution at its block's
+    resolution plus the two Dense products, 307.6 MFLOP a sample at the
+    full widths. ReLU, pooling, the loss and the optimizer are not
+    counted."""
+    H, W, cin = input_shape
+    fwd = 0
+    for w in widths:
+        for _ in range(2):
+            fwd += 2 * H * W * cin * w * 9
+            cin = w
+        H, W = H // 2, W // 2
+    fwd += 2 * H * W * cin * dense + 2 * dense * num_classes
+    return 3.0 * fwd * batch
+
+
+def cifar_bench(calls: int = CIFAR_CALLS) -> dict:
+    """CIFAR CNN training throughput and MFU on the card (needs one), the
+    reference's protocol: one warm-up window, then the best of 3 blocks
+    of ``calls`` windows of :data:`CIFAR_WINDOW` steps."""
+    from distkeras_torch.models import get_model
+    from distkeras_torch.utils.losses import get_loss, get_optimizer
+    from distkeras_torch.workers import make_window_step
+
+    model = get_model("cifar_cnn", seed=0)
+    xs, ys = cifar_batches(model.device)
+    step = make_window_step(
+        model, get_loss("categorical_crossentropy"),
+        get_optimizer("momentum", CIFAR_LR, momentum=CIFAR_MOMENTUM))
+    float(step(xs, ys)["loss"][-1])  # warm-up window
+    dt = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            ms = step(xs, ys)
+        final = float(ms["loss"][-1])
+        dt = min(dt, time.perf_counter() - t0)
+    if not np.isfinite(final):
+        raise AssertionError(f"CIFAR CNN loss diverged: {final}")
+    steps = calls * CIFAR_WINDOW
+    name = torch.cuda.get_device_name(0)
+    out = {
+        "metric": "cifar10_cnn_train_samples_per_sec",
+        "cifar10_cnn_train_samples_per_sec": steps * CIFAR_BATCH / dt,
+        "cifar_ms_per_window": dt * 1e3 / calls,
+        "cifar_config": f"cifar_cnn-w64/128/256-d256-bf16-b{CIFAR_BATCH}"
+                        f"-sgd{CIFAR_LR}-m{CIFAR_MOMENTUM}-W{CIFAR_WINDOW}",
+        "device": name, "nvidia_smi": nvidia_smi(),
+    }
+    peak = peak_flops(name)
+    if peak is not None:
+        out["cifar_mfu"] = (cifar_step_flops(CIFAR_BATCH) * steps / dt
+                            / peak)
+        out["cifar_mfu_method"] = ("analytic: 3 x forward convolution and "
+                                   "dense products (cifar_step_flops)")
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(xs, ys)["loss"][-1])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out["cifar_profile_window"] = dict(steps=CIFAR_WINDOW,
+                                       **_device_summary(prof, wall_ms))
+    return out
+
+
+def cifar_batches(device, batch: int = CIFAR_BATCH,
+                  window: int = CIFAR_WINDOW, seed: int = 0):
+    """One window of CIFAR-shaped batches made on ``device`` from a seed:
+    ``[W, B, 32, 32, 3]`` normal features in bf16 and ``[W, B, 10]``
+    one-hot f32 labels."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xs = torch.randn((window, batch, 32, 32, 3), generator=gen,
+                     device=device).to(torch.bfloat16)
+    labels = torch.randint(0, 10, (window, batch), generator=gen,
+                           device=device)
+    return xs, torch.nn.functional.one_hot(labels, 10).float()
 
 
 def lm_bench(calls: int = 3, attention: str = "standard") -> dict:
@@ -214,10 +315,18 @@ def _group(name: str) -> str:
     if "attn_kernel" in name:  # f32: PAGED=true instantiations are paged
         return ("paged_attention" if ("true>" in name or "Lb1E" in name)
                 else "splash_prefill")
+    low = name.lower()
+    # cuDNN's convolutions (forward, data and weight gradients), before
+    # the matmul test: their implicit-GEMM kernels carry "gemm" too
+    # ("conv_", not "conv": "convert" names casts)
+    if any(k in low for k in ("fprop", "dgrad", "wgrad", "conv2d",
+                              "convolve", "conv_")):
+        return "convolution"
     if ("gemm" in name or "gemv" in name or "nvjet" in name
-            or "cutlass" in name.lower()):
+            or "cutlass" in low):
         return "matmul"
-    return "other"
+    # the rest: elementwise passes, reductions, pooling, copies
+    return "elementwise"
 
 
 def profile_layout(model, requests, paged: bool) -> dict:
@@ -306,6 +415,7 @@ def main() -> int:
     for attention in ("standard", "ring"):
         print(json.dumps(lm_bench(attention=attention)), flush=True)
         torch.cuda.empty_cache()
+    print(json.dumps(cifar_bench()), flush=True)
     return 0
 
 

@@ -1,13 +1,15 @@
-"""Weight bridge between the reference's flax parameter tree and the
-port's :class:`~distkeras_torch.models.transformer.TransformerLM`.
+"""Weight bridge between the reference's flax parameter trees and the
+port's models (:class:`~distkeras_torch.models.transformer.TransformerLM`,
+the MLP and the CNNs).
 
 The port names its modules and parameters after the flax tree, so the
 map is by name: the flax path ``Block_i/<module>/.../<leaf>`` is the
 port's ``blocks.i.<module>. ... .<leaf>``; every other path keeps its
-names (``embed/embedding``, ``ln_f/scale``, ``head/kernel``, ...).
-Kernels keep the flax shapes (``[D, H, hd]``, ``[D, 2, Hk, hd]``,
-``[H, hd, D]``, ...), so a leaf copies as it is, cast to the dtype the
-port stores it in.
+names (``embed/embedding``, ``ln_f/scale``, ``head/kernel``,
+``Conv_0/kernel``, ``Dense_1/bias``, ...). Kernels keep the flax shapes
+(``[D, H, hd]``, ``[D, 2, Hk, hd]``, a convolution's ``[kh, kw, Cin,
+Cout]``, a Dense's ``[in, out]``, ...), so a leaf copies as it is, cast
+to the dtype the port stores it in.
 
 The JAX side is plain numpy: :func:`params_from_jax` takes what
 ``jax.tree.map(np.asarray, variables)`` gives, and :func:`params_to_jax`

@@ -25,3 +25,13 @@ def get_model(name: str, **kwargs):
     except KeyError:
         raise ValueError(f"Unknown model '{name}'. Known: {sorted(_REGISTRY)}") from None
     return cls(**kwargs)
+
+
+def model_spec(module) -> dict:
+    """``{name, kwargs}`` spec of a registered module instance: its
+    registry name and constructor keywords (``module.config()``; the
+    device and seed are not part of it)."""
+    name = getattr(type(module), "_registry_name", None)
+    if name is None:
+        raise ValueError(f"{type(module).__name__} is not a registered model")
+    return {"name": name, "kwargs": module.config()}

@@ -12,8 +12,11 @@ momentum), ``adam`` is ``optax.adam`` and ``adamw`` is ``optax.adamw``
 ``-lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``, and with
 ``mu_dtype=torch.bfloat16`` the first moment stored in bf16 while this
 step's ``m_hat`` uses the unrounded f32 moment (optax's
-``scale_by_adam``; ``torch.optim.AdamW`` has neither). Each is a small
-``torch.optim.Optimizer`` that updates the parameters in place.
+``scale_by_adam``; ``torch.optim.AdamW`` has neither); ``adagrad``,
+``rmsprop`` and ``adadelta`` are optax's (accumulator from 0.1; eps
+inside the square roots), which ``torch.optim``'s namesakes are not.
+Each is a small ``torch.optim.Optimizer`` that updates the parameters in
+place.
 
 :func:`get_optimizer` returns a factory, the counterpart of an optax
 ``GradientTransformation``: calling it with parameters builds the
@@ -194,7 +197,100 @@ class Adam(torch.optim.Optimizer):
         return loss
 
 
-_DEFERRED = ("adagrad", "rmsprop", "adadelta")
+class Adagrad(torch.optim.Optimizer):
+    """``optax.adagrad``: ``optax.scale_by_rss`` — the accumulator starts at
+    ``initial_accumulator_value`` and gains ``g^2`` each step; the update
+    ``g * where(acc > 0, rsqrt(acc + eps), 0)`` — scaled by ``-lr``."""
+
+    def __init__(self, params, lr: float,
+                 initial_accumulator_value: float = 0.1, eps: float = 1e-7):
+        super().__init__(params, dict(
+            lr=lr, initial_accumulator_value=initial_accumulator_value,
+            eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = closure() if closure is not None else None
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                st = self.state[p]
+                if "sum_of_squares" not in st:
+                    st["sum_of_squares"] = torch.full_like(
+                        p, group["initial_accumulator_value"])
+                acc = g * g + st["sum_of_squares"]
+                st["sum_of_squares"] = acc
+                inv = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]),
+                                  torch.zeros_like(acc))
+                p.add_(inv * g * -group["lr"])
+        return loss
+
+
+class RMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop`` (not centered, no momentum): ``optax.scale_by_rms``
+    — ``nu = (1 - decay) g^2 + decay nu`` from ``initial_scale``, the
+    update ``g * rsqrt(nu + eps)`` (eps INSIDE the root, unlike
+    ``torch.optim.RMSprop``) — scaled by ``-lr``."""
+
+    def __init__(self, params, lr: float, decay: float = 0.9,
+                 eps: float = 1e-8, initial_scale: float = 0.0):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps,
+                                      initial_scale=initial_scale))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = closure() if closure is not None else None
+        for group in self.param_groups:
+            decay = group["decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                st = self.state[p]
+                if "nu" not in st:
+                    st["nu"] = torch.full_like(p, group["initial_scale"])
+                nu = (1 - decay) * (g * g) + decay * st["nu"]
+                st["nu"] = nu
+                p.add_(torch.rsqrt(nu + group["eps"]) * g * -group["lr"])
+        return loss
+
+
+class Adadelta(torch.optim.Optimizer):
+    """``optax.adadelta`` (no weight decay): ``optax.scale_by_adadelta`` —
+    ``e_g = (1 - rho) g^2 + rho e_g``, the update ``sqrt(e_x + eps) /
+    sqrt(e_g + eps) * g`` (with the PREVIOUS ``e_x``), then ``e_x = (1 -
+    rho) u^2 + rho e_x`` — scaled by ``-lr``."""
+
+    def __init__(self, params, lr: float, rho: float = 0.9,
+                 eps: float = 1e-6):
+        super().__init__(params, dict(lr=lr, rho=rho, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = closure() if closure is not None else None
+        for group in self.param_groups:
+            rho, eps = group["rho"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                st = self.state[p]
+                if not st:
+                    st["e_g"] = torch.zeros_like(p)
+                    st["e_x"] = torch.zeros_like(p)
+                e_g = (1 - rho) * (g * g) + rho * st["e_g"]
+                u = torch.sqrt(st["e_x"] + eps) / torch.sqrt(e_g + eps) * g
+                st["e_x"] = (1 - rho) * (u * u) + rho * st["e_x"]
+                st["e_g"] = e_g
+                p.add_(u * -group["lr"])
+        return loss
+
+
+_OPTIMIZERS = {"sgd": SGD, "momentum": SGD, "nesterov": SGD, "adam": Adam,
+               "adamw": Adam, "adagrad": Adagrad, "rmsprop": RMSprop,
+               "adadelta": Adadelta}
 
 
 def get_optimizer(name, learning_rate: float = 0.01, **kwargs):
@@ -204,22 +300,19 @@ def get_optimizer(name, learning_rate: float = 0.01, **kwargs):
     mu_dtype=torch.bfloat16)(model.parameters())`` builds the optimizer.
     A ``torch.optim.Optimizer`` instance, or any other callable, passes
     through. ``momentum``/``nesterov`` take ``momentum=`` (default 0.9);
-    ``adamw`` takes ``weight_decay=`` (default 1e-4, optax's).
+    ``adamw`` takes ``weight_decay=`` (default 1e-4, optax's); the others
+    take optax's keywords (``adagrad``: ``initial_accumulator_value``,
+    ``eps``; ``rmsprop``: ``decay``, ``eps``, ``initial_scale``;
+    ``adadelta``: ``rho``, ``eps``).
     """
     if isinstance(name, torch.optim.Optimizer) or callable(name):
         return name
-    ported = ("adam", "adamw", "momentum", "nesterov", "sgd")
-    if name in _DEFERRED:
-        raise NotImplementedError(
-            f"optimizer '{name}' is not ported yet (ROADMAP A7); ported: "
-            f"{list(ported)}")
-    if name not in ported:
+    if name not in _OPTIMIZERS:
         raise ValueError(f"Unknown optimizer '{name}'. Known: "
-                         f"{sorted(ported + _DEFERRED)}")
+                         f"{sorted(_OPTIMIZERS)}")
     if name in ("momentum", "nesterov"):
         kwargs.setdefault("momentum", 0.9)
         kwargs["nesterov"] = name == "nesterov"
     if name == "adamw":
         kwargs.setdefault("weight_decay", 1e-4)
-    cls = Adam if name.startswith("adam") else SGD
-    return functools.partial(cls, lr=learning_rate, **kwargs)
+    return functools.partial(_OPTIMIZERS[name], lr=learning_rate, **kwargs)

@@ -1,6 +1,7 @@
 """The parts of ``chip_smoke.py`` that run without a card: reading the
 kernels' build facts from nvcc's ``-Xptxas -v`` report and the tensor
-instructions from ``cuobjdump -sass``."""
+instructions from ``cuobjdump -sass``, and the analytic FLOP count its
+CIFAR phase divides by (``distkeras_torch.bench.cifar_step_flops``)."""
 
 import os
 import sys
@@ -113,3 +114,22 @@ def test_bwd_instances_pick_their_own_kernel(row):
         n = want[(row, hd)]
         assert chip_smoke.ptxas_facts(log, key)["registers"] == 100 + n
         assert chip_smoke.sass_counts(sass, key)["HGMMA"] == n
+
+
+def test_cifar_step_flops_is_the_hand_count():
+    """3x the forward: the six 3x3 convolutions at 32, 32, 16, 16, 8 and 8
+    pixels a side, then Dense 4096 -> 256 and 256 -> 10."""
+    from distkeras_torch.bench import cifar_step_flops
+
+    convs = [(32, 3, 64), (32, 64, 64), (16, 64, 128), (16, 128, 128),
+             (8, 128, 256), (8, 256, 256)]
+    fwd = sum(2 * hw * hw * cin * cout * 9 for hw, cin, cout in convs)
+    fwd += 2 * 4096 * 256 + 2 * 256 * 10
+    assert fwd == 307_631_104  # 307.6 MFLOP a sample
+    assert cifar_step_flops() == 3 * fwd
+    assert cifar_step_flops(2048) == 3 * fwd * 2048
+    small = cifar_step_flops(1, widths=(8, 16, 32))
+    assert small == 3 * (sum(2 * hw * hw * cin * cout * 9 for hw, cin, cout
+                             in [(32, 3, 8), (32, 8, 8), (16, 8, 16),
+                                 (16, 16, 16), (8, 16, 32), (8, 32, 32)])
+                         + 2 * 512 * 256 + 2 * 256 * 10)

@@ -1,7 +1,8 @@
 """Import hygiene of the port: importing every ``distkeras_torch``
-module (the serving, training and sequence-parallel slices alike) loads no ``jax``,
-``flax``, ``optax`` or ``distkeras_tpu`` module (checked
-in a fresh interpreter, since this test process imports both packages),
+module (the serving, training, sequence-parallel and dist-keras slices
+alike) loads no ``jax``, ``flax``, ``optax`` or ``distkeras_tpu`` module
+(checked in a fresh interpreter, since this test process imports both
+packages),
 and ``chip_smoke.py`` imports none of them either (checked on its
 syntax tree), nor does ``ab_kernels.py``. Importing a module
 builds no kernel and needs no card."""
@@ -64,7 +65,16 @@ def test_port_modules_import_no_jax():
                  "distkeras_torch.ops.ring_attention",
                  "distkeras_torch.models.wrapper",
                  "distkeras_torch.trainers",
-                 "distkeras_torch.bench"):
+                 "distkeras_torch.bench",
+                 "distkeras_torch.models.mlp",
+                 "distkeras_torch.models.cnn",
+                 "distkeras_torch.workers",
+                 "distkeras_torch.transformers",
+                 "distkeras_torch.predictors",
+                 "distkeras_torch.evaluators",
+                 "distkeras_torch.utils.initializers",
+                 "distkeras_torch.utils.transfer",
+                 "distkeras_torch.utils.profiling"):
         assert must in res["modules"]
 
 
