@@ -105,7 +105,11 @@ Phases (any failure exits non-zero):
    through ``workers.make_window_step`` in windows of 10 steps: one
    warm-up window, then 5 timed. Every loss finite, and the first step's
    loss within 2e-2 of an f32 twin's from the same weights on the same
-   batch. Prints ms/window, samples/s, peak memory and MFU from the
+   batch. A second witness on another backend, before the timed run: 64
+   rows of the first 3 batches through the same weights as an f64 module
+   on the CPU, against the card at bf16, f32 and f64 — the first batch's
+   logits, the 3 steps' losses and each weight's change over them, each
+   gap within ``WITNESS_TOL``. Prints ms/window, samples/s, peak memory and MFU from the
    analytic count of ``bench.cifar_step_flops``. (8b) The reference's
    MNIST workflow (examples/mnist_workflow.py) on 8,192 seeded
    MNIST-shaped rows (a noisy prototype per class): MinMax -> Reshape ->
@@ -179,6 +183,23 @@ TRAINER_ROWS = 40
 # phase 8: the dist-keras core
 CIFAR_TIMED_WINDOWS = 5
 CIFAR_LOSS_TOL = 2e-2  # first step's bf16 loss vs the f32 twin's
+# 8a's witness on another backend: WITNESS_ROWS rows of the first
+# WITNESS_STEPS batches through the model's weights as an f64 module on
+# the CPU, against the card at bf16 (the main path's dtype), at f32
+# (TF32 off, as main() sets it) and at f64. Gaps: the first batch's
+# logits and the steps' losses, the largest difference over the CPU's
+# largest magnitude; the change of the weights over the steps, per leaf
+# the norm of the difference over the norm of the CPU's change (the
+# worst leaf). At init on random labels the update magnifies rounding
+# some 1e5-1e6-fold (the f32 run's reading), so the bf16 bound catches
+# gross faults only (no update reads 1, an unrelated one ~1.4, a flipped
+# sign 2), and the f64 run, clear of rounding, holds the card's forward,
+# backward and update code tightly. Bounds from H100 readings (PERF.md
+# §6).
+WITNESS_ROWS, WITNESS_STEPS = 64, 3
+WITNESS_TOL = {"bfloat16": {"logits": 2e-2, "loss": 5e-3, "update": 5e-1},
+               "float32": {"logits": 1e-5, "loss": 5e-4, "update": 2e-1},
+               "float64": {"logits": 1e-10, "loss": 1e-10, "update": 1e-8}}
 MNIST_ROWS = 8192
 # examples/mnist_workflow.py's settings
 MNIST_TRAIN = dict(worker_optimizer="adam", learning_rate=1e-3,
@@ -1028,6 +1049,69 @@ def trainer_phase(torch, np, dk, attention="standard", axes=None):
 # -- phase 8: the dist-keras core at full width ----------------------------
 
 
+def _witness_run(torch, dk, model, xs, ys, loss_fn, device, dtype):
+    """``model``'s weights as a ``dtype`` module on ``device`` (f64: the
+    masters, every layer and the head in f64): its logits on ``xs[0]``,
+    then one window over ``xs`` with 8a's optimizer; returns the logits,
+    the window's losses and each weight's change, on the CPU in f64."""
+    bench = dk["bench"]
+    f64 = dtype == torch.float64
+    twin = dk["get_model"]("cifar_cnn", dtype=torch.float32 if f64 else dtype,
+                           device=device)
+    twin.load_state_dict(model.state_dict())
+    if f64:
+        for m in twin.modules():
+            if isinstance(getattr(m, "dtype", None), torch.dtype):
+                m.dtype = torch.float64
+        twin.double()
+    xs = xs.to(device, torch.float64 if f64 else torch.float32)
+    ys = ys.to(device, xs.dtype)
+    with torch.no_grad():
+        logits = twin(xs[0]).double().cpu()
+    before = {k: v.detach().double().cpu().clone()
+              for k, v in twin.named_parameters()}
+    step = dk["make_window_step"](
+        twin, loss_fn, dk["get_optimizer"]("momentum", bench.CIFAR_LR,
+                                           momentum=bench.CIFAR_MOMENTUM))
+    losses = step(xs, ys)["loss"].double().cpu()
+    update = {k: v.detach().double().cpu() - before[k]
+              for k, v in twin.named_parameters()}
+    return logits, losses, update
+
+
+def cpu_witness(torch, dk, model, xs, ys, loss_fn):
+    """8a's second witness, on another backend (see WITNESS_TOL): the
+    card's forward, backward and momentum update against the CPU's in
+    f64, from ``model``'s weights before the main path trains them."""
+    xs = xs[:WITNESS_STEPS, :WITNESS_ROWS].cpu()
+    ys = ys[:WITNESS_STEPS, :WITNESS_ROWS].cpu()
+    want = _witness_run(torch, dk, model, xs, ys, loss_fn, "cpu",
+                        torch.float64)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def rel2(a, b):
+        return float((a - b).norm() / b.norm())
+
+    out = {"rows": WITNESS_ROWS, "steps": WITNESS_STEPS}
+    for dtype in (torch.bfloat16, torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        got = _witness_run(torch, dk, model, xs, ys, loss_fn, DEV, dtype)
+        gaps = {"logits": rel(got[0], want[0]),
+                "loss": rel(got[1], want[1]),
+                "update": max(rel2(got[2][k], u)
+                              for k, u in want[2].items())}
+        out[name] = gaps
+        for key, gap in gaps.items():
+            if not gap <= WITNESS_TOL[name][key]:
+                raise AssertionError(
+                    f"CIFAR {name} on the card vs f64 on the CPU: {key} "
+                    f"gap {gap} > {WITNESS_TOL[name][key]}")
+    out["tol"] = WITNESS_TOL
+    return out
+
+
 def cifar_phase(torch, np, dk):
     """8a: the reference's CIFAR training bench through the port's window
     step."""
@@ -1041,6 +1125,7 @@ def cifar_phase(torch, np, dk):
     with torch.no_grad():
         twin_loss = float(loss_fn(twin(xs[0]), ys[0]))
     del twin
+    witness = cpu_witness(torch, dk, model, xs, ys, loss_fn)
     step = dk["make_window_step"](
         model, loss_fn, dk["get_optimizer"]("momentum", bench.CIFAR_LR,
                                             momentum=bench.CIFAR_MOMENTUM))
@@ -1077,6 +1162,7 @@ def cifar_phase(torch, np, dk):
                   f"{bench.CIFAR_LR}-m{bench.CIFAR_MOMENTUM}-W{W}",
         "losses": losses.tolist(), "f32_twin_first_loss": twin_loss,
         "first_loss_gap": gap, "tol": CIFAR_LOSS_TOL,
+        "cpu_witness": witness,
         "warmup_window_s": t1 - t0, "ms_per_window": ms,
         "samples_per_s": CIFAR_TIMED_WINDOWS * W * B / timed,
         "peak_device_mb": peak, "flops_per_window": flops,

@@ -14,8 +14,7 @@ JSON line with the environment, then one per cache layout (paged, then
 slot): wall time, ticks,
 device busy time (the sum of kernel times on the engine's one stream)
 and idle share, device time grouped by what ran (the two attention
-kernels, matrix products, elementwise and everything else), and the top
-kernels.
+kernels, matrix products, everything else), and the top kernels.
 
 The next two lines are the LM training lines (:func:`lm_bench`): tok/s
 of the flagship training step — the reference's ``lm_bench``
@@ -39,9 +38,10 @@ one-hot labels, SGD 0.05 with momentum 0.9, categorical cross-entropy,
 windows of 10 steps through :func:`distkeras_torch.workers.make_window_step`:
 ``cifar10_cnn_train_samples_per_sec`` as the best of 3 blocks of 5
 windows, MFU from :func:`cifar_step_flops`, and one profiled window's
-device time by group (convolution, matmul, elementwise and the rest)
-and by named range (``Optimizer.step``), busy time and idle share. It
-never prints a ratio to the reference's TPU number.
+device time by group (convolution, matmul, PyTorch's elementwise
+kernels, and the rest: pooling, reductions, copies) and by named range
+(``Optimizer.step``), busy time and idle share. It never prints a ratio
+to the reference's TPU number.
 
 ``chip_smoke.py`` drives the same workloads to prove the path; this
 script only measures them. It needs the card and raises without one.
@@ -208,8 +208,8 @@ def cifar_bench(calls: int = CIFAR_CALLS) -> dict:
         t0 = time.perf_counter()
         float(step(xs, ys)["loss"][-1])
         wall_ms = (time.perf_counter() - t0) * 1e3
-    out["cifar_profile_window"] = dict(steps=CIFAR_WINDOW,
-                                       **_device_summary(prof, wall_ms))
+    out["cifar_profile_window"] = dict(
+        steps=CIFAR_WINDOW, **_device_summary(prof, wall_ms, _cifar_group))
     return out
 
 
@@ -320,13 +320,23 @@ def _group(name: str) -> str:
     # the matmul test: their implicit-GEMM kernels carry "gemm" too
     # ("conv_", not "conv": "convert" names casts)
     if any(k in low for k in ("fprop", "dgrad", "wgrad", "conv2d",
-                              "convolve", "conv_")):
+                              "convolution", "convolve", "conv_")):
         return "convolution"
     if ("gemm" in name or "gemv" in name or "nvjet" in name
             or "cutlass" in low):
         return "matmul"
-    # the rest: elementwise passes, reductions, pooling, copies
-    return "elementwise"
+    return "other"
+
+
+def _cifar_group(name: str) -> str:
+    """:func:`_group`, with PyTorch's elementwise kernels (the bias adds,
+    ReLUs, casts and the optimizer's per-leaf passes) taken out of
+    'other', which keeps pooling, reductions and copies."""
+    group = _group(name)
+    if group == "other" and ("elementwise_kernel" in name
+                             or "multi_tensor_apply" in name):
+        return "elementwise"
+    return group
 
 
 def profile_layout(model, requests, paged: bool) -> dict:
@@ -361,11 +371,11 @@ def profile_layout(model, requests, paged: bool) -> dict:
             **_device_summary(prof, wall_ms)}
 
 
-def _device_summary(prof, wall_ms: float) -> dict:
+def _device_summary(prof, wall_ms: float, group=_group) -> dict:
     """Device busy time (the sum of kernel times on the one stream), idle
-    share, device time by :func:`_group` and by named range (such as
-    ``Optimizer.step``), and the top kernels of a ``torch.profiler`` run
-    that took ``wall_ms`` on the host clock."""
+    share, device time by ``group`` (a kernel name -> its group) and by
+    named range (such as ``Optimizer.step``), and the top kernels of a
+    ``torch.profiler`` run that took ``wall_ms`` on the host clock."""
     kernels, ranges = [], {}
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total",
@@ -383,7 +393,7 @@ def _device_summary(prof, wall_ms: float) -> dict:
     busy = sum(ms for _, ms, _ in kernels)
     groups: dict = {}
     for name, ms, _ in kernels:
-        groups[_group(name)] = groups.get(_group(name), 0.0) + ms
+        groups[group(name)] = groups.get(group(name), 0.0) + ms
     kernels.sort(key=lambda k: -k[1])
     return {
         "wall_ms": wall_ms,

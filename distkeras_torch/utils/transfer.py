@@ -23,15 +23,6 @@ def resolve_transfer_dtype(module, transfer_dtype):
     return transfer_dtype
 
 
-def pad_to_rows(x: np.ndarray, rows: int) -> np.ndarray:
-    """Pad the leading axis up to ``rows`` by repeating the first row, so
-    every call sees one fixed shape; callers slice the pad off after."""
-    if len(x) >= rows:
-        return x
-    pad = np.repeat(x[:1], rows - len(x), axis=0)
-    return np.concatenate([x, pad], axis=0)
-
-
 def narrow_cast(x: np.ndarray, target_dtype):
     """Cast ``x`` to ``target_dtype`` only when that narrows a floating
     array: never widen, never touch ints or bools (labels and token ids

@@ -10,10 +10,11 @@ per-step loss and metrics stay on the device as one stacked tensor: the
 host reads them once a window (no ``.item()`` inside a step).
 
 With a process ``group`` (the data-parallel trainer's ``dp`` axis), each
-step averages the gradients over the group — ONE all-reduce of the
-flattened gradients, then a division by the group size, the reference's
-``psum``-by-transpose followed by ``1 / n`` — and a window's metrics are
-averaged over the group once, after its last step.
+step of :func:`make_window_step` averages the gradients over the group —
+ONE all-reduce of the flattened gradients, then a division by the group
+size, the reference's ``psum``-by-transpose followed by ``1 / n`` — and
+a window's metrics are averaged over the group once, after its last
+step.
 
 The parameter-server workers (the reference's ``WindowedWorker`` and its
 subclasses) are not ported yet (ROADMAP A9).
@@ -91,7 +92,7 @@ def _names(metrics):
     return ["loss"] + [name for name, _ in metrics]
 
 
-def make_train_step(module, loss_fn, optimizer, metrics=(), group=None):
+def make_train_step(module, loss_fn, optimizer, metrics=()):
     """The single-batch training step (reference: workers.py ·
     make_train_step, Worker.train's ``model.train_on_batch``).
 
@@ -99,17 +100,12 @@ def make_train_step(module, loss_fn, optimizer, metrics=(), group=None):
     parameters or a :func:`get_optimizer` factory; ``metrics`` is
     ``[(name, fn), ...]`` (:func:`resolve_metrics`). Returns ``step(x, y)
     -> {"loss": t, <metric>: t, ...}`` of 0-dim device tensors; the step
-    updates ``module`` in place. ``group``: see the module docstring."""
-    optimizer = _bind(module, optimizer, group)
-    core = _step_fn(module, loss_fn, optimizer, metrics, group)
-    n = group_size(group)
+    updates ``module`` in place."""
+    optimizer = _bind(module, optimizer, None)
+    core = _step_fn(module, loss_fn, optimizer, metrics, None)
 
     def step(x, y):
-        out = core(x, y)
-        if n > 1:
-            dist.all_reduce(out, group=group)
-            out /= n
-        return dict(zip(_names(metrics), out))
+        return dict(zip(_names(metrics), core(x, y)))
 
     return step
 
@@ -119,7 +115,7 @@ def make_window_step(module, loss_fn, optimizer, metrics=(), group=None):
     make_window_step). ``window(xs, ys)`` takes stacked batches ``[W, B,
     ...]`` and returns ``{"loss": [W], <metric>: [W], ...}`` on the
     device, read by the caller once a window. Arguments as
-    :func:`make_train_step`."""
+    :func:`make_train_step`; ``group``: see the module docstring."""
     optimizer = _bind(module, optimizer, group)
     core = _step_fn(module, loss_fn, optimizer, metrics, group)
     n = group_size(group)

@@ -1,7 +1,8 @@
 """The parts of ``chip_smoke.py`` that run without a card: reading the
 kernels' build facts from nvcc's ``-Xptxas -v`` report and the tensor
-instructions from ``cuobjdump -sass``, and the analytic FLOP count its
-CIFAR phase divides by (``distkeras_torch.bench.cifar_step_flops``)."""
+instructions from ``cuobjdump -sass``, the analytic FLOP count its
+CIFAR phase divides by (``distkeras_torch.bench.cifar_step_flops``), and
+that phase's witness on the CPU, run here at narrow widths."""
 
 import os
 import sys
@@ -133,3 +134,67 @@ def test_cifar_step_flops_is_the_hand_count():
                              in [(32, 3, 8), (32, 8, 8), (16, 8, 16),
                                  (16, 16, 16), (8, 16, 32), (8, 32, 32)])
                          + 2 * 512 * 256 + 2 * 256 * 10)
+
+
+def _witness(monkeypatch):
+    """chip_smoke.cpu_witness with the CPU standing in for the card, on
+    the CIFAR CNN at widths 8/16/32."""
+    import torch
+
+    from distkeras_torch import bench
+    from distkeras_torch.models import get_model
+    from distkeras_torch.utils.losses import get_loss, get_optimizer
+    from distkeras_torch.workers import make_window_step
+
+    def narrow(name, **kw):
+        return get_model(name, widths=(8, 16, 32), **kw)
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    dk = {"bench": bench, "get_model": narrow,
+          "get_optimizer": get_optimizer,
+          "make_window_step": make_window_step}
+    model = narrow("cifar_cnn", device="cpu", seed=0)
+    xs, ys = bench.cifar_batches("cpu", chip_smoke.WITNESS_ROWS,
+                                 chip_smoke.WITNESS_STEPS)
+    return chip_smoke.cpu_witness(torch, dk, model, xs, ys,
+                                  get_loss("categorical_crossentropy"))
+
+
+def test_cpu_witness_at_narrow_widths(monkeypatch):
+    """Phase 8a's second witness: the f64 run is the CPU's own, so every
+    gap is 0; the bf16 run stays within its tolerances."""
+    out = _witness(monkeypatch)
+    assert out["float64"] == {"logits": 0.0, "loss": 0.0, "update": 0.0}
+    for name in ("bfloat16", "float32"):
+        assert set(out[name]) == {"logits", "loss", "update"}
+
+
+@pytest.mark.parametrize("fault", ["forward", "backward"])
+def test_cpu_witness_catches_a_bf16_convolution_fault(monkeypatch, fault):
+    """A fault in the bf16 convolutions alone, as one backend's kernels
+    could have it, fails the witness: kernels flipped left to right in
+    the forward, or the kernels' gradient negated in the backward (the
+    forward, and so the logits, unchanged)."""
+    import torch
+
+    conv2d = torch.nn.functional.conv2d
+
+    class Negate(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, w):
+            return w.view_as(w)
+
+        @staticmethod
+        def backward(ctx, g):
+            return -g
+
+    def faulty(x, w, *args, **kw):
+        if x.dtype == torch.bfloat16:
+            w = w.flip(-1) if fault == "forward" else Negate.apply(w)
+        return conv2d(x, w, *args, **kw)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", faulty)
+    # the backward's fault shows first in the later steps' losses
+    want = "logits" if fault == "forward" else "(loss|update)"
+    with pytest.raises(AssertionError, match=f"bfloat16 .*: {want} gap"):
+        _witness(monkeypatch)

@@ -171,7 +171,7 @@ def test_uniform_weights_is_pure_and_seeded():
 
 
 def test_narrow_cast_is_jax_bf16_cast():
-    from distkeras_torch.utils.transfer import (narrow_cast, pad_to_rows,
+    from distkeras_torch.utils.transfer import (narrow_cast,
                                                 resolve_transfer_dtype)
 
     x = np.random.default_rng(0).normal(size=(64, 33)).astype(np.float32)
@@ -190,7 +190,6 @@ def test_narrow_cast_is_jax_bf16_cast():
     pm = get_model("mnist_cnn", device="cpu")
     assert resolve_transfer_dtype(pm, "auto") == torch.bfloat16
     assert resolve_transfer_dtype(pm, None) is None
-    np.testing.assert_array_equal(pad_to_rows(x[:2], 4)[2:], x[[0, 0]])
 
 
 def test_trace_and_step_timer(tmp_path):

@@ -307,6 +307,103 @@ def test_two_rank_data_parallel_matches_jax(tmp_path):
                                        rtol=0, atol=2e-4)
 
 
+# -- every card of the host over NCCL ----------------------------------------
+
+NCCL_ROWS = 8192
+NCCL_KW = dict(worker_optimizer="momentum", learning_rate=0.02,
+               label_col="label_encoded", batch_size=64, num_epoch=1)
+# f32 with TF32 off: the ranks' all-reduced gradients and one card's
+# bigger batch differ only in the order of their sums (4 H100s: history
+# 4.8e-7, weights 7.4e-6; PERF.md)
+NCCL_TOL = 1e-4
+
+
+def _nccl_columns():
+    """MNIST-shaped rows, a noisy prototype per class, one-hot labels."""
+    rng = np.random.default_rng(0)
+    protos = rng.uniform(0, 1, size=(10, 28, 28, 1)).astype(np.float32)
+    y = rng.integers(0, 10, size=NCCL_ROWS)
+    x = protos[y] + rng.normal(scale=0.25, size=(NCCL_ROWS, 28, 28, 1))
+    return {"features": x.astype(np.float32),
+            "label_encoded": np.eye(10, dtype=np.float32)[y]}
+
+
+def _set_tf32(cudnn: bool, matmul: bool):
+    """Set TF32 for cuDNN and cuBLAS; returns the settings it replaced."""
+    was = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    return was
+
+
+def _f32_cnn(device):
+    return get_model("mnist_cnn", dtype=torch.float32, device=device, seed=0)
+
+
+def _leaves(trainer):
+    return {f"{k}/{n}": v for k, d in trainer.params["params"].items()
+            for n, v in d.items()}
+
+
+def _nccl_rank(rank, world, out):
+    torch.cuda.set_device(rank)
+    _set_tf32(False, False)
+    dist.init_process_group("nccl", init_method=f"file://{out}/rendezvous",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        trainer = tt.DataParallelTrainer(_f32_cnn(f"cuda:{rank}"),
+                                         num_workers=world, **NCCL_KW)
+        trainer.train(PartitionedDataset.from_arrays(_nccl_columns()))
+        np.savez(os.path.join(out, f"rank{rank}.npz"),
+                 hist=_hist(trainer.history),
+                 wall=trainer.get_training_time(), **_leaves(trainer))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_data_parallel_over_nccl_is_single_at_n_times_the_batch(tmp_path):
+    """Every card of the host as one NCCL rank of DataParallelTrainer
+    (mnist_cnn in f32, momentum, 8192 rows): the ranks end bit-identical,
+    and rank 0's history and weights stay within NCCL_TOL of
+    SingleTrainer at n x the batch on one card. Prints the gaps and the
+    ranks' training times as one JSON line."""
+    world = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if world < 2:
+        pytest.skip("needs two or more CUDA devices (one NCCL rank each)")
+    out = str(tmp_path)
+    torch.multiprocessing.spawn(_nccl_rank, args=(world, out), nprocs=world)
+    was = _set_tf32(False, False)
+    try:
+        single = tt.SingleTrainer(
+            _f32_cnn("cuda:0"),
+            **dict(NCCL_KW, batch_size=world * NCCL_KW["batch_size"]))
+        single.train(PartitionedDataset.from_arrays(_nccl_columns()))
+    finally:
+        _set_tf32(*was)
+    ranks = [dict(np.load(os.path.join(out, f"rank{r}.npz")))
+             for r in range(world)]
+    walls = [float(rk.pop("wall")) for rk in ranks]
+    for rk in ranks[1:]:
+        assert rk.keys() == ranks[0].keys()
+        for key, want in ranks[0].items():
+            np.testing.assert_array_equal(rk[key], want)
+    ref = _hist(single.history)
+    assert ranks[0]["hist"].shape == ref.shape
+    hist_gap = float(np.abs(ranks[0]["hist"] - ref).max())
+    param_gap = max(float(np.abs(ranks[0][k] - v).max())
+                    for k, v in _leaves(single).items())
+    print(json.dumps({"world": world, "backend": "nccl",
+                      "steps": len(ref), "ranks_identical": True,
+                      "history_gap_vs_single": hist_gap,
+                      "param_gap_vs_single": param_gap,
+                      "final_loss": float(ref[-1, 0]),
+                      "rank_train_s": walls}))
+    assert hist_gap <= NCCL_TOL and param_gap <= NCCL_TOL
+
+
 # -- observability and what still raises ---------------------------------------
 
 

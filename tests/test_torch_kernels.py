@@ -792,3 +792,39 @@ def test_profile_groups_place_the_training_forwards(name, group):
     from distkeras_torch.bench import _group
 
     assert _group(name) == group
+
+
+@pytest.mark.parametrize("name,group,cifar", [
+    # kernel names of a profiled CIFAR window on an H100 (bench.py's
+    # top_kernels, cut at 120 characters as it prints them)
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_"
+     "tilesize64x128x64_warpgroupsize1x1x1_g1_execute_segment",
+     "convolution", "convolution"),
+    ("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_"
+     "tilesize256x64x32_warpgroupsize1x1x1_g1_execute_segment",
+     "convolution", "convolution"),
+    ("_ZN17cutlass__5x_cudnn6KernelINS_4conv6kernel23ImplicitGemmConvolution"
+     "INS1_11threadblock22ImplicitGemmMultistageINS_4gem", "convolution",
+     "convolution"),
+    ("void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_"
+     "impl_nocast<at::native::CUDAFunctor_add<c10::BFloat16", "other",
+     "elementwise"),
+    ("void at::native::vectorized_elementwise_kernel<8, at::native::(anony"
+     "mous namespace)::launch_clamp_scalar(at::TensorItera", "other",
+     "elementwise"),
+    ("void at::native::(anonymous namespace)::max_pool_backward_nhwc<c10::"
+     "BFloat16, float>(c10::BFloat16 const*, long const*, ", "other",
+     "other"),
+    ("void at::native::reduce_kernel<128, 4, at::native::ReduceOp<c10::"
+     "BFloat16, at::native::func_wrapper_t<c10::BFloat16, at:", "other",
+     "other"),
+    ("nvjet_hsh_64x8_64x16_2x1_v_bz_TNT", "matmul", "matmul"),
+])
+def test_profile_groups_of_the_cifar_window(name, group, cifar):
+    """Convolutions (cuDNN's and its CUTLASS kernels, though they carry
+    'gemm') land under 'convolution' on every line; only the CIFAR line
+    takes PyTorch's elementwise kernels out of 'other', which keeps the
+    serving and LM lines' groups as they were."""
+    from distkeras_torch.bench import _cifar_group, _group
+
+    assert (_group(name), _cifar_group(name)) == (group, cifar)
