@@ -111,16 +111,40 @@ Phases (any failure exits non-zero):
    logits, the 3 steps' losses and each weight's change over them, each
    gap within ``WITNESS_TOL``. Prints ms/window, samples/s, peak memory and MFU from the
    analytic count of ``bench.cifar_step_flops``. (8b) The reference's
-   MNIST workflow (examples/mnist_workflow.py) on 8,192 seeded
+   MNIST workflow (examples/mnist_workflow.py) on 16,384 seeded
    MNIST-shaped rows (a noisy prototype per class): MinMax -> Reshape ->
    OneHot, then ``SingleTrainer``, ``AveragingTrainer(2)``,
    ``EnsembleTrainer(2)`` and ``DataParallelTrainer`` (a world of one)
-   each train ``mnist_cnn`` (Adam 1e-3, batch 128, 2 epochs), then
-   ``ModelPredictor`` -> ``LabelIndexTransformer`` ->
+   each train ``mnist_cnn`` (Adam 1e-3, batch 128, 2 epochs), and so do
+   the six parameter-server trainers (4 workers, window 5; DOWNPOUR at
+   1e-3 / 4 committing every step, EAMSGD its Nesterov SGD at 0.05),
+   then ``ModelPredictor`` -> ``LabelIndexTransformer`` ->
    ``AccuracyEvaluator``: every history finite, every model at accuracy
    >= 0.9; prints samples/s per trainer. This phase adds no hand-written
    kernel: convolutions run through cuDNN and dense products through
    cuBLAS, as XLA computes them in the reference.
+9. **The parameter-server family on the card.** (9a) ``BASELINE.json``'s
+   CIFAR configurations as examples/cifar10_training.py runs them:
+   ``cifar_cnn`` at widths (64, 128, 256), bf16 with f32 masters, 50,000
+   rows made as its ``load_data`` makes them, 8 worker threads on the
+   card, window 8, momentum SGD, batch 256, 2 epochs, through
+   ``DOWNPOUR`` (0.01 / 8, committing every step) then ``AEASGD`` (0.01,
+   rho 5, elastic_lr 0.01) — at the example's 0.05 neither trains at
+   full width (``PS_CIFAR``'s comment): every history finite, one
+   commit a window, the center's loss on 4,096 rows falling, accuracy
+   through the pipeline stages at least ``PS_CIFAR_MIN_ACCURACY``;
+   prints samples/s, commits, peak memory, and the device's idle share
+   over one more epoch under the profiler. (9b) The README's Quick
+   start: ``ADAG``, 4 workers, window 5, Adam 1e-3, batch 128, 5
+   epochs, accuracy >= 0.9. (9c) The lock-step engines,
+   ``DOWNPOUR(spmd=True)`` and ``EASGD(spmd=True)``, 2 workers, 64 rows,
+   3 windows, from the same full-width weights at bf16 and f64 on the
+   card against f64 on the CPU (``PS_WITNESS_TOL``: f64 logits and
+   losses 1e-10, center and update 1e-8). (9d) One commit + pull round
+   trip of the CIFAR CNN's parameters through a ``DeltaParameterServer``
+   on the card, timed beside its bound (five f32 passes over them at
+   3.35 TB/s). No kernel is added: the commits and pulls are
+   ``torch._foreach`` adds and copies, as the reference's are XLA ones.
 
 Output: JSON lines per phase, the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line (the three forward rows and the causal and
@@ -200,12 +224,75 @@ WITNESS_ROWS, WITNESS_STEPS = 64, 3
 WITNESS_TOL = {"bfloat16": {"logits": 2e-2, "loss": 5e-3, "update": 5e-1},
                "float32": {"logits": 1e-5, "loss": 5e-4, "update": 2e-1},
                "float64": {"logits": 1e-10, "loss": 1e-10, "update": 1e-8}}
-MNIST_ROWS = 8192
+MNIST_ROWS = 16384  # examples/mnist_workflow.py's default
 # examples/mnist_workflow.py's settings
 MNIST_TRAIN = dict(worker_optimizer="adam", learning_rate=1e-3,
                    loss="categorical_crossentropy", features_col="matrix",
                    label_col="label_encoded", batch_size=128, num_epoch=2)
 MNIST_MIN_ACCURACY = 0.9
+# phase 8b's workers and window for the parameter-server trainers
+# (examples/mnist_workflow.py: 4 workers, the trainers' default window).
+# DOWNPOUR adds the 4 workers' deltas at full strength: with Adam 1e-3 at
+# window 5 its center reached 0.80-0.84 on the card, 0.70-0.90 at
+# 1e-3/4, and 1.0 at 1e-3/4 committing every step (ps_sweep.py, PERF.md
+# §6); at 8,192 rows the elastic trainers' centers stopped at
+# 0.902, at the example's 16,384 at 1.0
+MNIST_PS = dict(num_workers=4, communication_window=5)
+MNIST_DOWNPOUR = dict(learning_rate=1e-3 / 4, communication_window=1)
+# phase 9: the parameter-server family. 9a: BASELINE.json's CIFAR
+# configurations (examples/cifar10_training.py:41-72) at CIFAR-10's
+# training size, made as that example's load_data makes its rows
+PS_CIFAR_ROWS = 50_000
+PS_CIFAR_TRAIN = dict(worker_optimizer="momentum", learning_rate=0.05,
+                      loss="categorical_crossentropy",
+                      label_col="label_encoded", batch_size=256,
+                      num_epoch=2)
+# The example's learning rate 0.05 does not train at full width: DOWNPOUR
+# (8 deltas added at full strength) goes to NaN or stays at chance, and
+# AEASGD's workers collapse to the uniform prediction (loss ln 10) with
+# its center at 0.13-0.18; the reference's own example with --small sees
+# DOWNPOUR's center loss rise 2.30 -> 2.93. ps_sweep.py on the card
+# (PERF.md §6): AEASGD at 0.01 reaches 1.0 (twice), DOWNPOUR at
+# 0.01 / 8 committing every step 0.94-1.0, while at window 8 no rate it
+# was given got past 0.35 (its lock-step engine: 0.10). Everything else
+# is the example's.
+PS_CIFAR = {"DOWNPOUR": dict(num_workers=8, communication_window=1,
+                             learning_rate=0.01 / 8),
+            "AEASGD": dict(num_workers=8, communication_window=8, rho=5.0,
+                           elastic_lr=0.01, learning_rate=0.01)}
+# the accuracy each must reach: above chance (0.1) and below what the
+# reference's example reached on the CPU with --small at the same
+# settings (DOWNPOUR 0.151, AEASGD 0.132; the card read 0.94-1.0 and
+# 1.0 at full width: PERF.md §6)
+PS_CIFAR_MIN_ACCURACY = {"DOWNPOUR": 0.12, "AEASGD": 0.12}
+PS_EVAL_ROWS = 4096  # the center's loss before and after, on these rows
+# 9b: the README's Quick start
+QUICKSTART = dict(num_workers=4, communication_window=5,
+                  worker_optimizer="adam", learning_rate=1e-3,
+                  loss="categorical_crossentropy", features_col="matrix",
+                  label_col="label_encoded", batch_size=128, num_epoch=5)
+# 9c: the lock-step engines, 2 workers, 64 rows, 3 windows of one step,
+# on the card at bf16 (the main path's dtype) and f64 against f64 on the
+# CPU from the same weights. Gaps as 8a's: logits of the trained center
+# on the 64 rows and the workers' losses, over the CPU's largest
+# magnitude; the center, its largest difference over the CPU's largest
+# weight (over every leaf); the update, per leaf the norm of the
+# difference of the center's change over the norm of the CPU's (the
+# worst leaf). The bf16
+# bounds catch gross faults only (a commit's sign flipped reads ~2 on
+# the update); the card read bf16 logits 0.047, losses 5.5e-4, center
+# 3.1e-3, update 0.29 and f64 2.1e-15, 0, 1.3e-16, 1.3e-14 at worst
+# (PERF.md §6).
+PS_WITNESS = dict(rows=64, workers=2, batch_size=32, num_epoch=3,
+                  communication_window=1)
+PS_WITNESS_DTYPES = ("bfloat16", "float64")  # the card's runs
+PS_WITNESS_TRAIN = dict(worker_optimizer="momentum", learning_rate=0.05,
+                        loss="categorical_crossentropy",
+                        label_col="label_encoded")
+PS_WITNESS_TOL = {"bfloat16": {"logits": 1e-1, "loss": 5e-3,
+                               "center": 1e-2, "update": 5e-1},
+                  "float64": {"logits": 1e-10, "loss": 1e-10,
+                              "center": 1e-8, "update": 1e-8}}
 
 
 def _fail(msg):
@@ -1205,7 +1292,8 @@ def mnist_phase(torch, np, dk, rows=None):
                                                      **MNIST_TRAIN)),
         ("data_parallel", lambda m: dk["DataParallelTrainer"](
             m, **MNIST_TRAIN)),
-    )
+    ) + tuple((name.lower(), lambda m, name=name: dk[name](
+        m, **_mnist_ps_train(name))) for name in PS_NAMES)
     out = {}
     for name, make in trainers:
         trainer = make(dk["get_model"]("mnist_cnn", device=DEV, seed=0))
@@ -1236,7 +1324,265 @@ def mnist_phase(torch, np, dk, rows=None):
         del trainer, trained, models
     if DEV == "cuda":
         torch.cuda.empty_cache()
-    return {"rows": len(ds), "train": MNIST_TRAIN, "trainers": out}
+    return {"rows": len(ds), "train": MNIST_TRAIN,
+            "ps_train": {n: _mnist_ps_train(n) for n in PS_NAMES},
+            "trainers": out}
+
+
+PS_NAMES = ("DOWNPOUR", "ADAG", "DynSGD", "AEASGD", "EAMSGD", "EASGD")
+
+
+def _mnist_ps_train(name):
+    """8b's settings for a PS trainer: MNIST_TRAIN with MNIST_PS; DOWNPOUR
+    with MNIST_DOWNPOUR; EAMSGD trains its own Nesterov SGD (it refuses
+    another worker optimizer) at the learning rate the example's SGD
+    trainers take."""
+    kw = dict(MNIST_TRAIN, **MNIST_PS)
+    if name == "DOWNPOUR":
+        kw.update(MNIST_DOWNPOUR)
+    if name == "EAMSGD":
+        del kw["worker_optimizer"]
+        kw["learning_rate"] = 0.05
+    return kw
+
+
+# -- phase 9: the parameter-server family ----------------------------------
+
+
+def cifar_rows(np, rows):
+    """examples/cifar10_training.py's load_data: a uniform prototype per
+    class plus normal noise of scale 0.25, clipped to [0, 1]."""
+    rng = np.random.default_rng(0)
+    protos = rng.uniform(0, 1, size=(10, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 10, size=rows)
+    x = np.clip(protos[y] + rng.normal(scale=0.25, size=(rows, 32, 32, 3)),
+                0, 1).astype(np.float32)
+    return x, y
+
+
+def _center_loss(torch, model, x, y):
+    """The mean categorical cross-entropy of ``model`` on rows ``x``."""
+    with torch.no_grad():
+        total = 0.0
+        for i in range(0, len(x), 512):
+            xb = torch.as_tensor(x[i:i + 512], device=model.device)
+            logits = model(xb).float()
+            yb = torch.as_tensor(y[i:i + 512], device=model.device)
+            total += float(torch.nn.functional.cross_entropy(
+                logits, yb, reduction="sum"))
+    return total / len(x)
+
+
+def _accuracy(dk, model, ds, features_col="features"):
+    pred = dk["ModelPredictor"](model, features_col=features_col
+                                ).predict(ds)
+    pred = dk["LabelIndexTransformer"](input_col="prediction"
+                                       ).transform(pred)
+    return dk["AccuracyEvaluator"]("predicted_index", "label"
+                                   ).evaluate(pred)
+
+
+def _idle_share(torch, dk, run):
+    """Device busy time and idle share of ``run()`` under torch.profiler
+    (CUDA activity only, so the host is slowed as little as it can be)."""
+    if DEV != "cuda":
+        return {"device_busy_ms": None, "idle_share": None,
+                "note": "not measured (no card)"}
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        sync(torch)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    summary = dk["bench"]._device_summary(prof, wall_ms)
+    return {k: summary[k] for k in ("wall_ms", "device_busy_ms",
+                                    "idle_share")}
+
+
+def ps_cifar_phase(torch, np, dk, rows=None, widths=None):
+    """9a: DOWNPOUR, then AEASGD, on the CIFAR CNN over 8 workers (one
+    card), as examples/cifar10_training.py runs them."""
+    rows = rows or PS_CIFAR_ROWS
+    x, y = cifar_rows(np, rows)
+    ds = dk["PartitionedDataset"].from_arrays({"features": x, "label": y},
+                                              num_partitions=8)
+    ds = dk["OneHotTransformer"](10).transform(ds)
+    ev_x, ev_y = x[:PS_EVAL_ROWS], y[:PS_EVAL_ROWS]
+    kw = {"widths": widths} if widths else {}
+    out = {}
+    for name, cfg in PS_CIFAR.items():
+        model = dk["get_model"]("cifar_cnn", device=DEV, seed=0, **kw)
+        before = _center_loss(torch, model, ev_x, ev_y)
+        train = dict(PS_CIFAR_TRAIN, **cfg)
+        trainer = dk[name](model, **train)
+        sync(torch)
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trained = trainer.train(ds, shuffle=True)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() / 2**20
+                if DEV == "cuda" else None)
+        hist = [r[k] for h in trainer.executor_histories for r in h
+                for k in ("loss", "accuracy")]
+        steps = sum(len(h) for h in trainer.executor_histories)
+        if not steps or not np.isfinite(hist).all():
+            raise AssertionError(f"{name}: history not finite or empty")
+        per_worker = [len(h) // train["num_epoch"]
+                      for h in trainer.executor_histories]
+        windows = sum(-(-b // cfg["communication_window"])
+                      for b in per_worker) * train["num_epoch"]
+        commits = trainer.parameter_server.num_updates
+        if commits != windows:
+            raise AssertionError(f"{name}: {commits} commits for {windows} "
+                                 f"windows")
+        after = _center_loss(torch, trained.module, ev_x, ev_y)
+        if not after < before:
+            raise AssertionError(f"{name}: the center's loss {after} did not "
+                                 f"fall below {before}")
+        acc = _accuracy(dk, trained, ds)
+        if not acc >= PS_CIFAR_MIN_ACCURACY[name]:
+            raise AssertionError(f"{name}: accuracy {acc} < "
+                                 f"{PS_CIFAR_MIN_ACCURACY[name]}")
+        # the device's idle share: one more epoch from the trained center,
+        # under the profiler
+        again = dk[name](trained.module, **dict(train, num_epoch=1))
+        idle = _idle_share(torch, dk, lambda: again.train(ds, shuffle=True))
+        out[name] = {"config": train, "steps": steps,
+                     "train_s": wall,
+                     "samples_per_s": steps * train["batch_size"]
+                     / wall,
+                     "commits": commits, "center_loss_before": before,
+                     "center_loss_after": after, "accuracy": acc,
+                     "min_accuracy": PS_CIFAR_MIN_ACCURACY[name],
+                     "peak_device_mb": peak, "profiled_epoch": idle}
+        del trainer, trained, again, model
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return {"rows": rows, "eval_rows": PS_EVAL_ROWS, "trainers": out}
+
+
+def quickstart_phase(torch, np, dk, rows=None):
+    """9b: the README's Quick start, ADAG on mnist_cnn over 4 workers."""
+    ds = mnist_dataset(np, dk, rows)
+    trainer = dk["ADAG"](dk["get_model"]("mnist_cnn", device=DEV, seed=0),
+                         **QUICKSTART)
+    model = trainer.train(ds, shuffle=True)
+    sync(torch)
+    hist = [r[k] for h in trainer.executor_histories for r in h
+            for k in ("loss", "accuracy")]
+    if not hist or not np.isfinite(hist).all():
+        raise AssertionError("Quick start: history not finite or empty")
+    acc = _accuracy(dk, model, ds, features_col="matrix")
+    if not acc >= MNIST_MIN_ACCURACY:
+        raise AssertionError(f"Quick start: accuracy {acc} < "
+                             f"{MNIST_MIN_ACCURACY}")
+    steps = sum(len(h) for h in trainer.executor_histories)
+    return {"rows": len(ds), "config": QUICKSTART, "accuracy": acc,
+            "commits": trainer.parameter_server.num_updates,
+            "steps": steps, "train_s": trainer.get_training_time(),
+            "samples_per_s": steps * QUICKSTART["batch_size"]
+            / trainer.get_training_time()}
+
+
+def _ps_witness_run(torch, dk, model, name, cols, device, dtype):
+    """``model``'s weights as a ``dtype`` module on ``device`` (f64: masters
+    and every layer), trained by ``name``'s lock-step engine with every
+    worker and the center there; returns the trained center's logits on
+    the rows, the workers' losses, and its weights, on the CPU in f64."""
+    f64 = dtype == torch.float64
+    twin = dk["get_model"]("cifar_cnn", dtype=torch.float32 if f64 else dtype,
+                           device=device)
+    twin.load_state_dict(model.state_dict())
+    if f64:
+        for m in twin.modules():
+            if isinstance(getattr(m, "dtype", None), torch.dtype):
+                m.dtype = torch.float64
+        twin.double()
+    ds = dk["PartitionedDataset"].from_arrays(cols, num_partitions=2)
+    trainer = dk[name](twin, num_workers=PS_WITNESS["workers"], spmd=True,
+                       devices=[device],
+                       batch_size=PS_WITNESS["batch_size"],
+                       num_epoch=PS_WITNESS["num_epoch"],
+                       communication_window=PS_WITNESS[
+                           "communication_window"], **PS_WITNESS_TRAIN)
+    trainer.train(ds)
+    x = torch.as_tensor(cols["features"], device=device)
+    with torch.no_grad():
+        logits = twin(x.to(torch.float64 if f64 else torch.float32)
+                      ).double().cpu()
+    losses = torch.tensor([r["loss"] for h in trainer.executor_histories
+                           for r in h], dtype=torch.float64)
+    center = {k: v.detach().double().cpu()
+              for k, v in twin.named_parameters()}
+    return logits, losses, center
+
+
+def ps_witness(torch, np, dk, model):
+    """9c: DOWNPOUR(spmd=True) and EASGD(spmd=True) on the card at bf16 and
+    f64 against f64 on the CPU, from ``model``'s weights (see
+    PS_WITNESS_TOL)."""
+    x, y = cifar_rows(np, PS_WITNESS["rows"])
+    cols = {"features": x, "label": y,
+            "label_encoded": np.eye(10, dtype=np.float32)[y]}
+    init = {k: v.detach().double().cpu()
+            for k, v in model.named_parameters()}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    out = {"config": PS_WITNESS, "tol": PS_WITNESS_TOL}
+    for name in ("DOWNPOUR", "EASGD"):
+        want = _ps_witness_run(torch, dk, model, name, cols, "cpu",
+                               torch.float64)
+        out[name] = {}
+        for key in PS_WITNESS_DTYPES:
+            got = _ps_witness_run(torch, dk, model, name, cols, DEV,
+                                  getattr(torch, key))
+            gaps = {
+                "logits": rel(got[0], want[0]), "loss": rel(got[1], want[1]),
+                "center": max(float((got[2][k] - c).abs().max())
+                              for k, c in want[2].items())
+                / max(float(c.abs().max()) for c in want[2].values()),
+                "update": max(float((got[2][k] - c).norm()
+                                    / (c - init[k]).norm())
+                              for k, c in want[2].items()
+                              if float((c - init[k]).norm()) > 0),
+            }
+            out[name][key] = gaps
+            for g, gap in gaps.items():
+                if not gap <= PS_WITNESS_TOL[key][g]:
+                    raise AssertionError(
+                        f"{name}(spmd=True) {key} on the card vs f64 on the "
+                        f"CPU: {g} gap {gap} > {PS_WITNESS_TOL[key][g]}")
+    return out
+
+
+def ps_roundtrip(torch, dk, model):
+    """9d: one commit + pull round trip of ``model``'s parameters through a
+    DeltaParameterServer on the card (the port's counterpart of
+    benchmarks/ps_roundtrip.py), beside its bound: the commit reads the
+    center and the delta and writes the center, the pull reads the
+    center and writes a copy — five f32 passes over the parameters."""
+    from distkeras_torch import bridge
+
+    ps = dk["DeltaParameterServer"](bridge.params_to_jax(model), device=DEV)
+    delta = {k: torch.full_like(v, 1e-3) for k, v in ps.center.items()}
+    n = sum(v.numel() for v in ps.center.values())
+    nbytes = 5 * 4 * n
+
+    def round_trip():
+        ps.commit(delta)
+        ps.pull(device=DEV)
+
+    ms = time_ms(torch, round_trip)
+    bound_ms, by = bound(nbytes, 0, "float32")
+    return {"params": n, "leaves": len(ps.center), "bytes": nbytes,
+            "ms": ms, "bound_ms": bound_ms, "bound_by": by,
+            "commits": ps.num_updates}
 
 
 # -- phase 3: serving at full width ----------------------------------------
@@ -1459,6 +1805,7 @@ def main() -> int:
         from distkeras_torch.workers import make_window_step
         from distkeras_torch import evaluators, predictors, trainers
         from distkeras_torch import transformers as stages
+        from distkeras_torch.parameter_servers import DeltaParameterServer
     except ImportError as e:
         return _fail(f"run from a checkout of the repository ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1481,7 +1828,9 @@ def main() -> int:
           "MinMaxTransformer": stages.MinMaxTransformer,
           "ReshapeTransformer": stages.ReshapeTransformer,
           "OneHotTransformer": stages.OneHotTransformer,
-          "LabelIndexTransformer": stages.LabelIndexTransformer}
+          "LabelIndexTransformer": stages.LabelIndexTransformer,
+          "DeltaParameterServer": DeltaParameterServer,
+          **{name: getattr(trainers, name) for name in PS_NAMES}}
 
     smi = nvidia_smi()
     kern = build.load()
@@ -1553,6 +1902,24 @@ def main() -> int:
     mnist = mnist_phase(torch, np, dk)
     mnist["seconds"] = time.perf_counter() - t0
     _emit({"mnist_workflow_phase": mnist})
+
+    t0 = time.perf_counter()
+    ps_cifar = ps_cifar_phase(torch, np, dk)
+    ps_cifar["seconds"] = time.perf_counter() - t0
+    _emit({"ps_cifar_phase": ps_cifar})
+
+    t0 = time.perf_counter()
+    quick = quickstart_phase(torch, np, dk)
+    quick["seconds"] = time.perf_counter() - t0
+    _emit({"quickstart_phase": quick})
+
+    t0 = time.perf_counter()
+    cnn = get_model("cifar_cnn", device=DEV, seed=0)
+    witness = ps_witness(torch, np, dk, cnn)
+    witness["seconds"] = time.perf_counter() - t0
+    _emit({"ps_witness_phase": witness})
+    _emit({"ps_roundtrip_phase": ps_roundtrip(torch, dk, cnn)})
+    del cnn
 
     main_paged = next(c for c in paged if c["T"] == 64 and c["pool"] == "int8")
     main_splash = next(c for c in splash if c["dtype"] == "bf16")

@@ -15,9 +15,33 @@ Hopper kernel (``csrc/*.cu``, built at first use by
 :mod:`distkeras_torch.kernels.build`) with a plain PyTorch version
 beside it that CPU tensors take.
 
-This module imports nothing heavy: submodules load torch on demand.
+This module imports nothing heavy: submodules load torch on demand, and
+the names below (the dist-keras trainers, the parameter servers, the
+checkpointer) load their module when first read.
 """
+
+import importlib
 
 __version__ = "0.1.0"
 
-__all__ = ["__version__"]
+_LAZY = {
+    **{name: "distkeras_torch.trainers" for name in (
+        "SingleTrainer", "EnsembleTrainer", "AveragingTrainer",
+        "DataParallelTrainer", "LMTrainer", "DistributedTrainer",
+        "AsynchronousDistributedTrainer", "SynchronousDistributedTrainer",
+        "DOWNPOUR", "ADAG", "DynSGD", "AEASGD", "EAMSGD", "EASGD")},
+    **{name: "distkeras_torch.parameter_servers" for name in (
+        "ParameterServer", "DeltaParameterServer", "ADAGParameterServer",
+        "DynSGDParameterServer", "EASGDParameterServer")},
+    "Checkpointer": "distkeras_torch.checkpoint",
+    "PartitionedDataset": "distkeras_torch.data.dataset",
+    "Model": "distkeras_torch.models.wrapper",
+}
+
+__all__ = ["__version__", *_LAZY]
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module 'distkeras_torch' has no attribute {name!r}")

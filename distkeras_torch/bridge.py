@@ -39,6 +39,13 @@ def _jax_path(name: str) -> Tuple[str, ...]:
     return parts
 
 
+def flax_key(name: str) -> str:
+    """A port parameter's flax path as one '/'-joined key, under
+    ``params`` (``Dense_0.kernel`` -> ``params/Dense_0/kernel``): the key
+    of the flat trees the parameter servers hold."""
+    return "/".join(("params",) + _jax_path(name))
+
+
 def _flatten(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
     for key, val in tree.items():
         if isinstance(val, dict):

@@ -1,6 +1,6 @@
 """Data substrate of the port: :class:`PartitionedDataset`, a copy of
 the reference's numpy-only dataset (disk-sharded datasets are not
-ported yet, ROADMAP A9)."""
+ported yet, ROADMAP A9b)."""
 
 from distkeras_torch.data.dataset import PartitionedDataset  # noqa: F401
 

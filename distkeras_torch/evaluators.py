@@ -20,7 +20,7 @@ from distkeras_torch.data.dataset import PartitionedDataset
 def _reject_sharded(dataset):
     if hasattr(dataset, "read_shard") or hasattr(dataset, "num_shards"):
         raise NotImplementedError(
-            "evaluating a ShardedDataset is not ported yet (ROADMAP A9); "
+            "evaluating a ShardedDataset is not ported yet (ROADMAP A9b); "
             "load it into a PartitionedDataset")
 
 

@@ -5,7 +5,8 @@ The reference pairs an immutable flax module with a params pytree. A
 PyTorch module holds its own parameters, so here the pair is the module
 itself: :attr:`Model.params` reads them (by name), :meth:`predict` and
 :meth:`generate` run it, and :meth:`replace_params` builds a twin module
-of the same configuration loaded with other weights.
+of the same configuration loaded with other weights. :meth:`serialize`
+/ :meth:`deserialize` write and read the reference's msgpack blob.
 """
 
 from __future__ import annotations
@@ -37,15 +38,24 @@ class Model:
         return self.module(x).float().cpu().numpy()
 
     def serialize(self) -> dict:
-        raise NotImplementedError(
-            "Model.serialize (the msgpack model blob) is not ported yet "
-            "(ROADMAP A1)")
+        """The reference's model blob, ``{'model': {name, kwargs},
+        'weights': msgpack}`` (:func:`distkeras_torch.utils.serde.
+        serialize_model`), which the JAX package loads too."""
+        from distkeras_torch import bridge
+        from distkeras_torch.models.registry import model_spec
+        from distkeras_torch.utils.serde import serialize_model
+
+        return serialize_model(model_spec(self.module),
+                               bridge.params_to_jax(self.module))
 
     @classmethod
-    def deserialize(cls, blob: dict) -> "Model":
-        raise NotImplementedError(
-            "Model.deserialize (the msgpack model blob) is not ported yet "
-            "(ROADMAP A1)")
+    def deserialize(cls, blob: dict, device=None) -> "Model":
+        """A Model from a blob of either package, built on ``device``
+        (default: the card)."""
+        from distkeras_torch.utils.serde import deserialize_model
+
+        module, _ = deserialize_model(blob, device=device)
+        return cls(module)
 
     def replace_params(self, params) -> "Model":
         """A new Model over a fresh module of the same configuration on

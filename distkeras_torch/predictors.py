@@ -103,7 +103,7 @@ class ModelPredictor(Predictor):
         if hasattr(dataset, "read_shard") or hasattr(dataset, "num_shards"):
             raise NotImplementedError(
                 "ModelPredictor over a ShardedDataset is not ported yet "
-                "(ROADMAP A9); load it into a PartitionedDataset")
+                "(ROADMAP A9b); load it into a PartitionedDataset")
         return dataset.with_column(
             self.output_col,
             lambda p: self._predict_array(p[self.features_col]))
@@ -113,4 +113,4 @@ class ModelPredictor(Predictor):
         reference's disk-scale path). Not ported yet."""
         raise NotImplementedError(
             "predict_sharded (disk-sharded datasets) is not ported yet "
-            "(ROADMAP A9)")
+            "(ROADMAP A9b)")

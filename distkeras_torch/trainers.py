@@ -22,15 +22,28 @@ the device until the epoch ends; ``axes={"dp": d, "sp": s}`` shards it
 over the ``d * s`` processes of the ``torch.distributed`` world (one
 process on one device when both are 1).
 
-Not ported yet, and raising with their ROADMAP item: the parameter-server
-trainers (A9), ``checkpointer=`` (A9), disk-sharded datasets (A9),
-``serialize`` (A1), ``LMTrainer``'s ``tp``, ``pp`` and ``ep`` axes and
-pipeline ``microbatches`` (A10); an MoE model (A10) raises where it is
-built.
+The parameter-server family (:class:`DistributedTrainer`: ``DOWNPOUR``,
+``ADAG``, ``DynSGD``, ``AEASGD``, ``EAMSGD``, ``EASGD``) runs one host
+thread per worker against a :mod:`~distkeras_torch.parameter_servers`
+center on the first of ``devices``, each worker a copy of the model on
+``devices[i % n]``; with ``spmd=True`` the lock-step engine
+(:func:`_train_lockstep_spmd`) runs every worker in this thread instead,
+a window of steps each and then one round over all of them. ``remote_ps=
+(host, port)`` trains against a :class:`~distkeras_torch.networking.
+ParameterServerService` elsewhere. ``checkpointer=``
+(:class:`~distkeras_torch.checkpoint.Checkpointer`) saves and resumes
+``SingleTrainer``, ``DataParallelTrainer`` and the PS family.
+
+Not ported yet, and raising with their ROADMAP item: disk-sharded
+datasets and ``LMTrainer(checkpointer=)`` (A9b), ``LMTrainer``'s ``tp``,
+``pp`` and ``ep`` axes and pipeline ``microbatches`` (A10); an MoE model
+(A10) raises where it is built.
 """
 
 from __future__ import annotations
 
+import copy
+import threading
 import time
 import warnings
 from typing import Any, List, Optional, Sequence
@@ -38,11 +51,15 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
+from distkeras_torch import parameter_servers as ps_mod
+from distkeras_torch import workers as workers_mod
 from distkeras_torch.data.dataset import PartitionedDataset
 from distkeras_torch.models.wrapper import Model
+from distkeras_torch.ops import rules
 from distkeras_torch.utils.history import History, average_histories
 from distkeras_torch.utils.losses import get_optimizer
-from distkeras_torch.workers import SequentialWorker, batch_partition
+from distkeras_torch.workers import (SequentialWorker, _rows,
+                                     batch_partition, opt_state_to_host)
 
 
 class Trainer:
@@ -73,10 +90,6 @@ class Trainer:
         profile_dir: Optional[str] = None,
         stage_limit_bytes: int = 1 << 30,
     ):
-        if checkpointer is not None:
-            raise NotImplementedError(
-                "checkpointer= (training checkpoints) is not ported yet "
-                "(ROADMAP A9)")
         self.model = model
         self.params = params
         self.worker_optimizer = worker_optimizer
@@ -88,6 +101,7 @@ class Trainer:
         self.batch_size = batch_size
         self.num_epoch = num_epoch
         self.seed = seed
+        self.checkpointer = checkpointer
         # data bigger than this budget is uploaded window by window
         # instead of staged on the device once
         self.stage_limit_bytes = stage_limit_bytes
@@ -164,7 +178,7 @@ class Trainer:
         if hasattr(dataset, "read_shard") or hasattr(dataset, "num_shards"):
             raise NotImplementedError(
                 "disk-sharded datasets (ShardedDataset streaming) are not "
-                "ported yet (ROADMAP A9); load it into a PartitionedDataset")
+                "ported yet (ROADMAP A9b); load it into a PartitionedDataset")
         raise TypeError(f"train() takes a PartitionedDataset; got "
                         f"{type(dataset).__name__}")
 
@@ -211,9 +225,41 @@ class Trainer:
                                 **self.model.config())
 
     def serialize(self) -> dict:
-        raise NotImplementedError(
-            "Trainer.serialize (the msgpack model blob) is not ported yet "
-            "(ROADMAP A1)")
+        """The reference's model blob (:func:`distkeras_torch.utils.serde.
+        serialize_model`) of the model and ``self.params``."""
+        from distkeras_torch.models.registry import model_spec
+        from distkeras_torch.utils.serde import serialize_model
+
+        return serialize_model(model_spec(self.model), self.ensure_params())
+
+    def _epoch_checkpoints(self, worker, rank: int = 0) -> int:
+        """Resume ``worker`` (a :class:`SequentialWorker`) from the latest
+        checkpoint — weights, optimizer state, the epochs left — and save
+        after each epoch it trains (only ``rank`` 0 writes). Returns the
+        epoch it resumes at."""
+        from distkeras_torch import bridge
+
+        ckpt = self.checkpointer
+        if ckpt is None:
+            return 0
+        step, state = ckpt.restore()
+        start = 0
+        if state is not None:
+            worker.params = state["params"]
+            worker.initial_opt_state = state["opt_state"] or None
+            start = int(state["extra"].get("epoch", step))
+        worker.num_epoch = max(0, self.num_epoch - start)
+
+        def on_epoch(epoch, w):
+            done = start + epoch + 1
+            if rank == 0:
+                ckpt.maybe_save(done, bridge.params_to_jax(w.module),
+                                opt_state_to_host(w.opt),
+                                extra={"epoch": done},
+                                force=done == self.num_epoch)
+
+        worker.epoch_callback = on_epoch
+        return start
 
     def _train(self, dataset: PartitionedDataset, shuffle: bool = False):
         raise NotImplementedError
@@ -232,6 +278,7 @@ class SingleTrainer(Trainer):
         worker = SequentialWorker(self.model, self.params,
                                   **self.worker_kwargs())
         worker.metrics_writer = self.metrics_writer
+        self._epoch_checkpoints(worker)
         self.params, history = worker.train(0, dataset.partition(0))
         self.executor_histories = [history]
         self.history = history
@@ -392,6 +439,7 @@ class DataParallelTrainer(Trainer):
         worker = SequentialWorker(self.model, self.params,
                                   group=mesh.group("dp"),
                                   **self.worker_kwargs())
+        self._epoch_checkpoints(worker, rank=r)
         self.params, history = worker.train(r, local)
         if self.metrics_writer is not None:
             for t, row in enumerate(history):
@@ -428,6 +476,9 @@ class LMTrainer(Trainer):
                  tokens_col: str = "tokens",
                  microbatches: Optional[int] = None, **kwargs):
         super().__init__(model, *args, **kwargs)
+        if self.checkpointer is not None:
+            raise NotImplementedError(
+                "LMTrainer(checkpointer=) is not ported yet (ROADMAP A9b)")
         if microbatches is not None:
             raise NotImplementedError(
                 "microbatches (pipeline-parallel training) is not ported "
@@ -523,3 +574,561 @@ class LMTrainer(Trainer):
         self.history = history
         self.executor_histories = [history]
         return Model(self._single_chip_twin())
+
+
+# -- the parameter-server family ---------------------------------------------
+
+
+class DistributedTrainer(Trainer):
+    """Parameter-server orchestration base (reference: trainers.py ·
+    DistributedTrainer): start the PS -> repartition -> one worker per
+    partition -> join -> stop the PS -> the center is the trained model.
+
+    Workers are host threads, one per partition, each training its own
+    copy of the model on ``devices[i % len(devices)]`` (default: every
+    visible card when the model is on one, else the model's device) on
+    that device's default stream; the center lives on ``devices[0]``. On
+    one card the threads interleave there, which keeps the algorithms'
+    staleness exactly. ``max_retries`` restarts a crashed worker from the
+    current center (a fresh pull and optimizer, the same id and device),
+    so no update is counted twice. ``remote_ps=(host, port)`` makes this
+    process a client of a :class:`~distkeras_torch.networking.
+    ParameterServerService` instead of the center's owner. After
+    training the model holds the center and ``params`` is its flax tree.
+    """
+
+    WORKER_CLS = None  # set by subclasses
+
+    def __init__(self, *args, num_workers: int = 2,
+                 communication_window: int = 5,
+                 remote_ps: Optional[tuple] = None,
+                 devices: Optional[Sequence] = None,
+                 max_retries: int = 0, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.num_workers = num_workers
+        self.communication_window = communication_window
+        self.max_retries = max_retries
+        self.worker_restarts = 0
+        self.remote_ps = remote_ps
+        self.devices = devices
+        self.staleness: Optional[dict] = None
+        self.parameter_server = None
+        self.workers: List[workers_mod.WindowedWorker] = []
+
+    def _devices(self) -> List[torch.device]:
+        if self.devices is not None:
+            return [torch.device(d) for d in self.devices]
+        dev = self.model.device
+        if dev.type == "cuda":
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        return [dev]
+
+    def _center_params(self) -> dict:
+        """The initial center as a flax tree under ``params``."""
+        p = self.ensure_params()
+        return p if "params" in p else {"params": p}
+
+    def _center_tree(self, params=None) -> rules.Tree:
+        """``params`` (default: the initial center) as a flat dict of host
+        tensors in the model's master dtype: f32, or f64 for a model cast
+        to it."""
+        dtype = next(self.model.parameters()).dtype
+        return rules.to_tensors(params or self._center_params(), "cpu",
+                                dtype=dtype)
+
+    # reference: allocate_parameter_server / allocate_worker
+    def allocate_parameter_server(self):
+        raise NotImplementedError
+
+    def allocate_worker(self, index: int) -> workers_mod.WindowedWorker:
+        kwargs = self.worker_kwargs()
+        kwargs.update(communication_window=self.communication_window)
+        kwargs.update(self.extra_worker_kwargs())
+        devices = self._devices()
+        # a copy of the model (its per-layer dtypes and master dtype
+        # included) on the worker's device; the first pull sets its weights
+        module = copy.deepcopy(self.model).to(devices[index % len(devices)])
+        return self.WORKER_CLS(module, None, **kwargs)
+
+    def extra_worker_kwargs(self) -> dict:
+        return {}
+
+    @property
+    def parallelism_factor(self) -> int:
+        return 1
+
+    def _restore(self, n_parts: int):
+        """The latest checkpoint's center (into ``self.params``), its step,
+        and the workers' optimizer states when it holds ``n_parts`` of
+        them (else None: a center-only resume)."""
+        if self.checkpointer is None or self.checkpointer.latest_step is None:
+            return 0, None
+        step, state = self.checkpointer.restore()
+        self.params = state["params"]
+        saved = (state["opt_state"] or {}).get("workers")
+        if int(state["extra"].get("n_workers", -1)) != n_parts:
+            saved = None
+        return step, saved
+
+    def _train(self, dataset, shuffle: bool = False) -> Model:
+        from distkeras_torch import bridge
+
+        self.worker_restarts = 0  # per run (trainers are reusable)
+        n_parts = self.num_workers * self.parallelism_factor
+        if shuffle:
+            dataset = dataset.shuffle(seed=self.seed)
+        dataset = dataset.repartition(n_parts)
+        self.params = self._center_params()
+        is_owner = self.remote_ps is None
+        if self.checkpointer is not None and not is_owner:
+            raise ValueError(
+                "checkpointer must live with the process that owns the "
+                "center (the ParameterServerService host), not a remote "
+                "client — pass it there instead")
+        restored_step, restored_opt = self._restore(n_parts)
+        if is_owner:
+            ps = self.allocate_parameter_server()
+            ps.checkpointer = self.checkpointer
+            ps.step_offset = restored_step
+        else:
+            from distkeras_torch.networking import RemoteParameterServer
+
+            ps = RemoteParameterServer(*self.remote_ps)
+        self.parameter_server = ps
+        ps.start()
+
+        results: List[Optional[History]] = [None] * n_parts
+        errors: List[BaseException] = []
+        workers = [self.allocate_worker(i) for i in range(n_parts)]
+        self.workers = workers
+        for i, w in enumerate(workers):
+            w.metrics_writer = self.metrics_writer
+            if restored_opt is not None:
+                w.initial_opt_state = restored_opt[i]
+        if self.checkpointer is not None:
+            def _worker_states():
+                return ({"workers": [_opt_snapshot(w) for w in workers]},
+                        {"n_workers": n_parts})
+
+            ps.extra_state_fn = _worker_states
+        restart_lock = threading.Lock()
+
+        def run(i: int):
+            attempts = 0
+            try:
+                while True:
+                    try:
+                        _, history = workers[i].train(
+                            i, dataset.partition(i), ps)
+                        results[i] = history
+                        return
+                    except (KeyboardInterrupt, SystemExit):
+                        raise
+                    except BaseException as e:
+                        if attempts >= self.max_retries:
+                            errors.append(e)
+                            return
+                        attempts += 1
+                        # a fresh worker (clean optimizer) on the same
+                        # device and id: its first act is a pull of the
+                        # current center, so nothing is replayed
+                        with restart_lock:
+                            self.worker_restarts += 1
+                        replacement = self.allocate_worker(i)
+                        replacement.metrics_writer = self.metrics_writer
+                        workers[i] = replacement
+            finally:
+                # shrink a synchronous barrier so survivors never deadlock
+                ps.leave(i)
+
+        threads = [threading.Thread(target=run, args=(i,), daemon=True)
+                   for i in range(n_parts)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if is_owner:
+            final = ps.get_model()
+        elif errors:
+            ps.leave(-1)  # this process makes no further calls
+            final = None
+        else:
+            final = ps.get_model()
+            ps.leave(-1)
+        ps.stop()
+        if self.checkpointer is not None:
+            opt_state, extra = ps.extra_state_fn()
+            self.checkpointer.maybe_save(
+                ps.step_offset + ps.num_updates, final,
+                opt_state=opt_state, extra=extra, force=True)
+            self.checkpointer.wait()
+            ps.extra_state_fn = None
+        from distkeras_torch.utils.metrics import staleness_histogram
+
+        log = getattr(ps, "staleness_log", None) or []
+        self.staleness = staleness_histogram(log)
+        if self.metrics_writer is not None and log:
+            self.metrics_writer.summary(
+                "staleness", histogram=self.staleness,
+                num_updates=ps.num_updates)
+        if self.metrics_writer is not None and self.worker_restarts:
+            self.metrics_writer.summary(
+                "failures", worker_restarts=self.worker_restarts)
+        if errors:
+            raise errors[0]
+        self.executor_histories = [h for h in results if h is not None]
+        self.history = (self.executor_histories[0]
+                        if self.executor_histories else [])
+        self.params = final
+        bridge.params_from_jax(final, self.model)
+        return Model(self.model)
+
+
+def _opt_snapshot(worker):
+    """A worker's optimizer state on the host for a checkpoint (None before
+    it has one). Read racily from the checkpointing thread, as the
+    reference does; a dict resized under the read is read again."""
+    for _ in range(3):
+        try:
+            return (opt_state_to_host(worker.opt)
+                    if worker.opt is not None else None)
+        except RuntimeError:
+            continue
+    return None
+
+
+class AsynchronousDistributedTrainer(DistributedTrainer):
+    """Async base (reference: trainers.py · AsynchronousDistributedTrainer):
+    adds the partition-oversubscription knob."""
+
+    def __init__(self, *args, parallelism_factor: int = 1, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._parallelism_factor = parallelism_factor
+
+    @property
+    def parallelism_factor(self) -> int:
+        return self._parallelism_factor
+
+
+class _DeltaFamilySpmdMixin:
+    """``spmd=True`` engine of the windowed delta-commit algorithms: W
+    local steps per worker, then one lock-step commit of every worker's
+    delta — DOWNPOUR sums them (:func:`rules.allreduce_sum_delta`), ADAG
+    means them (:func:`rules.allreduce_mean_delta`) — and every worker
+    re-pulls the new center. Equal to the PS classes driven on the
+    pull-all / commit-all schedule."""
+
+    SPMD_ENGINE = ""  # subclass sets, e.g. 'downpour-spmd'
+
+    def __init__(self, *args, spmd: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.spmd = spmd
+
+    def _spmd_round(self, workers, center):
+        dev = next(iter(center.values())).device
+        deltas = [rules.tree_sub(w, {k: c.to(w[k].device)
+                                     for k, c in center.items()})
+                  for w in workers]
+        center = rules.tree_add(center, self._spmd_reduce(deltas, dev))
+        return [center] * len(workers), center
+
+    def _train(self, dataset, shuffle: bool = False) -> Model:
+        if self.spmd:
+            return _train_lockstep_spmd(self, dataset, shuffle,
+                                        engine=self.SPMD_ENGINE,
+                                        round_fn=self._spmd_round)
+        return super()._train(dataset, shuffle)
+
+
+class DOWNPOUR(_DeltaFamilySpmdMixin, AsynchronousDistributedTrainer):
+    """Dean et al. 2012 (reference: trainers.py · DOWNPOUR)."""
+
+    WORKER_CLS = workers_mod.DOWNPOURWorker
+    SPMD_ENGINE = "downpour-spmd"
+
+    def _spmd_reduce(self, deltas, device):
+        return rules.allreduce_sum_delta(deltas, device)
+
+    def allocate_parameter_server(self):
+        return ps_mod.DeltaParameterServer(self._center_tree(),
+                                           device=self._devices()[0])
+
+
+class ADAG(_DeltaFamilySpmdMixin, AsynchronousDistributedTrainer):
+    """Asynchronous distributed adaptive gradients — the reference's
+    recommended default (reference: trainers.py · ADAG)."""
+
+    WORKER_CLS = workers_mod.ADAGWorker
+    SPMD_ENGINE = "adag-spmd"
+
+    def _spmd_reduce(self, deltas, device):
+        return rules.allreduce_mean_delta(deltas, device)
+
+    def allocate_parameter_server(self):
+        return ps_mod.ADAGParameterServer(self._center_tree(),
+                                          self.num_workers,
+                                          device=self._devices()[0])
+
+
+class DynSGD(AsynchronousDistributedTrainer):
+    """Staleness-damped async SGD (reference: trainers.py · DynSGD).
+    ``spmd=True`` runs the lock-step engine with per-worker clocks:
+    commits land in worker order inside a round, worker ``i`` damped by
+    ``1/(1+i)`` (:func:`rules.allreduce_dynsgd_round`)."""
+
+    WORKER_CLS = workers_mod.DynSGDWorker
+    SPMD_ENGINE = "dynsgd-spmd"
+
+    def __init__(self, *args, spmd: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.spmd = spmd
+
+    def allocate_parameter_server(self):
+        return ps_mod.DynSGDParameterServer(self._center_tree(),
+                                            device=self._devices()[0])
+
+    def _train(self, dataset, shuffle: bool = False) -> Model:
+        if self.spmd:
+            return _train_lockstep_spmd(self, dataset, shuffle,
+                                        engine=self.SPMD_ENGINE,
+                                        round_fn=rules.allreduce_dynsgd_round)
+        return super()._train(dataset, shuffle)
+
+
+class AEASGD(AsynchronousDistributedTrainer):
+    """Async elastic averaging (reference: trainers.py · AEASGD).
+    ``spmd=True`` runs the lock-step engine, each round the elastic
+    exchange (:func:`rules.allreduce_easgd_round`): in lock step the
+    async elastic commit lands as the synchronous round does."""
+
+    WORKER_CLS = workers_mod.AEASGDWorker
+    SPMD_ENGINE = "aeasgd-spmd"
+
+    def __init__(self, *args, rho: float = 5.0, elastic_lr: float = 0.01,
+                 spmd: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.rho = rho
+        self.elastic_lr = elastic_lr
+        self.spmd = spmd
+
+    def extra_worker_kwargs(self):
+        return dict(rho=self.rho, elastic_lr=self.elastic_lr)
+
+    def allocate_parameter_server(self):
+        return ps_mod.DeltaParameterServer(self._center_tree(),
+                                           device=self._devices()[0])
+
+    def _train(self, dataset, shuffle: bool = False) -> Model:
+        if self.spmd:
+            alpha = self.elastic_lr * self.rho
+            return _train_lockstep_spmd(
+                self, dataset, shuffle, engine=self.SPMD_ENGINE,
+                round_fn=lambda w, c: rules.allreduce_easgd_round(w, c,
+                                                                  alpha))
+        return super()._train(dataset, shuffle)
+
+
+class EAMSGD(AEASGD):
+    """AEASGD + Nesterov momentum on the workers (reference: trainers.py ·
+    EAMSGD); the ``momentum`` knob sets the Nesterov optimizer it builds."""
+
+    WORKER_CLS = workers_mod.EAMSGDWorker
+    SPMD_ENGINE = "eamsgd-spmd"
+
+    def __init__(self, *args, momentum: float = 0.9, **kwargs):
+        if kwargs.get("worker_optimizer", "sgd") != "sgd":
+            raise ValueError(
+                "EAMSGD defines its own worker optimizer (Nesterov SGD with "
+                "the `momentum` knob); a custom worker_optimizer would be "
+                "silently ignored — use AEASGD if you need one")
+        super().__init__(*args, **kwargs)
+        self.momentum = momentum
+        self.worker_optimizer = get_optimizer(
+            "nesterov", self.learning_rate, momentum=self.momentum)
+
+
+class SynchronousDistributedTrainer(DistributedTrainer):
+    """Sync base (reference: trainers.py · SynchronousDistributedTrainer)."""
+
+
+class EASGD(SynchronousDistributedTrainer):
+    """Synchronous elastic averaging (reference: trainers.py · EASGD):
+    every round is a barrier over the workers. Default engine: worker
+    threads and the barrier server (:class:`~distkeras_torch.
+    parameter_servers.EASGDParameterServer`), which tolerates unequal
+    partitions and restarts; ``spmd=True``: the lock-step engine, each
+    round :func:`rules.allreduce_easgd_round` over every worker."""
+
+    WORKER_CLS = workers_mod.EASGDWorker
+    SPMD_ENGINE = "easgd-spmd"
+
+    def __init__(self, *args, rho: float = 5.0, elastic_lr: float = 0.01,
+                 spmd: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.rho = rho
+        self.elastic_lr = elastic_lr
+        self.spmd = spmd
+
+    def extra_worker_kwargs(self):
+        return dict(rho=self.rho, elastic_lr=self.elastic_lr)
+
+    def allocate_parameter_server(self):
+        return ps_mod.EASGDParameterServer(
+            self._center_tree(), self.num_workers, rho=self.rho,
+            elastic_lr=self.elastic_lr, device=self._devices()[0])
+
+    def _train(self, dataset, shuffle: bool = False) -> Model:
+        if self.spmd:
+            alpha = self.elastic_lr * self.rho
+            return _train_lockstep_spmd(
+                self, dataset, shuffle, engine=self.SPMD_ENGINE,
+                round_fn=lambda w, c: rules.allreduce_easgd_round(w, c,
+                                                                  alpha))
+        return super()._train(dataset, shuffle)
+
+
+# the lock-step checkpoint's engine stamp (0: unstamped, accepted with a
+# warning)
+_SPMD_ENGINE_IDS = {"easgd-spmd": 1, "downpour-spmd": 2, "adag-spmd": 3,
+                    "aeasgd-spmd": 4, "eamsgd-spmd": 5, "dynsgd-spmd": 6}
+
+
+def _train_lockstep_spmd(self, dataset: PartitionedDataset, shuffle: bool,
+                         engine: str, round_fn) -> Model:
+    """The lock-step engine of the PS algorithms (``spmd=True``; reference:
+    trainers.py · _train_lockstep_spmd). One process drives every worker:
+    worker ``i`` is a copy of the model on ``devices[i % n]`` with its
+    own optimizer, and each window is W steps of every worker (its window
+    step, issued worker after worker — on several cards they overlap),
+    then one ``round_fn(workers, center) -> (workers, center)`` over all
+    of their parameters with the reductions summed onto the center's
+    device (:func:`rules.allreduce_sum_delta` and the others). Metrics
+    stay on the devices until the epoch ends.
+
+    Partitions of unequal batch counts: a worker whose batches have run
+    out skips its steps (the reference's masked no-op batches) but joins
+    every round, so every row is trained on exactly once. Checkpoints
+    (per epoch) carry the center, every worker's parameters and
+    optimizer state, and the engine stamp and worker count, so a resume
+    is exact and a resume under another engine or worker count raises.
+
+    ``self`` is the trainer."""
+    import torch.distributed as dist
+
+    from distkeras_torch import bridge
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            f"{engine} is single-process (every worker in one process); "
+            "multi-process runs use the threaded PS engine (spmd=False) "
+            "with remote_ps=")
+    if shuffle:
+        dataset = dataset.shuffle(seed=self.seed)
+    n = self.num_workers
+    devices = self._devices()
+    center = rules.to_tensors(self._center_tree(), devices[0])
+    parts = dataset.repartition(n)
+    per_worker = [batch_partition(parts.partition(i), self.features_col,
+                                  self.label_col, self.batch_size)
+                  for i in range(n)]
+    lens = [len(xb) for xb, _ in per_worker]
+    n_b = max(lens)
+    if len(set(lens)) > 1:
+        warnings.warn(
+            f"{engine}: partitions are unequal ({min(lens)}–{n_b} "
+            f"batches across {n} workers); exhausted workers idle "
+            "through masked no-op steps but still join every commit — "
+            "no rows are dropped",
+            RuntimeWarning,
+        )
+    workers = [self.allocate_worker(i) for i in range(n)]
+    self.workers = workers
+    start_epoch, restored = 0, None
+    if self.checkpointer is not None:
+        ck_step, state = self.checkpointer.restore()
+        if state is not None:
+            extra = state["extra"]
+            saved_id = int(extra.get("engine_id", 0))
+            saved_workers = int(extra.get("workers", 0))
+            if not saved_id:
+                warnings.warn(
+                    "restoring an unstamped lockstep checkpoint into the "
+                    f"'{engine}' spmd engine; if it was written by a "
+                    "different algorithm the layouts differ silently — "
+                    "verify the source trainer matches")
+            if saved_id and saved_id != _SPMD_ENGINE_IDS[engine]:
+                names = {v: k for k, v in _SPMD_ENGINE_IDS.items()}
+                raise ValueError(
+                    "checkpoint was written by engine "
+                    f"'{names.get(saved_id, saved_id)}' but this trainer "
+                    f"runs '{engine}' — their state layouts are "
+                    "incompatible; resume with the matching trainer/spmd "
+                    "flag or point at a fresh directory")
+            if saved_workers and saved_workers != n:
+                raise ValueError(
+                    f"checkpoint carries {saved_workers} workers but this "
+                    f"run has {n} — per-worker state cannot be re-sliced; "
+                    f"resume with num_workers={saved_workers} or start "
+                    "fresh")
+            center = rules.to_tensors(self._center_tree(state["params"]),
+                                      devices[0])
+            start_epoch = int(extra.get("epoch", ck_step))
+            restored = state["opt_state"] or None
+    feeds = []
+    for i, w in enumerate(workers):
+        if restored is not None:
+            w.initial_opt_state = restored["opt"][i]
+        w.prepare()
+        w.index = i
+        rules.tree_copy_(w.local(), center if restored is None
+                         else rules.flatten(restored["worker"][i]))
+        feeds.append(w._stage(*per_worker[i]))
+    W = self.communication_window
+    groups = [(s, min(s + W, n_b)) for s in range(0, n_b, W)]
+    histories: List[History] = [[] for _ in range(n)]
+    for epoch in range(start_epoch, self.num_epoch):
+        epoch_ms = []
+        for s, e in groups:
+            ms = []
+            for i, w in enumerate(workers):
+                stop = min(e, lens[i])
+                if stop <= s:
+                    ms.append(None)  # this worker's batches have run out
+                    continue
+                xs, ys, staged = feeds[i]
+                xw, yw = xs[s:stop], ys[s:stop]
+                if not staged:
+                    xw, yw = w._put(xw), w._put(yw)
+                ms.append(w.window_step(xw, yw))
+            local = [w.local() for w in workers]
+            new_workers, center = round_fn(local, center)
+            for dst, src in zip(local, new_workers):
+                rules.tree_copy_(dst, src)
+            epoch_ms.append(ms)
+        for ms in epoch_ms:
+            for i, m in enumerate(ms):
+                if m is None:
+                    continue
+                rows = _rows(m)
+                if self.metrics_writer is not None:
+                    base = len(histories[i])
+                    for t, r in enumerate(rows):
+                        self.metrics_writer.log(step=base + t + 1, worker=i,
+                                                samples=self.batch_size, **r)
+                histories[i].extend(rows)
+        if self.checkpointer is not None:
+            self.checkpointer.maybe_save(
+                epoch + 1, rules.to_numpy(center),
+                {"worker": [rules.to_numpy(w.local()) for w in workers],
+                 "opt": [opt_state_to_host(w.opt) for w in workers]},
+                extra={"epoch": epoch + 1,
+                       "engine_id": _SPMD_ENGINE_IDS[engine],
+                       "workers": n},
+                force=(epoch + 1 == self.num_epoch))
+    self.params = rules.to_numpy(center)
+    bridge.params_from_jax(self.params, self.model)
+    self.executor_histories = histories
+    self.history = histories[0]
+    return Model(self.model)

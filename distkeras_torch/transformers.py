@@ -14,7 +14,7 @@ Stages:
 - :class:`ReshapeTransformer`    (reference · ReshapeTransformer)
 - :class:`LabelIndexTransformer` (reference · LabelIndexTransformer)
 
-``transform_sharded`` (disk-sharded datasets) raises: ROADMAP A9.
+``transform_sharded`` (disk-sharded datasets) raises: ROADMAP A9b.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ class Transformer:
         writes a new shard directory). Not ported yet."""
         raise NotImplementedError(
             "transform_sharded (disk-sharded datasets) is not ported yet "
-            "(ROADMAP A9); load the shards into a PartitionedDataset")
+            "(ROADMAP A9b); load the shards into a PartitionedDataset")
 
 
 class OneHotTransformer(Transformer):

@@ -16,8 +16,12 @@ size, the reference's ``psum``-by-transpose followed by ``1 / n`` — and
 a window's metrics are averaged over the group once, after its last
 step.
 
-The parameter-server workers (the reference's ``WindowedWorker`` and its
-subclasses) are not ported yet (ROADMAP A9).
+The parameter-server workers (:class:`WindowedWorker` and its six
+subclasses) each train their own module twin with their own optimizer:
+a window is one :func:`make_window_step` call read back once, then
+``on_round(ps)`` exchanges with the center. A pull is copied into the
+module's parameters in place, so the optimizer's state survives it (the
+reference's Keras ``set_weights`` kept the optimizer too).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from distkeras_torch import telemetry
+from distkeras_torch.ops import rules
 from distkeras_torch.parallel.collectives import group_size
 from distkeras_torch.utils.history import History
 from distkeras_torch.utils.losses import get_loss, get_optimizer, resolve_metrics
@@ -206,6 +211,9 @@ class Worker:
         self.group = group
         # optional MetricsWriter installed by the trainer
         self.metrics_writer = None
+        # optional optimizer state_dict to resume from (checkpoints)
+        self.initial_opt_state = None
+        self.opt = None
         self.index = 0
         self._step_count = 0
 
@@ -242,14 +250,18 @@ class Worker:
         return xb, yb, False
 
     def prepare(self):
-        """Load ``params`` (when given) and build the window step
+        """Load ``params`` (when given), bind the optimizer (restoring
+        ``initial_opt_state`` when set) and build the window step
         (reference: Worker.prepare_model)."""
         if self.params is not None:
             from distkeras_torch import bridge
 
             bridge.params_from_jax(self.params, self.module)
+        self.opt = _bind(self.module, self.optimizer, None)
+        if self.initial_opt_state is not None:
+            self.opt.load_state_dict(self.initial_opt_state)
         self.window_step = make_window_step(
-            self.module, self.loss_fn, self.optimizer, self.metrics,
+            self.module, self.loss_fn, self.opt, self.metrics,
             group=self.group)
 
     def batches(self, partition) -> Tuple[np.ndarray, np.ndarray]:
@@ -261,7 +273,9 @@ class SequentialWorker(Worker):
     """Plain local training loop over one partition (reference:
     workers.py · SequentialWorker, used by SingleTrainer,
     EnsembleTrainer, AveragingTrainer and here DataParallelTrainer): each
-    epoch is one window over all its full batches, read back once."""
+    epoch is one window over all its full batches, read back once.
+    ``epoch_callback(epoch, worker)``, when set, runs after each epoch
+    (the checkpoints of ``SingleTrainer``)."""
 
     def train(self, index: int, partition) -> Tuple[dict, History]:
         """Train ``self.module`` in place; returns its trained weights as a
@@ -273,7 +287,8 @@ class SequentialWorker(Worker):
         xb, yb = self.batches(partition)
         xs, ys, staged = self._stage(xb, yb)
         history: History = []
-        for _epoch in range(self.num_epoch):
+        callback = getattr(self, "epoch_callback", None)
+        for epoch in range(self.num_epoch):
             if staged:
                 ms = self.window_step(xs, ys)
             else:
@@ -281,5 +296,169 @@ class SequentialWorker(Worker):
             rows = _rows(ms)
             history.extend(rows)
             self._log_steps(rows)
+            if callback is not None:
+                callback(epoch, self)
         self.params = bridge.params_to_jax(self.module)
         return self.params, history
+
+
+def opt_state_to_host(opt) -> dict:
+    """An optimizer's ``state_dict`` with every tensor copied to the host
+    (what a checkpoint stores; the live one aliases the device state)."""
+    def host(v):
+        if isinstance(v, torch.Tensor):
+            return v.detach().to("cpu", copy=True)
+        if isinstance(v, dict):
+            return {k: host(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return [host(x) for x in v]
+        return v
+
+    return host(opt.state_dict())
+
+
+class WindowedWorker(Worker):
+    """Base of the parameter-server workers (reference: workers.py ·
+    WindowedWorker): ``communication_window`` local steps a round, then
+    :meth:`on_round` with the parameter server.
+
+    The center's trees are flat dicts keyed by the flax path
+    (:func:`distkeras_torch.bridge.flax_key`); :meth:`local` is this
+    worker's parameters in that form (live views of the module's), and
+    ``last_pulled`` the last center it pulled (a copy of its own)."""
+
+    def __init__(self, *args, communication_window: int = 5, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.communication_window = communication_window
+        self.last_pulled = None
+        self.worker_clock = 0
+
+    def local(self) -> rules.Tree:
+        from distkeras_torch.bridge import flax_key
+
+        return {flax_key(n): p.detach()
+                for n, p in self.module.named_parameters()}
+
+    def _pull(self, ps) -> rules.Tree:
+        """A copy of the center on this worker's device (every server, the
+        remote proxy included, takes ``device=``)."""
+        return ps.pull(device=self.device)
+
+    def _load(self, pulled: rules.Tree):
+        """Copy a pulled center into the module (in place: the optimizer
+        keeps its state) and remember it as ``last_pulled``."""
+        rules.tree_copy_(self.local(), pulled)
+        self.last_pulled = pulled
+
+    def on_start(self, index: int, ps):
+        """The first pull (reference: NetworkWorker's connect + pull)."""
+        self._load(self._pull(ps))
+
+    def on_round(self, index: int, ps):
+        raise NotImplementedError
+
+    def train(self, index: int, partition, ps) -> Tuple[rules.Tree, History]:
+        """Train on ``partition`` against ``ps``; returns :meth:`local` and
+        the per-step history. A window of W batches is one window step,
+        read back once; a shorter tail window (a partition whose batch
+        count W does not divide) runs its steps the same way, then
+        exchanges like any other."""
+        self.prepare()
+        self.index = index
+        self.on_start(index, ps)
+        xb, yb = self.batches(partition)
+        xs, ys, staged = self._stage(xb, yb)
+        n, W = len(xb), self.communication_window
+        history: History = []
+        for _epoch in range(self.num_epoch):
+            for start in range(0, n, W):
+                xw, yw = xs[start:start + W], ys[start:start + W]
+                if not staged:
+                    xw, yw = self._put(xw), self._put(yw)
+                rows = _rows(self.window_step(xw, yw))
+                history.extend(rows)
+                self._log_steps(rows)
+                self.on_round(index, ps)
+        return self.local(), history
+
+
+class DOWNPOURWorker(WindowedWorker):
+    """Push the window's weight delta, then pull the fresh center
+    (reference: workers.py · DOWNPOURWorker). The optimizer state
+    persists across pulls."""
+
+    def on_round(self, index: int, ps):
+        delta = rules.downpour_delta(self.local(), self.last_pulled)
+        ps.commit(delta, worker=index, worker_clock=self.worker_clock)
+        self.worker_clock += 1
+        self._load(self._pull(ps))
+
+
+class ADAGWorker(DOWNPOURWorker):
+    """DOWNPOUR's client; the ADAG server normalizes (reference: workers.py
+    · ADAGWorker)."""
+
+
+class DynSGDWorker(WindowedWorker):
+    """A delta push tagged with the server clock of the worker's last pull
+    (reference: workers.py · DynSGDWorker)."""
+
+    def _pull_with_clock(self, ps):
+        params, clock = ps.pull_with_clock(device=self.device)
+        return params, int(clock)
+
+    def on_start(self, index: int, ps):
+        pulled, self.worker_clock = self._pull_with_clock(ps)
+        self._load(pulled)
+
+    def on_round(self, index: int, ps):
+        delta = rules.downpour_delta(self.local(), self.last_pulled)
+        ps.commit(delta, worker=index, worker_clock=self.worker_clock)
+        pulled, self.worker_clock = self._pull_with_clock(ps)
+        self._load(pulled)
+
+
+class AEASGDWorker(WindowedWorker):
+    """Asynchronous elastic averaging: pull the center, move toward it by
+    the elastic force and push the same force (reference: workers.py ·
+    AEASGDWorker). ``alpha = elastic_lr * rho``."""
+
+    def __init__(self, *args, rho: float = 5.0, elastic_lr: float = 0.01,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.rho = rho
+        self.alpha = elastic_lr * rho
+
+    def on_round(self, index: int, ps):
+        center = self._pull(ps)
+        local = self.local()
+        diff = rules.elastic_difference(self.alpha, local, center)
+        rules.tree_sub_(local, diff)
+        ps.commit(diff, worker=index, worker_clock=self.worker_clock)
+        self.worker_clock += 1
+
+
+class EAMSGDWorker(AEASGDWorker):
+    """AEASGD with Nesterov momentum on the local steps (reference:
+    workers.py · EAMSGDWorker): the momentum lives in the worker's
+    optimizer; the exchange is AEASGD's."""
+
+
+class EASGDWorker(WindowedWorker):
+    """Synchronous EASGD round: contribute the local weights, wait for the
+    round's barrier, then move toward the round's center by the elastic
+    force (reference: workers.py · EASGDWorker). The contributed tensors
+    are the live parameters: the worker blocks until the round has been
+    issued, so none of its later steps can reach them first."""
+
+    def __init__(self, *args, rho: float = 5.0, elastic_lr: float = 0.01,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.rho = rho
+        self.alpha = elastic_lr * rho
+
+    def on_round(self, index: int, ps):
+        local = self.local()
+        center = ps.commit_and_wait(local, worker=index, device=self.device)
+        rules.tree_sub_(local, rules.elastic_difference(self.alpha, local,
+                                                        center))

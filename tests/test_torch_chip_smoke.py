@@ -1,8 +1,10 @@
 """The parts of ``chip_smoke.py`` that run without a card: reading the
 kernels' build facts from nvcc's ``-Xptxas -v`` report and the tensor
 instructions from ``cuobjdump -sass``, the analytic FLOP count its
-CIFAR phase divides by (``distkeras_torch.bench.cifar_step_flops``), and
-that phase's witness on the CPU, run here at narrow widths."""
+CIFAR phase divides by (``distkeras_torch.bench.cifar_step_flops``),
+that phase's witness on the CPU, run here at narrow widths, and phase
+9's functions (the parameter-server family) at narrow widths, with the
+lock-step witness shown to fail on a fault in a commit rule."""
 
 import os
 import sys
@@ -198,3 +200,101 @@ def test_cpu_witness_catches_a_bf16_convolution_fault(monkeypatch, fault):
     want = "logits" if fault == "forward" else "(loss|update)"
     with pytest.raises(AssertionError, match=f"bfloat16 .*: {want} gap"):
         _witness(monkeypatch)
+
+
+def _ps_dk():
+    from distkeras_torch import bench, evaluators, predictors, trainers
+    from distkeras_torch import transformers as stages
+    from distkeras_torch.data.dataset import PartitionedDataset
+    from distkeras_torch.models import get_model
+    from distkeras_torch.parameter_servers import DeltaParameterServer
+
+    def narrow(name, **kw):
+        if name == "cifar_cnn":
+            kw.setdefault("widths", (4, 8, 8))
+        return get_model(name, **kw)
+
+    return {"get_model": narrow, "bench": bench,
+            "PartitionedDataset": PartitionedDataset,
+            "ModelPredictor": predictors.ModelPredictor,
+            "AccuracyEvaluator": evaluators.AccuracyEvaluator,
+            "MinMaxTransformer": stages.MinMaxTransformer,
+            "ReshapeTransformer": stages.ReshapeTransformer,
+            "OneHotTransformer": stages.OneHotTransformer,
+            "LabelIndexTransformer": stages.LabelIndexTransformer,
+            "DeltaParameterServer": DeltaParameterServer,
+            **{n: getattr(trainers, n) for n in chip_smoke.PS_NAMES}}
+
+
+@pytest.mark.parametrize("fault", [None, "sign", "dropped"])
+def test_ps_witness_catches_a_commit_fault(monkeypatch, fault):
+    """Phase 9c on the CPU standing in for the card (f64 runs, CIFAR CNN
+    at widths 4/8/8, 8 rows): sound, every gap is 0 and phase 9d's round
+    trip counts its commit; with the lock-step commit (``rules.
+    allreduce_sum_delta``) faulty on the card's run alone — its sign
+    flipped, or one worker's delta dropped — the witness fails."""
+    import numpy as np
+    import torch
+
+    from distkeras_torch.ops import rules
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "PS_WITNESS",
+                        dict(chip_smoke.PS_WITNESS, rows=8, batch_size=4))
+    monkeypatch.setattr(chip_smoke, "PS_WITNESS_DTYPES", ("float64",))
+    dk = _ps_dk()
+    model = dk["get_model"]("cifar_cnn", device="cpu", seed=0)
+    if fault is None:
+        out = chip_smoke.ps_witness(torch, np, dk, model)
+        for name in ("DOWNPOUR", "EASGD"):
+            assert out[name]["float64"] == {"logits": 0.0, "loss": 0.0,
+                                            "center": 0.0, "update": 0.0}
+        rt = chip_smoke.ps_roundtrip(torch, dk, model)
+        assert rt["commits"] > 0 and rt["bytes"] == 20 * rt["params"]
+        return
+    reduce = rules.allreduce_sum_delta
+    calls = []
+
+    def faulty(deltas, device):
+        calls.append(1)
+        if len(calls) <= chip_smoke.PS_WITNESS["num_epoch"]:
+            return reduce(deltas, device)  # the CPU's reference run
+        if fault == "dropped":
+            return reduce(deltas[:1], device)
+        return rules.tree_scale(reduce(deltas, device), -1.0)
+
+    monkeypatch.setattr(rules, "allreduce_sum_delta", faulty)
+    with pytest.raises(AssertionError,
+                       match=r"DOWNPOUR\(spmd=True\) float64 .* gap"):
+        chip_smoke.ps_witness(torch, np, dk, model)
+
+
+def test_ps_phases_at_narrow_widths(monkeypatch):
+    """Phases 9a and 9b end to end on the CPU at narrow widths and few
+    rows (the accuracy floors and epochs lowered to what so few rows
+    reach): every history finite, every window committed, the center's
+    loss falling."""
+    import numpy as np
+    import torch
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "PS_CIFAR_MIN_ACCURACY",
+                        {"DOWNPOUR": 0.0, "AEASGD": 0.0})
+    monkeypatch.setattr(chip_smoke, "PS_CIFAR_TRAIN",
+                        dict(chip_smoke.PS_CIFAR_TRAIN, batch_size=16,
+                             num_epoch=1))
+    monkeypatch.setattr(chip_smoke, "PS_EVAL_ROWS", 256)
+    monkeypatch.setattr(chip_smoke, "MNIST_MIN_ACCURACY", 0.0)
+    monkeypatch.setattr(chip_smoke, "QUICKSTART",
+                        dict(chip_smoke.QUICKSTART, num_epoch=1))
+    dk = _ps_dk()
+    out = chip_smoke.ps_cifar_phase(torch, np, dk, rows=512,
+                                    widths=(4, 8, 8))
+    for name, r in out["trainers"].items():
+        window = chip_smoke.PS_CIFAR[name]["communication_window"]
+        assert r["steps"] == 8 * 4, name  # 64 rows a worker, batch 16
+        assert r["commits"] == 8 * -(-4 // window), name
+        assert r["center_loss_after"] < r["center_loss_before"]
+        assert r["profiled_epoch"]["idle_share"] is None
+    quick = chip_smoke.quickstart_phase(torch, np, dk, rows=1024)
+    assert quick["commits"] == 4 * 1 and quick["steps"] == 4 * 2

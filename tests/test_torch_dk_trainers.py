@@ -17,7 +17,8 @@ handed to both sides as ``params=``).
   ``num_workers=2`` on the CPU mesh within 2e-4, as
   ``tests/test_trainers.py`` holds the reference itself, and end with
   equal weights on both ranks.
-- ``profile_dir=`` writes a Chrome trace; ``metrics_path=`` a JSONL.
+- ``profile_dir=`` writes a Chrome trace; ``metrics_path=`` a JSONL;
+  ``checkpointer=`` saves each epoch and a second run resumes past them.
 
 The JAX side is imported inside the tests: the spawned ranks import this
 module and must load only torch and the port.
@@ -424,10 +425,24 @@ def test_profile_dir_and_metrics_path(tmp_path):
 
 
 @pytest.mark.parametrize("what", ["checkpointer", "sharded"])
-def test_dist_keras_trainers_raise_for_a9(what):
+def test_dist_keras_trainers_raise_for_a9(what, tmp_path):
     if what == "checkpointer":
-        with pytest.raises(NotImplementedError, match="A9"):
-            tt.SingleTrainer(_port_mlp(), checkpointer=object())
+        # ported now: SingleTrainer saves its weights, optimizer state and
+        # epoch after each epoch, and a second run resumes past them
+        from distkeras_torch.checkpoint import Checkpointer
+
+        ds = PartitionedDataset.from_arrays(_columns(64))
+        ck = Checkpointer(str(tmp_path / "ck"), every_steps=1)
+        trainer = tt.SingleTrainer(_port_mlp(), checkpointer=ck, **TRAIN_KW)
+        trainer.train(ds)
+        assert ck.all_steps() == [1, 2] and len(trainer.history) == 8
+        step, state = ck.restore()
+        assert state["extra"] == {"epoch": 2}
+        _tree_close(trainer.params, state["params"], 0)
+        again = tt.SingleTrainer(_port_mlp(), checkpointer=ck, **TRAIN_KW)
+        again.train(ds)
+        assert again.history == []
+        _tree_close(trainer.params, again.params, 0)
         return
 
     class Shards:  # duck-typed like the reference's ShardedDataset

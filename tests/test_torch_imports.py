@@ -74,7 +74,12 @@ def test_port_modules_import_no_jax():
                  "distkeras_torch.evaluators",
                  "distkeras_torch.utils.initializers",
                  "distkeras_torch.utils.transfer",
-                 "distkeras_torch.utils.profiling"):
+                 "distkeras_torch.utils.profiling",
+                 "distkeras_torch.utils.serde",
+                 "distkeras_torch.ops.rules",
+                 "distkeras_torch.parameter_servers",
+                 "distkeras_torch.checkpoint",
+                 "distkeras_torch.networking"):
         assert must in res["modules"]
 
 
