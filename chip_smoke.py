@@ -20,9 +20,12 @@ Phases (any failure exits non-zero):
    ``HMMA`` or with a spill fails.
 2. **Kernels.** Each kernel against its plain PyTorch version on the
    card at the serving path's shapes — paged attention (8 rows, T in
-   {1, 64}, H=8, Hk=2, hd=256, 16-token pages, 128 pages per row, bf16
-   and int8 pools, fragmented tables, a zero-length row) and splash
-   chunked prefill (8 rows, T=64, L=2048, starts from 0 to the deepest)
+   {1, 64, 5, 1024}: decode, the chunk, a verify window at spec_k=4, a
+   monolithic suffix; H=8, Hk=2, hd=256, 16-token pages, 128 pages per
+   row, bf16 and int8 pools, fragmented tables, a zero-length row) and
+   splash chunked prefill (8 rows, L=2048: T=64 and T=5 with starts from
+   0 to the deepest, T=1024 from position 0, and hd 128 with 4 heads at
+   T=64 and T=2, the draft model's feeds)
    — max abs error <= 1e-2 in bf16 and <= 1e-5 in f32 (the plain version
    computed in f32 from the same inputs). Kernel, plain and library
    (``F.scaled_dot_product_attention`` on the gathered, dequantized view
@@ -47,8 +50,20 @@ Phases (any failure exits non-zero):
    engine is printed (informational at bf16), with each differing
    stream's first flip and the top-2 logit gap there.
 4. **Exact.** A small f32 model (d256, 4 layers, GQA, int8 cache) with
-   the kernels on: greedy engine streams on both layouts must equal the
-   port's own ``generate()``.
+   the kernels on, every engine mode on both layouts — chunked,
+   monolithic (``prefill_chunk=None``), pipelined, multi-step k=4 (sync
+   and pipelined), n-gram and draft-model speculation: greedy streams
+   equal the port's own ``generate()``; pipelined and multi-step streams
+   equal the sync chunked engine's bit for bit, sampled rows included;
+   speculative streams (sampled included) equal across layouts. Then the
+   host tier (a churn of three prefixes through a pool holding one:
+   demotions, restores, streams equal an all-resident engine's), a live
+   weight swap (streams after it equal an engine built on the new
+   weights), KV export -> import into the device pool and into a host
+   tier (the importing engine's stream equals one engine's), and
+   ``beam_search(beam_size=4)`` on the card equal to the same call on a
+   CPU copy. A mismatch fails with each differing greedy stream's first
+   flip and top-2 logit gap.
 5. **Training kernels.** The causal flash-attention forward, dq and
    dk/dv kernels against their plain versions (dense, f32, from the same
    bf16 inputs; the backward's plain version takes the kernel's own
@@ -145,9 +160,30 @@ Phases (any failure exits non-zero):
    on the card, timed beside its bound (five f32 passes over them at
    3.35 TB/s). No kernel is added: the commits and pulls are
    ``torch._foreach`` adds and copies, as the reference's are XLA ones.
+10. **The engine's modes at full width.** Phase 3's flagship and
+   16-request mix, 8 slots, through (a) monolithic prefill, (b) the
+   pipelined loop, (c) multi-step k=4 and (d) n-gram speculation
+   (spec_k=4), each on both layouts; (e) a draft model (vocab 8192,
+   d_model 512, 4 heads of 128, 2 KV heads, 2 layers, rope, int8 cache,
+   bf16, seed 1; spec_k=4) on the paged layout; (f) the host tier: four
+   seeded 512-token prefixes, two round-robin passes of 16 requests
+   (64-256-token tails, 32 new tokens), 2 slots, pools sized by
+   benchmarks/serve_bench.py's rule — the second pass must restore from
+   the host; (g) ``beam_search`` of two 256-token prompts, beam 4, 32 new
+   tokens; (h) one ``update_weights`` mid-drain with the pipeline on.
+   Every request finishes; the launch counts (zeroed before each run)
+   must show the paged kernel in every layer of every forward on the
+   paged layout (ticks, window steps, verify windows, monolithic
+   prefills) and splash in every layer of every forward of more than one
+   token on the slot layout, every launch a bf16 split kernel. Prints
+   per mode tok/s, ms per tick, TTFT p50/p99, tokens per dispatch,
+   acceptance, restores, overruns, device wait, peak memory and the
+   share of greedy tokens equal to phase 3's chunked engine
+   (informational at bf16).
 
 Output: JSON lines per phase, the ``nvidia-smi`` line, one
-``{"kernels": [...]}`` line (the three forward rows and the causal and
+``{"kernels": [...]}`` line (the serving rows carry every timed shape
+in ``shapes``; the three forward rows and the causal and
 pair dq and dk/dv rows also carry their ``build`` facts; the dq and
 dk/dv rows carry ``bwd_ms``, the two as the backward runs them with one
 prep pass, ``bwd_library_ms``, SDPA's backward, and ``sdpa_backend``),
@@ -172,8 +208,16 @@ SPIN_CYCLES = 2_000_000
 
 DEV = "cuda"
 # the serving path's attention shapes (phase 2)
-PAGED = dict(S=8, H=8, Hk=2, hd=256, bs=16, MB=128, T=(1, 64))
+# (T: decode, the prefill chunk, a verify window at spec_k=4, a
+# monolithic suffix)
+PAGED = dict(S=8, H=8, Hk=2, hd=256, bs=16, MB=128, T=(1, 64, 5, 1024))
 SPLASH = dict(S=8, T=64, H=8, Hk=2, hd=256, L=2048)
+# the splash kernel's other main-path shapes: (T, hd, H, starts) — a
+# verify window at depth, a whole 1024-token prompt from position 0
+# (monolithic prefill, beam search's prefill), and the draft model's
+# catch-up feeds at hd 128 (4 heads over 2 KV heads)
+SPLASH_MORE = ((5, 256, 8, "depth"), (1024, 256, 8, "zero"),
+               (64, 128, 4, "depth"), (2, 128, 4, "depth"))
 # the flagship at full width (bench.py:130, benchmarks/decode_bench.py:31)
 # with the serving-realistic options (distkeras_torch.bench.FLAGSHIP), its
 # request mix (distkeras_torch.bench.serving_requests), and the small
@@ -186,6 +230,22 @@ PROMPT_LENS = (96, 1024, 300, 640, 128, 800, 512, 200, 1000, 296, 700, 150,
                420, 960, 560, 333)
 EXACT = dict(vocab_size=512, d_model=256, num_heads=4, num_layers=4,
              max_len=256, pos_emb="rope", num_kv_heads=2, cache_dtype="int8")
+# phase 4's draft model (hd 64) and host-tier churn (three 64-token
+# prefixes through a device pool sized below them)
+EXACT_DRAFT = dict(vocab_size=512, d_model=128, num_heads=2, num_layers=1,
+                   max_len=256, pos_emb="rope", cache_dtype="int8")
+EXACT_TIER = dict(prefixes=3, prefix_len=64, tail=8, reps=2, max_new=8)
+# phase 10: the draft model of mode (e) (4 heads of 128, 2 KV heads), the
+# host tier's churn (f) and beam search (g)
+DRAFT = dict(vocab_size=8192, d_model=512, num_heads=4, num_layers=2,
+             max_len=2048, pos_emb="rope", num_kv_heads=2,
+             cache_dtype="int8")
+# (2 slots: at 8 the four prefixes stay referenced by live rows and are
+# never demoted before their revisit; serve_bench's tier mode likewise
+# keeps fewer slots than prefix groups)
+FLAG_TIER = dict(prefixes=4, prefix_len=512, tails=(64, 256), passes=2,
+                 requests=16, max_new=32, slots=2)
+FLAG_BEAM = dict(rows=2, prompt=256, beam=4, new=32)
 # the training kernels' main-path shape and a ragged one (phase 5)
 CAUSAL = dict(B=8, H=8, hd=256, T=(2048, 1000))
 CAUSAL_TOL = dict(out=1e-2, lse=1e-3, grad=2e-2)
@@ -541,43 +601,50 @@ def _edge_check(kernel, kind, T, H, Hk, hd, out, ref):
 
 
 def splash_cases(torch, F, sp):
-    S, T, H, Hk, hd, L = (SPLASH[k] for k in ("S", "T", "H", "Hk", "hd",
-                                               "L"))
+    S, Hk, L = SPLASH["S"], SPLASH["Hk"], SPLASH["L"]
     gen = torch.Generator(device=DEV).manual_seed(2)
-    starts = torch.tensor(_depths(S, L - T), dtype=torch.int32, device=DEV)
+    shapes = ((SPLASH["T"], SPLASH["hd"], SPLASH["H"], "depth"),
+              ) + SPLASH_MORE
     cases = []
-    for kind in ("bf16", "f32"):
-        dt = torch.float32 if kind == "f32" else torch.bfloat16
-        q = torch.randn((S, T, H, hd), generator=gen, device=DEV).to(dt)
-        k = torch.randn((S, L, Hk, hd), generator=gen, device=DEV).to(dt)
-        v = torch.randn((S, L, Hk, hd), generator=gen, device=DEV).to(dt)
-        out = sp.splash_prefill_attention(q, k, v, starts)
-        sync(torch)
-        ref = sp.splash_prefill_reference(q.float(), k.float(), v.float(),
-                                          starts)
-        if not torch.isfinite(out.float()).all():
-            raise AssertionError(f"splash {kind}: non-finite output")
-        err = (out.float() - ref).abs().max().item()
-        tol = 1e-5 if dt == torch.float32 else 1e-2
-        if err > tol:
-            raise AssertionError(f"splash {kind}: max abs err {err} > {tol}")
-        case = {"T": T, "L": L, "dtype": kind, "max_abs_err": err,
-                "tol": tol}
-        if kind == "bf16":
-            case["ms"] = time_ms(torch, lambda: sp.splash_prefill_attention(
-                q, k, v, starts))
-            case["plain_ms"] = time_ms(
-                torch, lambda: sp.splash_prefill_reference(q, k, v, starts))
-            qpos = starts.long()[:, None] + torch.arange(T, device=DEV)
-            case["library_ms"] = sdpa_ms(torch, F, q, k, v, qpos)
-            tiles = sum((int(s) + T - 1) // sp.KV_TILE + 1
-                        for s in starts.tolist())
-            nbytes = (2 * q.numel() * q.element_size()
-                      + 2 * tiles * sp.KV_TILE * Hk * hd * k.element_size()
-                      + starts.numel() * 4)
-            case["bound_ms"], case["bound_by"] = bound(
-                nbytes, _work(torch, starts, T, H, hd), "bfloat16")
-        cases.append(case)
+    for T, hd, H, start_kind in shapes:
+        starts = (torch.zeros(S, dtype=torch.int32, device=DEV)
+                  if start_kind == "zero" else
+                  torch.tensor(_depths(S, L - T), dtype=torch.int32,
+                               device=DEV))
+        for kind in ("bf16", "f32"):
+            dt = torch.float32 if kind == "f32" else torch.bfloat16
+            q = torch.randn((S, T, H, hd), generator=gen, device=DEV).to(dt)
+            k = torch.randn((S, L, Hk, hd), generator=gen, device=DEV).to(dt)
+            v = torch.randn((S, L, Hk, hd), generator=gen, device=DEV).to(dt)
+            out = sp.splash_prefill_attention(q, k, v, starts)
+            sync(torch)
+            ref = sp.splash_prefill_reference(q.float(), k.float(),
+                                              v.float(), starts)
+            name = f"splash T={T} hd={hd} starts={start_kind} {kind}"
+            if not torch.isfinite(out.float()).all():
+                raise AssertionError(f"{name}: non-finite output")
+            err = (out.float() - ref).abs().max().item()
+            tol = 1e-5 if dt == torch.float32 else 1e-2
+            if err > tol:
+                raise AssertionError(f"{name}: max abs err {err} > {tol}")
+            case = {"T": T, "L": L, "hd": hd, "H": H, "starts": start_kind,
+                    "dtype": kind, "max_abs_err": err, "tol": tol}
+            if kind == "bf16":
+                case["ms"] = time_ms(torch, lambda: sp.splash_prefill_attention(
+                    q, k, v, starts))
+                case["plain_ms"] = time_ms(
+                    torch, lambda: sp.splash_prefill_reference(q, k, v,
+                                                               starts))
+                qpos = starts.long()[:, None] + torch.arange(T, device=DEV)
+                case["library_ms"] = sdpa_ms(torch, F, q, k, v, qpos)
+                tiles = sum((int(s) + T - 1) // sp.KV_TILE + 1
+                            for s in starts.tolist())
+                nbytes = (2 * q.numel() * q.element_size()
+                          + 2 * tiles * sp.KV_TILE * Hk * hd
+                          * k.element_size() + starts.numel() * 4)
+                case["bound_ms"], case["bound_by"] = bound(
+                    nbytes, _work(torch, starts, T, H, hd), "bfloat16")
+            cases.append(case)
     return cases
 
 
@@ -1589,12 +1656,16 @@ def ps_roundtrip(torch, dk, model):
 
 
 def serve(torch, np, dk, model, requests, **kw):
-    """Drive one engine over ``requests``; returns its summary, the
-    streams and the number of ticks that carried a prompt chunk."""
+    """Drive one engine over ``requests`` (8 slots, 64-token chunks
+    unless ``kw`` says otherwise); returns its summary, the streams and
+    the engine."""
+    kw.setdefault("slots", 8)
+    kw.setdefault("prefill_chunk", 64)
     eng = dk["ServingEngine"](
-        model, slots=8, prefill_chunk=64, device=DEV,
-        registry=dk["telemetry"].MetricRegistry(),
+        model, device=DEV, registry=dk["telemetry"].MetricRegistry(),
         tracer=dk["telemetry"].Tracer(), **kw)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     sync(torch)
     t0 = time.perf_counter()
     reqs = [eng.submit(p, **c) for p, c in requests]
@@ -1621,10 +1692,11 @@ def serve(torch, np, dk, model, requests, **kw):
         "ttft_ms_p50": st["ttft_ms"].get("p50"),
         "ttft_ms_p99": st["ttft_ms"].get("p99"),
         "prefix_hit_tokens": st.get("prefix_hit_tokens"),
+        "device_wait_ms": st["device_wait_ms"],
         "peak_device_mb": (torch.cuda.max_memory_allocated() / 2**20
                            if DEV == "cuda" else None),
     }
-    return summary, streams
+    return summary, streams, eng
 
 
 def greedy_match(requests, a, b):
@@ -1668,14 +1740,15 @@ def serving_phase(torch, np, dk, pa, sp):
                                       PROMPT_LENS)
     # warm the allocator, cuBLAS and both kernels outside the counted runs
     for paged in (True, False):
-        serve(torch, np, dk, model, requests[:2], paged=paged, block_size=16)
+        serve(torch, np, dk, model, requests[:2], paged=paged,
+              block_size=16)
     out = {}
     pa.paged_attention.launches = 0
     sp.splash_prefill_attention.launches = 0
     pa.paged_attention.routes.clear()
     sp.splash_prefill_attention.routes.clear()
-    paged_sum, paged_streams = serve(torch, np, dk, model, requests,
-                                     paged=True, block_size=16)
+    paged_sum, paged_streams, _ = serve(torch, np, dk, model, requests,
+                                        paged=True, block_size=16)
     paged_sum["launches"] = {"paged_attention": pa.paged_attention.launches,
                              "splash_prefill": sp.splash_prefill_attention
                              .launches}
@@ -1688,8 +1761,8 @@ def serving_phase(torch, np, dk, pa, sp):
     sp.splash_prefill_attention.launches = 0
     pa.paged_attention.routes.clear()
     sp.splash_prefill_attention.routes.clear()
-    slot_sum, slot_streams = serve(torch, np, dk, model, requests,
-                                   paged=False)
+    slot_sum, slot_streams, _ = serve(torch, np, dk, model, requests,
+                                      paged=False)
     slot_sum["launches"] = {"paged_attention": pa.paged_attention.launches,
                             "splash_prefill": sp.splash_prefill_attention
                             .launches}
@@ -1707,11 +1780,11 @@ def serving_phase(torch, np, dk, pa, sp):
                                  f"all the bf16 split kernels")
     launches = {"paged_attention": paged_sum["launches"]["paged_attention"],
                 "splash_prefill": slot_sum["launches"]["splash_prefill"]}
-    _, paged_ref = serve(torch, np, dk, model, requests, paged=True,
-                         block_size=16, paged_kernel="gather",
-                         prefill_kernel="gather")
-    _, slot_ref = serve(torch, np, dk, model, requests, paged=False,
-                        prefill_kernel="gather")
+    _, paged_ref, _ = serve(torch, np, dk, model, requests, paged=True,
+                            block_size=16, paged_kernel="gather",
+                            prefill_kernel="gather")
+    _, slot_ref, _ = serve(torch, np, dk, model, requests, paged=False,
+                           prefill_kernel="gather")
     paged_sum["greedy_match_vs_gather"] = greedy_match(
         requests, paged_streams, paged_ref)
     slot_sum["greedy_match_vs_gather"] = greedy_match(
@@ -1723,17 +1796,17 @@ def serving_phase(torch, np, dk, pa, sp):
     paged_sum["routes"] = routes["paged_attention"]
     slot_sum["routes"] = routes["splash_prefill"]
     out["paged"], out["slot"] = paged_sum, slot_sum
-    return out, launches, routes
+    return out, launches, routes, {"paged": paged_streams,
+                                   "slot": slot_streams}
 
 
 # -- phase 4: exact streams on a small f32 model ----------------------------
 
 
-def exact_phase(torch, np, dk, pa, sp):
-    model = dk["get_model"]("transformer_lm", dtype=torch.float32,
-                            device=DEV, seed=3, **EXACT)
-    V = model.vocab_size
-    rng = np.random.default_rng(5)
+def exact_requests(np, V, seed=5):
+    """Phase 4's six requests: a 48-token shared prefix, 20-90-token
+    tails, every third request sampled (temperature 0.9, top-k 40)."""
+    rng = np.random.default_rng(seed)
     system = rng.integers(0, V, size=48)
     requests = []
     for i, n in enumerate((20, 70, 35, 90, 50, 64)):
@@ -1742,35 +1815,500 @@ def exact_phase(torch, np, dk, pa, sp):
                else dict(seed=i))
         requests.append((prompt.astype(np.int32),
                          dict(cfg, max_new_tokens=24 + 4 * i)))
-    res = {}
+    return requests
+
+
+def _launches(pa, sp):
+    return (pa.paged_attention.launches, sp.splash_prefill_attention.launches)
+
+
+def _differ(torch, np, model, requests, got, want, what):
+    """Fail phase 4 on a stream mismatch, naming each differing greedy
+    stream's first flip and its top-2 logit gap (a near tie shows as a
+    gap at f32's rounding of the logits) and the differing sampled
+    requests."""
+    if got == want:
+        return
+    flips = greedy_flips(torch, np, model, requests, got, want)
+    sampled = [i for i, ((_, c), x, y) in enumerate(zip(requests, got, want))
+               if c.get("temperature", 0.0) != 0.0 and x != y]
+    raise AssertionError(f"exact phase: {what}: streams differ (greedy "
+                         f"flips {flips}, sampled requests {sampled})")
+
+
+EXACT_MODES = (("chunked", {}), ("monolithic", dict(prefill_chunk=None)),
+               ("pipelined", dict(pipeline=True)),
+               ("multi_step", dict(multi_step_k=4)),
+               ("multi_step_pipelined", dict(multi_step_k=4, pipeline=True)),
+               ("ngram", dict(draft="ngram", spec_k=4)),
+               ("draft_model", dict(spec_k=4)))
+# modes whose streams must equal the sync chunked engine's bit for bit,
+# sampled rows included (the same computation, scheduled differently)
+EXACT_SAME_AS_CHUNKED = ("pipelined", "multi_step", "multi_step_pipelined")
+
+
+def exact_modes(torch, np, dk, pa, sp, model, requests, refs):
+    """Every engine mode on both layouts with the kernels on: greedy
+    streams equal ``generate()``; pipelined and multi-step streams equal
+    the sync k=1 engine's bit for bit; speculative streams (sampled
+    included) equal across layouts."""
+    draft = dk["get_model"]("transformer_lm", dtype=torch.float32,
+                            device=DEV, seed=4, **EXACT_DRAFT)
+    res, streams_by = {}, {}
     for paged in (True, False):
-        before = (pa.paged_attention.launches,
-                  sp.splash_prefill_attention.launches)
-        _, streams = serve(torch, np, dk, model, requests, paged=paged,
-                           block_size=16)
-        used = (pa.paged_attention.launches - before[0] if paged
-                else sp.splash_prefill_attention.launches - before[1])
-        if used == 0:
-            raise AssertionError("exact phase ran without its kernel")
-        greedy_ok, sampled_same = True, 0
-        n_sampled = 0
-        for (p, c), s in zip(requests, streams):
-            ref = dk["generate"](model, p[None], c["max_new_tokens"],
-                                 temperature=c.get("temperature", 0.0),
-                                 seed=c["seed"], top_k=c.get("top_k"))
-            ref = ref[0, len(p):].tolist()
-            if c.get("temperature", 0.0) == 0.0:
-                greedy_ok &= s == ref
-            else:
-                n_sampled += 1
-                sampled_same += int(s == ref)
-        if not greedy_ok:
-            raise AssertionError(f"exact phase (paged={paged}): greedy "
-                                 f"streams differ from generate()")
-        res["paged" if paged else "slot"] = {
-            "greedy_equal": True, "kernel_launches": used,
-            "sampled_streams_equal": f"{sampled_same}/{n_sampled}"}
+        layout = "paged" if paged else "slot"
+        res[layout] = {}
+        for name, kw in EXACT_MODES:
+            if name == "draft_model":
+                kw = dict(kw, draft=draft)
+            before = _launches(pa, sp)
+            _, streams, eng = serve(torch, np, dk, model, requests,
+                                    paged=paged, block_size=16, **kw)
+            used = _launches(pa, sp)[0 if paged else 1] - before[
+                0 if paged else 1]
+            if used == 0:
+                raise AssertionError(f"exact phase ({layout} {name}) ran "
+                                     f"without its kernel")
+            greedy = [s if c.get("temperature", 0.0) == 0.0 else None
+                      for (_, c), s in zip(requests, streams)]
+            want = [r if c.get("temperature", 0.0) == 0.0 else None
+                    for (_, c), r in zip(requests, refs)]
+            _differ(torch, np, model, requests, greedy, want,
+                    f"{layout} {name} greedy vs generate()")
+            if name in EXACT_SAME_AS_CHUNKED:
+                _differ(torch, np, model, requests, streams,
+                        streams_by[(layout, "chunked")],
+                        f"{layout} {name} vs the sync chunked engine")
+            st = eng.stats()
+            res[layout][name] = {
+                "greedy_equal": True, "kernel_launches": used,
+                "sampled_equal_generate": sum(
+                    int(s == r) for (_, c), s, r in zip(requests, streams,
+                                                        refs)
+                    if c.get("temperature", 0.0) != 0.0),
+                "acceptance_rate": st.get("acceptance_rate"),
+                "tokens_per_dispatch_p50": st["tokens_per_dispatch"]["p50"],
+            }
+            streams_by[(layout, name)] = streams
+    for name in ("ngram", "draft_model"):
+        _differ(torch, np, model, requests, streams_by[("slot", name)],
+                streams_by[("paged", name)],
+                f"{name} speculative streams across layouts")
     return res
+
+
+def exact_tier(torch, np, dk, pa, model):
+    """The host tier on the paged layout: a churn of three 64-token
+    prefixes through a device pool sized below them demotes and restores
+    blocks; streams (greedy and sampled) equal an all-resident engine's,
+    greedy ones ``generate()``."""
+    T = EXACT_TIER
+    rng = np.random.default_rng(9)
+    prefixes = [rng.integers(0, model.vocab_size, size=T["prefix_len"])
+                for _ in range(T["prefixes"])]
+    reqs = []
+    for r in range(T["reps"]):
+        for i, pre in enumerate(prefixes):
+            tail = rng.integers(0, model.vocab_size, size=T["tail"])
+            cfg = (dict(temperature=0.8, seed=r * 10 + i) if i % 2
+                   else dict(seed=0))
+            reqs.append((np.concatenate([pre, tail]).astype(np.int32),
+                         dict(cfg, max_new_tokens=T["max_new"])))
+
+    def run(**kw):
+        eng = dk["ServingEngine"](
+            model, slots=2, paged=True, block_size=16, prefill_chunk=16,
+            device=DEV, registry=dk["telemetry"].MetricRegistry(),
+            tracer=dk["telemetry"].Tracer(), **kw)
+        out = []
+        for p, c in reqs:  # one at a time: the churn order is the trace
+            r = eng.submit(p, **c)
+            eng.drain(timeout=300)
+            out.append(r.stream.tokens(timeout=10))
+        return out, eng
+
+    before = pa.paged_attention.launches
+    # one request's worst case plus ONE prefix of cache: the third
+    # prefix demotes the first, whose revisit restores it
+    pb = T["prefix_len"] // 16
+    worst = -(-(T["prefix_len"] + T["tail"] + T["max_new"]) // 16)
+    tiered, eng = run(num_blocks=1 + worst + pb,
+                      host_blocks=T["prefixes"] * pb + pb)
+    resident, _ = run(num_blocks=256)
+    st = eng.stats()
+    if st["block_demotions"] == 0 or st["block_restores"] == 0:
+        raise AssertionError(f"exact phase: the host tier never restored "
+                             f"({st['block_demotions']} demotions, "
+                             f"{st['block_restores']} restores)")
+    _differ(torch, np, model, reqs, tiered, resident,
+            "host tier vs the all-resident engine")
+    refs = [dk["generate"](model, p[None], c["max_new_tokens"])[
+        0, len(p):].tolist() if c.get("temperature", 0.0) == 0.0 else s
+        for (p, c), s in zip(reqs, tiered)]
+    _differ(torch, np, model, reqs, tiered, refs,
+            "host tier greedy vs generate()")
+    return {"streams_equal": True, "demotions": st["block_demotions"],
+            "restores": st["block_restores"],
+            "kernel_launches": pa.paged_attention.launches - before}
+
+
+def exact_swap_and_migrate(torch, np, dk, model, requests):
+    """Live weights and KV migration on the paged layout: after an
+    ``update_weights`` at a tick boundary (pipelined engine) the streams
+    equal an engine built on the new weights; after ``export_blocks`` ->
+    ``import_blocks`` (into the device pool and into a host tier) the
+    importing engine's greedy stream equals one engine's."""
+    make = dk["get_model"]
+    old = make("transformer_lm", dtype=torch.float32, device=DEV, seed=3,
+               **EXACT)
+    new = make("transformer_lm", dtype=torch.float32, device=DEV, seed=8,
+               **EXACT)
+    kw = dict(paged=True, block_size=16)
+    _, _, eng = serve(torch, np, dk, old, requests[:3], pipeline=True, **kw)
+    out = eng.update_weights(dk["bridge"].params_to_jax(new))
+    reqs = [eng.submit(p, **c) for p, c in requests]
+    eng.drain(timeout=900)
+    swapped = [r.stream.tokens(timeout=10) for r in reqs]
+    _, fresh, _ = serve(torch, np, dk, new, requests, **kw)
+    _differ(torch, np, new, requests, swapped, fresh,
+            "after update_weights vs an engine on the new weights")
+    res = {"swap": {"streams_equal": True, "version": out["version"],
+                    "swap_ms": out["swap_ms"]}}
+    prompt, _ = requests[3]
+    greedy = [(prompt, dict(max_new_tokens=16, seed=0))]
+    _, one, _ = serve(torch, np, dk, model, greedy, **kw)
+    for dst_kw in ({}, dict(host_blocks=32)):
+        _, _, src = serve(torch, np, dk, model,
+                          [(prompt, dict(max_new_tokens=1, seed=0))], **kw)
+        exp = src.export_blocks(prompt)
+        dst = dk["ServingEngine"](
+            model, slots=8, prefill_chunk=64, device=DEV,
+            registry=dk["telemetry"].MetricRegistry(),
+            tracer=dk["telemetry"].Tracer(), **kw, **dst_kw)
+        imp = dst.import_blocks(prompt, exp["blocks"])
+        r = dst.submit(prompt, **greedy[0][1])
+        dst.drain(timeout=300)
+        got = [r.stream.tokens(timeout=10)]
+        _differ(torch, np, model, greedy, got, one,
+                f"imported ({imp['mode']}) vs one engine")
+        if dst.prefix_hit_tokens != imp["tokens"] or imp["tokens"] == 0:
+            raise AssertionError(f"exact phase: the import ({imp}) did not "
+                                 f"serve the prompt's prefix")
+        res[f"migrate_{imp['mode']}"] = {"streams_equal": True,
+                                         "tokens": imp["tokens"]}
+    return res
+
+
+def exact_beam(torch, np, dk, model):
+    """``beam_search(beam_size=4)`` on the card equals the same call on a
+    CPU copy of the weights (the plain attends)."""
+    from distkeras_torch.models.transformer import beam_search
+
+    cpu = dk["get_model"]("transformer_lm", dtype=torch.float32,
+                          device="cpu", seed=3, **EXACT)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    prompt = np.random.default_rng(11).integers(
+        0, model.vocab_size, size=(2, 40)).astype(np.int32)
+    got = beam_search(model, prompt, 16, beam_size=4).cpu()
+    want = beam_search(cpu, prompt, 16, beam_size=4)
+    if not torch.equal(got, want):
+        raise AssertionError(f"exact phase: beam search on the card "
+                             f"{got[:, 40:].tolist()} != on the CPU "
+                             f"{want[:, 40:].tolist()}")
+    return {"beams_equal": True, "rows": 2, "beam_size": 4, "new": 16}
+
+
+def exact_phase(torch, np, dk, pa, sp):
+    model = dk["get_model"]("transformer_lm", dtype=torch.float32,
+                            device=DEV, seed=3, **EXACT)
+    requests = exact_requests(np, model.vocab_size)
+    refs = [dk["generate"](model, p[None], c["max_new_tokens"],
+                           temperature=c.get("temperature", 0.0),
+                           seed=c["seed"], top_k=c.get("top_k"))[
+        0, len(p):].tolist() for p, c in requests]
+    res = exact_modes(torch, np, dk, pa, sp, model, requests, refs)
+    res["host_tier"] = exact_tier(torch, np, dk, pa, model)
+    res.update(exact_swap_and_migrate(torch, np, dk, model, requests))
+    res["beam_search"] = exact_beam(torch, np, dk, model)
+    return res
+
+
+# -- phase 10: the engine's modes at full width -------------------------------
+
+
+def _zero_counts(pa, sp):
+    for f in (pa.paged_attention, sp.splash_prefill_attention):
+        f.launches = 0
+        f.routes.clear()
+
+
+def _steps(eng):
+    """Forward passes of the flagship's decode twin in one run: one per
+    tick, k per multi-step window (from the flight recorder)."""
+    return sum(s.get("multi_k", 1) for s in eng.flight.snapshots()
+               if s.get("kind") == "tick")
+
+
+def mode_check(eng, summary, pa, sp, L, paged, expect_splash=None,
+               prefills=0):
+    """The launch counts and routes of one phase-10 run: on the paged
+    layout the paged kernel in every layer of every forward (ticks,
+    window steps, monolithic prefills); on the slot layout splash in
+    every layer of every forward carrying more than one token
+    (``expect_splash``); every launch a bf16 tensor-core split kernel."""
+    launches = {"paged_attention": pa.paged_attention.launches,
+                "splash_prefill": sp.splash_prefill_attention.launches}
+    routes = {"paged_attention": dict(pa.paged_attention.routes),
+              "splash_prefill": dict(sp.splash_prefill_attention.routes)}
+    if paged:
+        want = (_steps(eng) + prefills) * L
+        if launches["paged_attention"] < want:
+            raise AssertionError(f"paged kernel launched "
+                                 f"{launches['paged_attention']} < {want}")
+    if expect_splash is not None:
+        if launches["splash_prefill"] < expect_splash:
+            raise AssertionError(f"splash kernel launched "
+                                 f"{launches['splash_prefill']} < "
+                                 f"{expect_splash}")
+    for name, seen in routes.items():
+        if any("split_kernel" not in r for r in seen):
+            raise AssertionError(f"{name}: launch routes {seen} are not "
+                                 f"all the bf16 split kernels")
+    summary["launches"], summary["routes"] = launches, routes
+    return summary
+
+
+def mode_summary(requests, summary, eng, streams, ref):
+    st = eng.stats()
+    summary.update({
+        "tokens_per_dispatch_p50": st["tokens_per_dispatch"]["p50"],
+        "dispatches": st["dispatches"],
+        "acceptance_rate": st.get("acceptance_rate"),
+        "restores": st.get("block_restores"),
+        "overrun_tokens": st["overrun_tokens"],
+        "multi_step_fallbacks": st["multi_step_fallbacks"],
+        "greedy_match_vs_chunked": (greedy_match(requests, streams, ref)
+                                    if ref is not None else None),
+    })
+    return summary
+
+
+def tier_requests(np, V):
+    """Phase 10(f): four distinct seeded 512-token prefixes, two
+    round-robin passes of 16 requests, 64-256-token tails, 32 new
+    tokens, sampling as the main mix cycles it."""
+    T = FLAG_TIER
+    rng = np.random.default_rng(21)
+    prefixes = [rng.integers(0, V, size=T["prefix_len"])
+                for _ in range(T["prefixes"])]
+    passes = []
+    for _ in range(T["passes"]):
+        reqs = []
+        for i in range(T["requests"]):
+            tail = rng.integers(0, V, size=int(rng.integers(
+                T["tails"][0], T["tails"][1] + 1)))
+            prompt = np.concatenate([prefixes[i % T["prefixes"]], tail])
+            reqs.append((prompt.astype(np.int32),
+                         dict(seed=200 + i, max_new_tokens=T["max_new"])))
+        passes.append(reqs)
+    return passes
+
+
+def tier_sizes(block_size=16):
+    """``num_blocks`` and ``host_blocks`` by the rule of
+    benchmarks/serve_bench.py:357-362: every slot's worst case plus a
+    third of the prefix working set on the device, the whole working set
+    plus one prefix on the host."""
+    T = FLAG_TIER
+    pb = T["prefix_len"] // block_size
+    worst = -(-(T["prefix_len"] + T["tails"][1] + T["max_new"])
+              // block_size)
+    cache_blocks = max((T["prefixes"] * pb) // 3, pb)
+    return (1 + T["slots"] * worst + cache_blocks,
+            T["prefixes"] * pb + pb)
+
+
+def modes_phase(torch, np, dk, pa, sp, chunked):
+    """Phase 10: the flagship's 16-request mix through every engine mode
+    (8 slots), plus the host tier's churn, beam search and a weight swap
+    mid-drain; ``chunked`` holds phase 3's streams per layout."""
+    model = dk["get_model"]("transformer_lm", dtype=torch.bfloat16,
+                            device=DEV, seed=0, **FLAGSHIP)
+    L = model.num_layers
+    requests = dk["serving_requests"](model.vocab_size, SYSTEM_PREFIX,
+                                      PROMPT_LENS)
+    draft = dk["get_model"]("transformer_lm", dtype=torch.bfloat16,
+                            device=DEV, seed=1, **DRAFT)
+    out = {}
+
+    def run(name, paged, kw, splash=None, ref=True):
+        _zero_counts(pa, sp)
+        summary, streams, eng = serve(
+            torch, np, dk, model, requests, paged=paged, block_size=16,
+            flight_capacity=1 << 16, **kw)
+        prefills = len(requests) if kw.get("prefill_chunk", 1) is None \
+            else 0
+        want_splash = None
+        if not paged:
+            want_splash = splash(eng, summary) * L
+        mode_check(eng, summary, pa, sp, L, paged, want_splash,
+                   prefills=prefills)
+        out[name] = mode_summary(
+            requests, summary, eng, streams,
+            chunked["paged" if paged else "slot"] if ref and chunked
+            else None)
+        return eng
+
+    chunk_ticks = lambda eng, summ: summ["chunk_ticks"]  # noqa: E731
+    every_tick = lambda eng, summ: summ["ticks"]  # noqa: E731
+    prompts_gt1 = lambda eng, summ: sum(  # noqa: E731
+        1 for p, _ in requests if len(p) > 1)
+    for paged in (True, False):
+        lay = "paged" if paged else "slot"
+        # the sync chunked engine of phase 3, under this phase's conditions:
+        # the yardstick of every mode below
+        run(f"chunked_{lay}", paged, {}, chunk_ticks)
+        run(f"monolithic_{lay}", paged, dict(prefill_chunk=None),
+            prompts_gt1)
+        run(f"pipelined_{lay}", paged, dict(pipeline=True), chunk_ticks)
+        run(f"multi_step_{lay}", paged, dict(multi_step_k=4), chunk_ticks)
+        run(f"ngram_{lay}", paged, dict(draft="ngram", spec_k=4),
+            every_tick)
+    eng = run("draft_model_paged", True, dict(draft=draft, spec_k=4))
+    # the draft's catch-up feeds run splash (hd 128) in every draft layer
+    want = eng.draft_feeds * draft.num_layers
+    if eng.draft_feeds == 0 or sp.splash_prefill_attention.launches < want:
+        raise AssertionError(f"draft model: splash launched "
+                             f"{sp.splash_prefill_attention.launches} < "
+                             f"{eng.draft_feeds} feeds x "
+                             f"{draft.num_layers} layers")
+    out["draft_model_paged"].update(
+        draft_feeds=eng.draft_feeds,
+        draft_splash_launches=sp.splash_prefill_attention.launches)
+    del draft, eng
+    out["host_tier_paged"] = tier_phase(torch, np, dk, pa, sp, model)
+    out["beam_search"] = beam_phase(torch, np, sp, model)
+    out["update_weights_pipelined"] = swap_phase(torch, np, dk, pa, sp,
+                                                 model, requests, chunked)
+    return out
+
+
+def tier_phase(torch, np, dk, pa, sp, model):
+    """Phase 10(f): the host tier under the flagship. The second pass
+    must restore prefixes from the host."""
+    L = model.num_layers
+    num_blocks, host_blocks = tier_sizes()
+    passes = tier_requests(np, model.vocab_size)
+    _zero_counts(pa, sp)
+    eng = dk["ServingEngine"](
+        model, slots=FLAG_TIER["slots"], prefill_chunk=64, paged=True,
+        block_size=16, num_blocks=num_blocks, host_blocks=host_blocks,
+        device=DEV,
+        flight_capacity=1 << 16,
+        registry=dk["telemetry"].MetricRegistry(),
+        tracer=dk["telemetry"].Tracer())
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    res = {"num_blocks": num_blocks, "host_blocks": host_blocks}
+    t_all = time.perf_counter()
+    for i, reqs in enumerate(passes):
+        before = eng.restores
+        sync(torch)
+        t0 = time.perf_counter()
+        rs = [eng.submit(p, **c) for p, c in reqs]
+        eng.drain(timeout=900)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        toks = [r.stream.tokens(timeout=10) for r in rs]
+        if any(len(t) != FLAG_TIER["max_new"] for t in toks):
+            raise AssertionError("host tier: a request did not finish")
+        res[f"pass_{i + 1}"] = {
+            "wall_s": wall, "tok_per_s": sum(map(len, toks)) / wall,
+            "restores": eng.restores - before}
+    if res["pass_2"]["restores"] == 0:
+        raise AssertionError("host tier: the second pass restored nothing "
+                             "from the host")
+    st = eng.stats()
+    summary = {"ticks": st["ticks"], "wall_s": time.perf_counter() - t_all,
+               "ms_per_tick": (time.perf_counter() - t_all) * 1e3
+               / max(st["ticks"], 1),
+               "ttft_ms_p50": st["ttft_ms"].get("p50"),
+               "ttft_ms_p99": st["ttft_ms"].get("p99"),
+               "demotions": st["block_demotions"],
+               "prefix_hit_fraction": st["prefix_hit_fraction"],
+               "restore_wait_ms": st["restore_wait_ms"],
+               "peak_device_mb": (torch.cuda.max_memory_allocated() / 2**20
+                                  if DEV == "cuda" else None)}
+    mode_check(eng, summary, pa, sp, L, True)
+    res.update(summary)
+    return res
+
+
+def beam_phase(torch, np, sp, model):
+    """Phase 10(g): ``beam_search`` of two 256-token prompts, beam 4, 32
+    new tokens; its prefill runs splash in every layer."""
+    from distkeras_torch.models.transformer import beam_search
+
+    B = FLAG_BEAM
+    prompt = np.random.default_rng(31).integers(
+        0, model.vocab_size, size=(B["rows"], B["prompt"])).astype(np.int32)
+    sp.splash_prefill_attention.launches = 0
+    sp.splash_prefill_attention.routes.clear()
+    sync(torch)
+    t0 = time.perf_counter()
+    out = beam_search(model, prompt, B["new"], beam_size=B["beam"])
+    sync(torch)
+    ms = (time.perf_counter() - t0) * 1e3
+    toks = out[:, B["prompt"]:].cpu()
+    if tuple(out.shape) != (B["rows"], B["prompt"] + B["new"]) or not (
+            (toks >= 0) & (toks < model.vocab_size)).all():
+        raise AssertionError(f"beam search: bad output {tuple(out.shape)}")
+    if sp.splash_prefill_attention.launches < model.num_layers:
+        raise AssertionError(f"beam search: splash launched "
+                             f"{sp.splash_prefill_attention.launches} < "
+                             f"{model.num_layers}")
+    return {"ms": ms, "tok_per_s": B["rows"] * B["new"] / (ms / 1e3),
+            "splash_launches": sp.splash_prefill_attention.launches,
+            "routes": dict(sp.splash_prefill_attention.routes)}
+
+
+def swap_phase(torch, np, dk, pa, sp, model, requests, chunked):
+    """Phase 10(h): one ``update_weights`` mid-drain, pipeline on (the
+    model's own weights pushed back, so the streams stay comparable):
+    every request finishes, the version moves, and the swap's time."""
+    L = model.num_layers
+    tree = dk["bridge"].params_to_jax(model)
+    _zero_counts(pa, sp)
+    eng = dk["ServingEngine"](
+        model, slots=8, prefill_chunk=64, paged=True, block_size=16,
+        pipeline=True, device=DEV, flight_capacity=1 << 16,
+        registry=dk["telemetry"].MetricRegistry(),
+        tracer=dk["telemetry"].Tracer())
+    sync(torch)
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, **c) for p, c in requests]
+    for _ in range(20):
+        eng.step()
+    swap = eng.update_weights(tree)
+    eng.drain(timeout=900)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    streams = [r.stream.tokens(timeout=10) for r in reqs]
+    if any(len(s) != c["max_new_tokens"] for s, (_, c) in zip(streams,
+                                                              requests)):
+        raise AssertionError("weight swap: a request did not finish")
+    if eng.weight_version != 2:
+        raise AssertionError(f"weight swap: version {eng.weight_version}")
+    st = eng.stats()
+    summary = {"ticks": st["ticks"], "wall_s": wall,
+               "tok_per_s": st["tokens_generated"] / wall,
+               "ms_per_tick": wall * 1e3 / max(st["ticks"], 1),
+               "swap_ms": swap["swap_ms"], "version": swap["version"],
+               "overrun_tokens": st["overrun_tokens"],
+               "greedy_match_vs_chunked": (greedy_match(
+                   requests, streams, chunked["paged"]) if chunked
+                   else None)}
+    return mode_check(eng, summary, pa, sp, L, True)
 
 
 def main() -> int:
@@ -1785,7 +2323,7 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
-        from distkeras_torch import bench, telemetry
+        from distkeras_torch import bench, bridge, telemetry
         from distkeras_torch.bench import (lm_step_flops, nvidia_smi,
                                            peak_flops, serving_requests)
         from distkeras_torch.data.dataset import PartitionedDataset
@@ -1810,7 +2348,7 @@ def main() -> int:
         return _fail(f"run from a checkout of the repository ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dk = {"telemetry": telemetry, "get_model": get_model,
+    dk = {"telemetry": telemetry, "get_model": get_model, "bridge": bridge,
           "generate": generate, "ServingEngine": ServingEngine,
           "serving_requests": serving_requests,
           "make_lm_train_step": make_lm_train_step,
@@ -1853,7 +2391,8 @@ def main() -> int:
                             "seconds": time.perf_counter() - t0}})
 
     t0 = time.perf_counter()
-    serving, launches, routes = serving_phase(torch, np, dk, pa, sp)
+    serving, launches, routes, chunked = serving_phase(torch, np, dk, pa,
+                                                      sp)
     serving["seconds"] = time.perf_counter() - t0
     _emit({"serving_phase": serving})
 
@@ -1921,8 +2460,15 @@ def main() -> int:
     _emit({"ps_roundtrip_phase": ps_roundtrip(torch, dk, cnn)})
     del cnn
 
+    t0 = time.perf_counter()
+    modes = modes_phase(torch, np, dk, pa, sp, chunked)
+    modes["seconds"] = time.perf_counter() - t0
+    _emit({"engine_modes_phase": modes})
+
     main_paged = next(c for c in paged if c["T"] == 64 and c["pool"] == "int8")
     main_splash = next(c for c in splash if c["dtype"] == "bf16")
+    timed = ("T", "hd", "pool", "dtype", "starts", "ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")
     rows = []
     for name, src, rep, case, cases in (
             ("paged_attention", "distkeras_torch/csrc/paged_attention.cu",
@@ -1940,6 +2486,10 @@ def main() -> int:
             "ms": case["ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
             "library_ms": case["library_ms"],
+            # every timed shape of the main path (the row's own numbers
+            # are the first one's): decode, chunk, verify, monolithic
+            "shapes": [{k: c[k] for k in timed if k in c}
+                       for c in cases if "ms" in c],
         })
     main_causal = causal[0]
     for kern, line, err_keys, lib in (

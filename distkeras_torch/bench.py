@@ -9,9 +9,10 @@ cache, max_len 2048, seeded random weights; 16 requests of 96-1024
 prompt tokens sharing a 256-token system prefix, 32-64 new tokens,
 mixed sampling — :func:`serving_requests`) through the port's
 :class:`~distkeras_torch.serving.ServingEngine` (8 slots, 64-token
-chunks) under ``torch.profiler``, after one warm-up pass. Prints one
-JSON line with the environment, then one per cache layout (paged, then
-slot): wall time, ticks,
+chunks) under ``torch.profiler``, after one warm-up pass, with the sync
+loop and with ``pipeline=True``. Prints one JSON line with the
+environment, then one per cache layout (paged, then slot) and loop:
+wall time, ticks, the engine's ``device_wait_ms``,
 device busy time (the sum of kernel times on the engine's one stream)
 and idle share, device time grouped by what ran (the two attention
 kernels, matrix products, everything else), and the top kernels.
@@ -339,17 +340,23 @@ def _cifar_group(name: str) -> str:
     return group
 
 
-def profile_layout(model, requests, paged: bool) -> dict:
+def profile_layout(model, requests, paged: bool, **engine_kw) -> dict:
+    """One profiled serving run of ``requests`` after a warm-up pass;
+    ``engine_kw`` selects an engine mode by plain values
+    (``pipeline=True``, ``multi_step_k=4``, ...). Adds the engine's
+    own ``device_wait_ms`` percentiles (host time blocked on readback)
+    to the device summary."""
     from torch.profiler import ProfilerActivity, profile
 
     from distkeras_torch import telemetry
     from distkeras_torch.serving import ServingEngine
 
+    engine_kw.setdefault("prefill_chunk", 64)
+
     def engine():
-        return ServingEngine(model, slots=8, prefill_chunk=64, paged=paged,
-                             block_size=16,
+        return ServingEngine(model, slots=8, paged=paged, block_size=16,
                              registry=telemetry.MetricRegistry(),
-                             tracer=telemetry.Tracer())
+                             tracer=telemetry.Tracer(), **engine_kw)
 
     warm = engine()
     for p, c in requests[:2]:
@@ -366,8 +373,9 @@ def profile_layout(model, requests, paged: bool) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     st = eng.stats()
-    return {"layout": "paged" if paged else "slot",
+    return {"layout": "paged" if paged else "slot", "mode": engine_kw,
             "ticks": st["ticks"], "tokens": st["tokens_generated"],
+            "device_wait_ms": st["device_wait_ms"],
             **_device_summary(prof, wall_ms)}
 
 
@@ -418,8 +426,9 @@ def main() -> int:
         flush=True)
     requests = serving_requests(model.vocab_size)
     for paged in (True, False):
-        print(json.dumps(profile_layout(model, requests, paged)),
-              flush=True)
+        for pipeline in (False, True):
+            print(json.dumps(profile_layout(model, requests, paged,
+                                            pipeline=pipeline)), flush=True)
     del model
     torch.cuda.empty_cache()
     for attention in ("standard", "ring"):

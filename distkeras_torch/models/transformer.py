@@ -51,9 +51,12 @@ eps=1e-6 with f32 statistics, rope is computed in f32, masks fill
 product, and the vocab head takes model-dtype operands with f32
 accumulation and f32 logits.
 
+Decoding: :func:`generate` (greedy or sampled with a per-call
+``torch.Generator``) and :func:`beam_search`.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``beam_search`` (A5), :class:`MoeLM` and ``moe_experts`` (A10) and
-``tp_size > 1`` (A10).
+item): :class:`MoeLM` and ``moe_experts`` (A10) and ``tp_size > 1``
+(A10).
 """
 
 from __future__ import annotations
@@ -892,7 +895,120 @@ def generate(model: TransformerLM, prompt, max_new_tokens: int,
     return out
 
 
-def beam_search(model, prompt, max_new_tokens: int, beam_size: int = 4,
-                length_penalty: float = 0.0, eos_id: Optional[int] = None):
-    """Beam-search decoding — not ported yet."""
-    raise NotImplementedError("beam_search is not ported yet (ROADMAP A5)")
+def _pick_rows(cache: KVCache, rows: torch.Tensor) -> KVCache:
+    """A slot-layout cache holding rows ``rows`` of ``cache`` (repeats
+    allowed): every leaf's ``[B, L, ...]`` view gathered, with a fresh
+    trash row, and the rows' cursors."""
+    B2, L = int(rows.numel()), cache.length
+    layers = []
+    for layer in cache.layers:
+        new = {}
+        for name, leaf in layer.items():
+            flat = torch.empty((B2 * L + 1,) + tuple(leaf.shape[1:]),
+                               dtype=leaf.dtype, device=leaf.device)
+            flat[:B2 * L] = cache.view(layer, name).index_select(
+                0, rows).reshape((B2 * L,) + tuple(leaf.shape[1:]))
+            new[name] = flat
+        layers.append(new)
+    return KVCache(layers, cache.index.index_select(0, rows), B2, L, False)
+
+
+@torch.no_grad()
+def beam_search(model: TransformerLM, prompt, max_new_tokens: int,
+                beam_size: int = 4, length_penalty: float = 0.0,
+                eos_id: Optional[int] = None):
+    """Beam-search decoding on the KV-cache decode path (the reference's
+    ``beam_search``, distkeras_tpu transformer.py:1198).
+
+    Fixed-width beam search: one prefill of the ``B`` prompt rows (the
+    splash chunked-prefill kernel on a card), the cache tiled
+    ``beam_size`` times along the batch, then each step scores all
+    ``beam_size x vocab`` continuations per row, keeps the top
+    ``beam_size`` by cumulative log-probability (ties to the lower flat
+    index, as ``lax.top_k``) and gathers the caches of the surviving
+    beams' parents.
+
+    Args:
+      length_penalty: GNMT-style alpha — candidates are ranked by
+        ``logprob / ((5 + len) / 6) ** alpha`` with each hypothesis's
+        own length (frozen when it finishes); 0 ranks by raw logprob.
+      eos_id: finished beams freeze (their only continuation is ``eos``
+        at zero cost), so shorter completed hypotheses compete with
+        longer live ones.
+
+    Returns ``[B, T_prompt + max_new_tokens]`` int64 on the model's
+    device — each row's best beam.
+    """
+    if isinstance(prompt, torch.Tensor):
+        prompt = prompt.to(device=model.device, dtype=torch.long)
+    else:
+        prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
+                                 device=model.device)
+    if prompt.dim() != 2 or prompt.shape[1] < 1:
+        raise ValueError(f"prompt must be [B, T>=1]; got "
+                         f"{tuple(prompt.shape)}")
+    if beam_size < 1:
+        raise ValueError(f"beam_size must be >= 1; got {beam_size}")
+    B, Tp = prompt.shape
+    if Tp + max_new_tokens > model.max_len:
+        raise ValueError(
+            f"prompt ({Tp}) + max_new_tokens ({max_new_tokens}) exceeds "
+            f"max_len={model.max_len} (the KV-cache length)"
+        )
+    K, V, dev = beam_size, model.vocab_size, model.device
+
+    def penalize(scores, lengths):
+        # GNMT: logprob / ((5 + hypothesis length) / 6) ** alpha
+        if length_penalty == 0.0:
+            return scores
+        return scores / ((5.0 + lengths.to(torch.float32)) / 6.0
+                         ) ** length_penalty
+
+    dm = model.clone(decode=True)
+    cache = dm.init_cache(B)
+    logits = dm(prompt, cache=cache)
+    # row b's beams live at rows b*K .. b*K+K-1
+    cache = _pick_rows(cache, torch.arange(B, device=dev
+                                           ).repeat_interleave(K))
+    logp = torch.log_softmax(logits[:, -1].to(torch.float32), dim=-1)
+    logp = logp[:, None].expand(B, K, V)
+    # beam 0 is live, the rest start at -inf so step 1 seeds K DISTINCT
+    # tokens from the top of the prompt distribution
+    scores = torch.full((B, K), -math.inf, device=dev)
+    scores[:, 0] = 0.0
+    done = torch.zeros((B, K), dtype=torch.bool, device=dev)
+    lens = torch.zeros((B, K), dtype=torch.long, device=dev)
+    toks = torch.zeros((B, K, max_new_tokens), dtype=torch.long, device=dev)
+    only_eos = None
+    if eos_id is not None:
+        only_eos = torch.full((V,), -math.inf, device=dev)
+        only_eos[eos_id] = 0.0
+    base = torch.arange(B, device=dev)[:, None] * K
+    for i in range(max_new_tokens):
+        if eos_id is not None:
+            # finished beams: only eos continues, at zero cost
+            logp = torch.where(done[..., None], only_eos, logp)
+        cand_len = torch.where(done, lens, torch.full_like(lens, i + 1))
+        flat = (scores[..., None] + logp).reshape(B, K * V)
+        flat_len = cand_len[..., None].expand(B, K, V).reshape(B, K * V)
+        # a stable descending sort: ties keep the lower flat index first
+        idx = torch.sort(penalize(flat, flat_len), dim=1, descending=True,
+                         stable=True).indices[:, :K]
+        parent = idx // V
+        token = idx % V
+        scores = torch.gather(flat, 1, idx)
+        lens = torch.gather(flat_len, 1, idx)
+        toks = torch.gather(toks, 1, parent[..., None].expand(
+            B, K, max_new_tokens)).clone()
+        toks[:, :, i] = token
+        if eos_id is not None:
+            done = torch.gather(done, 1, parent) | (token == eos_id)
+        if i + 1 == max_new_tokens:
+            break  # the last step's logits would never be read
+        cache = _pick_rows(cache, (base + parent).reshape(-1))
+        logits = dm(token.reshape(B * K, 1), cache=cache)
+        logp = torch.log_softmax(logits[:, -1].to(torch.float32),
+                                 dim=-1).reshape(B, K, V)
+    best = torch.argmax(penalize(scores, lens), dim=1)
+    return torch.cat([prompt, toks[torch.arange(B, device=dev), best]],
+                     dim=1)

@@ -118,6 +118,17 @@ class RadixPrefixIndex:
     def contains_block(self, block: int) -> bool:
         return block in self._by_block
 
+    def has_host(self, handle: int) -> bool:
+        return handle in self._by_host
+
+    def blocks(self) -> List[int]:
+        """The device blocks the index registers (a snapshot)."""
+        return list(self._by_block)
+
+    def host_handles(self) -> List[int]:
+        """The host-tier handles the index registers (a snapshot)."""
+        return list(self._by_host)
+
     def _tick(self) -> int:
         self._clock += 1
         return self._clock

@@ -14,6 +14,7 @@ import pytest
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import chip_smoke  # noqa: E402
+from torch_engine_util import one_thread  # noqa: E402,F401
 
 _LOG = """\
 ptxas info    : 0 bytes gmem
@@ -298,3 +299,223 @@ def test_ps_phases_at_narrow_widths(monkeypatch):
         assert r["profiled_epoch"]["idle_share"] is None
     quick = chip_smoke.quickstart_phase(torch, np, dk, rows=1024)
     assert quick["commits"] == 4 * 1 and quick["steps"] == 4 * 2
+
+
+# -- the serving phases (2, 4 and 10) on the CPU ------------------------------
+
+
+def _standin_kernels(monkeypatch):
+    """The serving kernels stood in on the CPU: their gates pass as on a
+    card, and each call counts a launch and its route (as the wrappers
+    do where they launch) and runs the plain version in f32, as the
+    kernels accumulate."""
+    import torch
+
+    from distkeras_torch.ops import paged_attention as pa
+    from distkeras_torch.ops import splash_prefill as sp
+
+    def counting(plain, kind):
+        def f(q, *args):
+            f.launches += 1
+            route = sp.launch_route(kind, q.dtype == torch.bfloat16, 16, 1)
+            f.routes[route] = f.routes.get(route, 0) + 1
+            args = [a.float() if torch.is_tensor(a) and a.is_floating_point()
+                    else a for a in args]
+            return plain(q.float(), *args).to(q.dtype)
+        f.launches, f.routes = 0, {}
+        return f
+
+    monkeypatch.setattr(pa, "paged_attention",
+                        counting(pa.paged_attention_reference, "paged"))
+    monkeypatch.setattr(sp, "splash_prefill_attention",
+                        counting(sp.splash_prefill_reference, "splash"))
+    monkeypatch.setattr(pa, "preferred",
+                        lambda hd, bs, device=None: pa.supports(hd, bs))
+    monkeypatch.setattr(sp, "preferred",
+                        lambda T, hd, L, device=None: sp.supports(T, hd, L))
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    return pa, sp
+
+
+def _serving_dk():
+    from distkeras_torch import bench, bridge, telemetry
+    from distkeras_torch.models import get_model
+    from distkeras_torch.models.transformer import generate
+    from distkeras_torch.serving import ServingEngine
+
+    return {"telemetry": telemetry, "get_model": get_model,
+            "bridge": bridge, "generate": generate,
+            "ServingEngine": ServingEngine,
+            "serving_requests": bench.serving_requests}
+
+
+_NARROW_EXACT = dict(vocab_size=64, d_model=128, num_heads=2,
+                     num_kv_heads=1, num_layers=2, max_len=256,
+                     pos_emb="rope", cache_dtype="int8")
+
+
+def _narrow_exact(monkeypatch):
+    """Phase 4 at a narrow width, its requests cut to 8-20 new tokens."""
+    monkeypatch.setattr(chip_smoke, "EXACT", _NARROW_EXACT)
+    monkeypatch.setattr(chip_smoke, "EXACT_DRAFT",
+                        dict(_NARROW_EXACT, num_layers=1,
+                             num_kv_heads=None))
+    full = chip_smoke.exact_requests
+    monkeypatch.setattr(chip_smoke, "exact_requests", lambda np, V: [
+        (p, dict(c, max_new_tokens=c["max_new_tokens"] - 16))
+        for p, c in full(np, V)])
+
+
+def test_phase2_times_the_new_shapes(monkeypatch):
+    """Phase 2 at narrow shapes: the paged cases at every T of the main
+    path (decode, chunk, verify, monolithic) and the splash cases at the
+    verify window, a whole prompt from position 0 and hd 128, each held
+    and timed beside its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    pa, sp = _standin_kernels(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "PAGED", dict(
+        S=3, H=4, Hk=2, hd=64, bs=16, MB=8, T=(1, 16, 5, 100)))
+    monkeypatch.setattr(chip_smoke, "SPLASH", dict(S=3, T=16, H=4, Hk=2,
+                                                   hd=64, L=128))
+    monkeypatch.setattr(chip_smoke, "SPLASH_MORE", (
+        (5, 64, 4, "depth"), (100, 64, 4, "zero"), (16, 128, 2, "depth")))
+    paged = chip_smoke.paged_cases(torch, F, pa)
+    timed = {c["T"] for c in paged if "ms" in c}
+    assert timed == {1, 16, 5, 100}
+    splash = chip_smoke.splash_cases(torch, F, sp)
+    shapes = {(c["T"], c["hd"], c["starts"]) for c in splash if "ms" in c}
+    assert shapes == {(16, 64, "depth"), (5, 64, "depth"),
+                      (100, 64, "zero"), (16, 128, "depth")}
+    for c in paged + splash:
+        assert c["max_abs_err"] <= c["tol"]
+        if "ms" in c:
+            assert c["bound_ms"] > 0 and c["bound_by"] in ("bytes",
+                                                           "operations")
+
+
+def test_phase4_holds_every_mode_at_narrow_width(monkeypatch):
+    """Phase 4 end to end on the CPU (a narrow f32 model, the serving
+    kernels stood in by their plain versions): every mode on both
+    layouts, the host tier, the weight swap, KV migration and beam
+    search all hold."""
+    import numpy as np
+    import torch
+
+    pa, sp = _standin_kernels(monkeypatch)
+    _narrow_exact(monkeypatch)
+    res = chip_smoke.exact_phase(torch, np, _serving_dk(), pa, sp)
+    for layout in ("paged", "slot"):
+        assert set(res[layout]) == {n for n, _ in chip_smoke.EXACT_MODES}
+        for mode in res[layout].values():
+            assert mode["greedy_equal"] and mode["kernel_launches"] > 0
+    assert res["host_tier"]["restores"] > 0
+    assert res["swap"]["streams_equal"] and res["swap"]["version"] == 2
+    assert res["migrate_device"]["tokens"] > 0
+    assert res["migrate_host"]["tokens"] > 0
+    assert res["beam_search"]["beams_equal"]
+
+
+@pytest.mark.parametrize("fault", ["dropped_rejection", "restore_skipped"])
+def test_phase4_fails_on_an_injected_fault(monkeypatch, fault):
+    """Phase 4 catches a speculative engine that accepts every draft (a
+    dropped rejection) and a restore whose copy never lands before the
+    tick that reads the block."""
+    import numpy as np
+    import torch
+
+    from distkeras_torch.serving import ServingEngine
+    from distkeras_torch.serving import engine as eng_mod
+
+    pa, sp = _standin_kernels(monkeypatch)
+    _narrow_exact(monkeypatch)
+    dk = _serving_dk()
+    model = dk["get_model"]("transformer_lm", dtype=torch.float32,
+                            device="cpu", seed=3, **chip_smoke.EXACT)
+    if fault == "restore_skipped":
+        monkeypatch.setattr(ServingEngine, "_upload_blocks",
+                            lambda self, dsts, entries: None)
+        with pytest.raises(AssertionError, match="host tier"):
+            chip_smoke.exact_tier(torch, np, dk, pa, model)
+        return
+
+    def accept_all(cfgs, k, onehot_q, full, gens, valid, n_forced,
+                   sample_mask, draft_toks, q_probs):
+        S = full.shape[0]
+        acc = (valid.long() - n_forced.long()).clamp(min=0)
+        z_logits = full[torch.arange(S), n_forced.long() + acc]
+        d = draft_toks.long()
+        dp = torch.cat([d, torch.zeros((S, 1), dtype=d.dtype)], 1)
+        pos = torch.arange(k + 1)[None]
+        z = torch.argmax(z_logits, dim=-1)[:, None]
+        out = torch.where(pos < acc[:, None], dp,
+                          torch.where(pos == acc[:, None], z,
+                                      torch.zeros_like(dp)))
+        return out, acc, z_logits
+
+    monkeypatch.setattr(eng_mod, "_spec_accept", accept_all)
+    monkeypatch.setattr(chip_smoke, "EXACT_MODES", (
+        ("chunked", {}), ("ngram", dict(draft="ngram", spec_k=4))))
+    requests = chip_smoke.exact_requests(np, model.vocab_size)
+    refs = [dk["generate"](model, p[None], c["max_new_tokens"],
+                           temperature=c.get("temperature", 0.0),
+                           seed=c["seed"], top_k=c.get("top_k"))[
+        0, len(p):].tolist() for p, c in requests]
+    with pytest.raises(AssertionError, match="ngram greedy vs generate"):
+        chip_smoke.exact_modes(torch, np, dk, pa, sp, model, requests, refs)
+
+
+def test_phase10_modes_at_narrow_width(monkeypatch):
+    """Phase 10's configuration and assertions on the CPU (a narrow bf16
+    flagship, its request mix cut to five prompts of 8 new tokens): every
+    mode finishes every request with the kernels in every layer of every
+    forward its layout runs them (the draft's in every draft layer of
+    every catch-up feed), the second host-tier pass restores,
+    beam search's prefill runs splash, and the swap moves the version."""
+    import numpy as np
+    import torch
+
+    pa, sp = _standin_kernels(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "FLAGSHIP", dict(
+        vocab_size=128, d_model=128, num_heads=2, num_kv_heads=1,
+        num_layers=2, max_len=256, pos_emb="rope", cache_dtype="int8"))
+    monkeypatch.setattr(chip_smoke, "SYSTEM_PREFIX", 32)
+    monkeypatch.setattr(chip_smoke, "PROMPT_LENS", (40, 100, 20, 70, 9))
+    monkeypatch.setattr(chip_smoke, "DRAFT", dict(
+        vocab_size=128, d_model=128, num_heads=1, num_layers=1,
+        max_len=256, pos_emb="rope", cache_dtype="int8"))
+    monkeypatch.setattr(chip_smoke, "FLAG_TIER", dict(
+        prefixes=4, prefix_len=64, tails=(8, 16), passes=2, requests=8,
+        max_new=8, slots=2))
+    monkeypatch.setattr(chip_smoke, "FLAG_BEAM",
+                        dict(rows=2, prompt=32, beam=2, new=4))
+    dk = _serving_dk()
+    mix = dk["serving_requests"]
+    dk["serving_requests"] = lambda *a: [
+        (p, dict(c, max_new_tokens=8)) for p, c in mix(*a)]
+    _, _, _, chunked = chip_smoke.serving_phase(torch, np, dk, pa, sp)
+    out = chip_smoke.modes_phase(torch, np, dk, pa, sp, chunked)
+    for lay in ("paged", "slot"):
+        for mode in ("chunked", "monolithic", "pipelined", "multi_step",
+                     "ngram"):
+            r = out[f"{mode}_{lay}"]
+            assert r["tokens"] > 0 and r["launches"]
+            assert r["greedy_match_vs_chunked"] is not None
+        # phase 10's own sync chunked run repeats phase 3's streams
+        assert out[f"chunked_{lay}"]["greedy_match_vs_chunked"] == 1.0
+    assert out["multi_step_paged"]["tokens_per_dispatch_p50"] > 1
+    assert out["ngram_slot"]["acceptance_rate"] is not None
+    d = out["draft_model_paged"]
+    assert d["draft_feeds"] > 0
+    assert d["draft_splash_launches"] >= d["draft_feeds"]  # x 1 layer
+    assert out["host_tier_paged"]["pass_2"]["restores"] > 0
+    assert out["beam_search"]["splash_launches"] >= 2
+    assert out["update_weights_pipelined"]["version"] == 2
+
+
+def test_tier_sizes_follow_the_serve_bench_rule():
+    """The host-tier run's pools by serve_bench.py's rule at its full
+    configuration: 4 prefixes of 32 blocks, worst case 50 blocks a slot
+    (512 + 256 + 32 tokens), 2 slots."""
+    assert chip_smoke.tier_sizes() == (1 + 2 * 50 + 42, 4 * 32 + 32)

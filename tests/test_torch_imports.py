@@ -4,7 +4,7 @@ alike) loads no ``jax``, ``flax``, ``optax`` or ``distkeras_tpu`` module
 (checked in a fresh interpreter, since this test process imports both
 packages),
 and ``chip_smoke.py`` imports none of them either (checked on its
-syntax tree), nor does ``ab_kernels.py``. Importing a module
+syntax tree), nor do ``ab_kernels.py`` and ``ab_engine.py``. Importing a module
 builds no kernel and needs no card."""
 
 import ast
@@ -79,7 +79,9 @@ def test_port_modules_import_no_jax():
                  "distkeras_torch.ops.rules",
                  "distkeras_torch.parameter_servers",
                  "distkeras_torch.checkpoint",
-                 "distkeras_torch.networking"):
+                 "distkeras_torch.networking",
+                 "distkeras_torch.serving.kvpool",
+                 "distkeras_torch.serving.weights"):
         assert must in res["modules"]
 
 
@@ -104,10 +106,11 @@ def test_chip_smoke_imports_no_jax():
     assert not roots & set(FORBIDDEN)
 
 
-def test_ab_script_imports_no_jax():
-    """The parent-against-change timing script loads the port and
+@pytest.mark.parametrize("script", ["ab_kernels.py", "ab_engine.py"])
+def test_ab_script_imports_no_jax(script):
+    """The parent-against-change timing scripts load the port and
     chip_smoke.py, nothing of the reference package."""
-    roots = _imported_roots(os.path.join(ROOT, "ab_kernels.py"))
+    roots = _imported_roots(os.path.join(ROOT, script))
     assert "distkeras_torch" in roots
     assert not roots & set(FORBIDDEN)
 

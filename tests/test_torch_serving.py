@@ -9,7 +9,8 @@ slots and a shared full-block system prefix:
   on a ``[1, vocab]`` slice with its own generator);
 - the paged layout hits the prefix cache, and with
   ``prefix_cache=False`` returns every block after drain;
-- features the port defers raise ``NotImplementedError``.
+- features the port defers (``mesh``, ``watchdog``) raise
+  ``NotImplementedError``.
 """
 
 import numpy as np
@@ -143,11 +144,6 @@ def test_mid_block_divergence_copies_on_write():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(prefill_chunk=None), "A8"),
-    (dict(host_blocks=4, paged=True), "A8"),
-    (dict(draft="ngram"), "A8"),
-    (dict(pipeline=True), "A8"),
-    (dict(multi_step_k=4), "A8"),
     (dict(mesh=object()), "A10"),
 ])
 def test_deferred_engine_options_raise(kw, item):
@@ -157,9 +153,6 @@ def test_deferred_engine_options_raise(kw, item):
 
 
 @pytest.mark.parametrize("method,args,item", [
-    ("update_weights", ({},), "A8"),
-    ("export_blocks", ([1, 2],), "A8"),
-    ("import_blocks", ([1, 2], []), "A8"),
     ("watchdog", (), "A11"),
 ])
 def test_deferred_engine_methods_raise(method, args, item):

@@ -223,7 +223,7 @@ def test_explicit_attention_modes_match_jax(mode):
     _assert_grads_close(tgrads, jgrads, 1e-4)
 
 
-@pytest.mark.parametrize("what", ["beam_search", "moe_lm", "remat", "tp",
+@pytest.mark.parametrize("what", ["moe_lm", "remat", "tp",
                                   "ring", "blocked", "pallas", "long_t"])
 def test_deferred_features_raise(what):
     """Features still deferred raise naming their ROADMAP item; remat,
@@ -231,11 +231,7 @@ def test_deferred_features_raise(what):
     training slice) now run, and so does the ring inside a mesh
     (deferred before the sequence-parallel slice)."""
     kw = dict(BASE, dtype=torch.float32, device="cpu")
-    if what == "beam_search":
-        with pytest.raises(NotImplementedError, match="A5"):
-            tt.beam_search(get_model("transformer_lm", **kw),
-                           np.zeros((1, 2), np.int32), 3)
-    elif what == "moe_lm":
+    if what == "moe_lm":
         with pytest.raises(NotImplementedError, match="A10"):
             get_model("moe_lm", **kw)
     elif what == "remat":
