@@ -132,7 +132,7 @@ Phases (any failure exits non-zero):
    ``EnsembleTrainer(2)`` and ``DataParallelTrainer`` (a world of one)
    each train ``mnist_cnn`` (Adam 1e-3, batch 128, 2 epochs), and so do
    the six parameter-server trainers (4 workers, window 5; DOWNPOUR at
-   1e-3 / 4 committing every step, EAMSGD its Nesterov SGD at 0.05),
+   1e-3 / 4 committing every step, EAMSGD its Nesterov SGD at 0.02),
    then ``ModelPredictor`` -> ``LabelIndexTransformer`` ->
    ``AccuracyEvaluator``: every history finite, every model at accuracy
    >= 0.9; prints samples/s per trainer. This phase adds no hand-written
@@ -179,7 +179,49 @@ Phases (any failure exits non-zero):
    per mode tok/s, ms per tick, TTFT p50/p99, tokens per dispatch,
    acceptance, restores, overruns, device wait, peak memory and the
    share of greedy tokens equal to phase 3's chunked engine
-   (informational at bf16).
+   (informational at bf16), with each differing stream's first flip and
+   the top-2 logit gap there.
+11. **I/O and deployment.** (11a) ``BASELINE.json``'s CIFAR rows (phase
+   9a's 50,000, one-hot labels) written with ``write_shards(
+   rows_per_shard=4096)`` (13 shards of 3,846-3,847 rows, ~616 MB) and
+   streamed from disk through
+   ``DataParallelTrainer`` (a world of one; ``cifar_cnn`` at phase 8a's
+   settings: bf16, SGD 0.05 momentum 0.9, batch 2048, 2 epochs, shuffle
+   off; the loader casts to bf16 into pinned memory): the history and
+   weights equal, bit for bit, the same trainer's on the rows in memory
+   (cuDNN pinned deterministic for this phase); then ``predict_sharded``
+   -> ``LabelIndexTransformer.transform_sharded`` -> ``AccuracyEvaluator``
+   from the prediction shards equals the in-memory pipeline's accuracy.
+   Prints samples/s from disk and in memory (one ``train()`` each, the
+   host's staging and casts included), the device's idle share over one
+   streamed epoch's ``train()`` and ``native_dataio_active``. (11b) The
+   repository's own text, byte-level, packed to T=2048, the first 64
+   sequences as 4 shards, streamed (``stage_limit_bytes`` under the
+   corpus) through ``LMTrainer`` at phase 6's flagship (bf16, AdamW 3e-4
+   with a bf16 first moment, batch 8, 2 epochs): every loss finite,
+   epoch 2's mean below epoch 1's, the history equal to the same
+   trainer's on the rows staged on the card, each causal kernel launched
+   8 layers x 16 steps times; prints streamed and staged tok/s. (11c) The
+   same at 2 layers (a full-depth checkpoint is ~4.4 GB): run A trains 2
+   epochs with a checkpointer, run B 1, and a new trainer over B's
+   directory resumes to epoch 2 — B's epoch-2 losses and final weights
+   equal A's, bit for bit; prints save and restore seconds and GB/s.
+   (11d) A ``RecordProducer`` feeds 16,384 of 11a's rows over a local
+   socket to ``StreamingPredictor`` (batch 512) on 11a's trained CNN:
+   predictions within 1e-2 of ``ModelPredictor``'s; prints records/s and
+   the flush latency's p50 / p99. (11e) Three Keras configs written here
+   with seeded weights — the reference's CIFAR-10 CNN vocabulary
+   (Conv2D 64/128/256, BatchNormalization, MaxPooling2D, Dropout,
+   Flatten, Dense 256, Dense 10 softmax), a functional block with an
+   ``Add`` skip connection, and Embedding -> LSTM 512 -> GRU 512 ->
+   Dense — through ``from_keras_config``: on the card at f32 without
+   TF32 each within 1e-4 relative of an f64 copy on the CPU; then
+   ``SingleTrainer`` trains the CNN (softmax stripped) one epoch of
+   8,192 rows with finite losses. (11f) With two cards or more, a
+   ``Job`` of 2 local processes (``chip_smoke.py --phase11f-worker``,
+   one card each over NCCL) trains ``DataParallelTrainer`` from 11a's
+   shards; both ranks must end bit-identical. On one card it prints
+   ``{"phase": "11f", "skipped": "one card"}``.
 
 Output: JSON lines per phase, the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line (the serving rows carry every timed shape
@@ -195,8 +237,10 @@ import ctypes
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -299,6 +343,11 @@ MNIST_MIN_ACCURACY = 0.9
 # 0.902, at the example's 16,384 at 1.0
 MNIST_PS = dict(num_workers=4, communication_window=5)
 MNIST_DOWNPOUR = dict(learning_rate=1e-3 / 4, communication_window=1)
+# EAMSGD's Nesterov SGD: at 0.05 its center ends under the 0.9 bound in
+# a share of runs (four async worker threads order their elastic rounds
+# differently each run), at 0.02 in none of those measured
+# (ps_sweep.py --task mnist; PERF.md §6)
+MNIST_EAMSGD_LR = 0.02
 # phase 9: the parameter-server family. 9a: BASELINE.json's CIFAR
 # configurations (examples/cifar10_training.py:41-72) at CIFAR-10's
 # training size, made as that example's load_data makes its rows
@@ -353,6 +402,30 @@ PS_WITNESS_TOL = {"bfloat16": {"logits": 1e-1, "loss": 5e-3,
                                "center": 1e-2, "update": 5e-1},
                   "float64": {"logits": 1e-10, "loss": 1e-10,
                               "center": 1e-8, "update": 1e-8}}
+# phase 11: I/O and deployment. 11a: BASELINE.json's CIFAR rows (phase
+# 9a's) written at 4,096 rows a shard (write_shards splits them evenly:
+# 13 shards) through DataParallelTrainer at phase 8a's settings
+STREAM_CIFAR_ROWS = 50_000
+STREAM_ROWS_PER_SHARD = 4096
+STREAM_CIFAR_TRAIN = dict(worker_optimizer="momentum", learning_rate=0.05,
+                          batch_size=2048, num_epoch=2)
+# 11b: the repository's text packed to phase 6's T, as 4 shards, through
+# LMTrainer at phase 6's width; 11c: the same, 2 layers deep (a full-depth
+# checkpoint is ~4.4 GB: 436M f32 masters, bf16 mu, f32 nu)
+LM_STREAM = dict(seqs=64, shards=4, batch_size=8, num_epoch=2)
+CKPT_LAYERS = 2
+# 11d: streamed records, the flush size, the bound against ModelPredictor
+STREAM_RECORDS, STREAM_BATCH, STREAM_TOL = 16384, 512, 1e-2
+# 11e: the Keras configs' sizes, rows through each, the card's f32 (no
+# TF32) against f64 on the CPU, and the imported CNN's training run
+KERAS_CNN = dict(input=(32, 32, 3), widths=(64, 128, 256), dense=256)
+KERAS_TEXT = dict(vocab=256, embed=128, units=512, T=64)
+KERAS_ROWS, KERAS_TOL = 16, 1e-4
+KERAS_TRAIN_ROWS = 8192
+KERAS_TRAIN = dict(worker_optimizer="sgd", learning_rate=0.01,
+                   batch_size=256, num_epoch=1)
+# 11f: the Job's CNN widths (phase 8a's)
+JOB_WIDTHS = (64, 128, 256)
 
 
 def _fail(msg):
@@ -1402,14 +1475,13 @@ PS_NAMES = ("DOWNPOUR", "ADAG", "DynSGD", "AEASGD", "EAMSGD", "EASGD")
 def _mnist_ps_train(name):
     """8b's settings for a PS trainer: MNIST_TRAIN with MNIST_PS; DOWNPOUR
     with MNIST_DOWNPOUR; EAMSGD trains its own Nesterov SGD (it refuses
-    another worker optimizer) at the learning rate the example's SGD
-    trainers take."""
+    another worker optimizer) at MNIST_EAMSGD_LR."""
     kw = dict(MNIST_TRAIN, **MNIST_PS)
     if name == "DOWNPOUR":
         kw.update(MNIST_DOWNPOUR)
     if name == "EAMSGD":
         del kw["worker_optimizer"]
-        kw["learning_rate"] = 0.05
+        kw["learning_rate"] = MNIST_EAMSGD_LR
     return kw
 
 
@@ -2153,10 +2225,14 @@ def modes_phase(torch, np, dk, pa, sp, chunked):
             want_splash = splash(eng, summary) * L
         mode_check(eng, summary, pa, sp, L, paged, want_splash,
                    prefills=prefills)
-        out[name] = mode_summary(
-            requests, summary, eng, streams,
-            chunked["paged" if paged else "slot"] if ref and chunked
-            else None)
+        base = (chunked["paged" if paged else "slot"] if ref and chunked
+                else None)
+        out[name] = mode_summary(requests, summary, eng, streams, base)
+        if base is not None:
+            # each greedy stream that leaves the chunked engine's, with
+            # the top-2 logit gap where it does (bf16 near ties)
+            out[name]["greedy_flips"] = greedy_flips(
+                torch, np, model, requests, streams, base)
         return eng
 
     chunk_ticks = lambda eng, summ: summ["chunk_ticks"]  # noqa: E731
@@ -2311,6 +2387,567 @@ def swap_phase(torch, np, dk, pa, sp, model, requests, chunked):
     return mode_check(eng, summary, pa, sp, L, True)
 
 
+# -- phase 11: I/O and deployment ---------------------------------------------
+
+
+def _delta(np, a, b):
+    """max |a - b| over max |b| (0 when both are 0)."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    scale = float(np.abs(b).max()) if b.size else 0.0
+    gap = float(np.abs(a - b).max()) if b.size else 0.0
+    return gap / scale if scale else gap
+
+
+def _params_equal(np, dk, a, b) -> bool:
+    fa, fb = dk["rules"].flatten(a), dk["rules"].flatten(b)
+    return sorted(fa) == sorted(fb) and all(
+        np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def _free(torch):
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def dp_stream_phase(torch, np, dk, workdir):
+    """11a: BASELINE.json's CIFAR rows written as shards and streamed
+    through DataParallelTrainer (a world of one) against the same trainer
+    on the rows in memory; then predict_sharded -> transform_sharded ->
+    AccuracyEvaluator against the in-memory pipeline. Returns (summary,
+    the streamed run's model, the shard directory, the rows)."""
+    x, y = cifar_rows(np, STREAM_CIFAR_ROWS)
+    onehot = np.eye(10, dtype=np.float32)[y]
+    rows = dk["PartitionedDataset"].from_arrays({"features": x,
+                                                 "label": onehot})
+    t0 = time.perf_counter()
+    shard_dir = dk["write_shards"](rows, os.path.join(workdir, "cifar"),
+                                   STREAM_ROWS_PER_SHARD)
+    write_s = time.perf_counter() - t0
+    sds = dk["ShardedDataset"](shard_dir)
+    nbytes = sum(os.path.getsize(os.path.join(shard_dir, f))
+                 for f in os.listdir(shard_dir))
+    # cuDNN's default algorithms may reduce in a varying order (a
+    # backward-weight split); pinned for this phase, so two runs of the
+    # same batches can be held equal bit for bit
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def run(data, epochs=None):
+        model = dk["get_model"]("cifar_cnn", device=DEV, seed=0)
+        tr = dk["DataParallelTrainer"](model, **dict(
+            STREAM_CIFAR_TRAIN, **({"num_epoch": epochs} if epochs else {})))
+        sync(torch)
+        t = time.perf_counter()
+        tr.train(data)
+        sync(torch)
+        return tr, model, time.perf_counter() - t
+
+    try:
+        mem, _, _ = run(rows)  # the reference (and warm-up)
+        disk, model, disk_s = run(sds)
+        mem2, _, mem_s = run(rows)
+        idle = _idle_share(torch, dk, lambda: run(sds, epochs=1))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    # informational: the same in-memory run under cuDNN's defaults
+    free = run(rows)[0].history
+    free_equal = free == mem.history
+    free_gap = max(abs(a["loss"] - b["loss"])
+                   for a, b in zip(free, mem.history))
+    B = STREAM_CIFAR_TRAIN["batch_size"]
+    steps = STREAM_CIFAR_TRAIN["num_epoch"] * (STREAM_CIFAR_ROWS // B)
+    if len(disk.history) != steps:
+        raise AssertionError(f"11a: {len(disk.history)} streamed steps, "
+                             f"want {steps}")
+    losses = [h["loss"] for h in disk.history]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"11a: streamed losses not finite: {losses}")
+    if disk.history != mem.history or mem2.history != mem.history:
+        gap = max(abs(a["loss"] - b["loss"])
+                  for a, b in zip(disk.history, mem.history))
+        raise AssertionError(f"11a: streamed history != in-memory history "
+                             f"(largest loss gap {gap})")
+    if not _params_equal(np, dk, disk.params, mem.params):
+        raise AssertionError("11a: streamed params != in-memory params")
+    del mem, mem2
+    # the pipeline from disk against the same stages in memory
+    trained = dk["Model"](model)
+    t0 = time.perf_counter()
+    pred_dir = dk["ModelPredictor"](trained).predict_sharded(
+        sds, os.path.join(workdir, "pred"))
+    idx_dir = dk["LabelIndexTransformer"](10).transform_sharded(
+        dk["ShardedDataset"](pred_dir), os.path.join(workdir, "index"))
+    acc_disk = dk["AccuracyEvaluator"]().evaluate(dk["ShardedDataset"](
+        idx_dir))
+    pipe_s = time.perf_counter() - t0
+    loaded = sds.load()
+    pred = dk["LabelIndexTransformer"](10).transform(
+        dk["ModelPredictor"](trained).predict(loaded))
+    acc_mem = dk["AccuracyEvaluator"]().evaluate(pred)
+    if acc_disk != acc_mem:
+        raise AssertionError(f"11a: accuracy from shards {acc_disk} != in "
+                             f"memory {acc_mem}")
+    for d in (pred_dir, idx_dir):
+        shutil.rmtree(d)
+    samples = steps * B
+    return {
+        "config": f"cifar_cnn-bf16-b{B}-momentum"
+                  f"{STREAM_CIFAR_TRAIN['learning_rate']}-"
+                  f"{STREAM_CIFAR_TRAIN['num_epoch']}ep-shuffle_off",
+        "rows": STREAM_CIFAR_ROWS, "shards": sds.num_shards,
+        "shard_bytes": nbytes, "write_s": write_s,
+        "native_dataio_active": dk["native_dataio_active"](),
+        "cudnn_deterministic": True,
+        "default_cudnn_history_equal": free_equal,
+        "default_cudnn_max_loss_gap": free_gap,
+        "history_equal": True, "params_equal": True, "steps": steps,
+        "first_loss": losses[0], "last_loss": losses[-1],
+        "disk_samples_per_s": samples / disk_s,
+        "memory_samples_per_s": samples / mem_s,
+        "disk_s": disk_s, "memory_s": mem_s,
+        "streamed_epoch": idle,
+        "accuracy": acc_disk, "pipeline_s": pipe_s,
+    }, model, sds, x
+
+
+def lm_corpus(np, dk, here):
+    """11b's corpus: the repository's own text, byte-level, packed to the
+    flagship's T, the first LM_STREAM["seqs"] sequences."""
+    T, n = TRAIN["max_len"], LM_STREAM["seqs"]
+    text = dk["text"]
+    ids = text.corpus_from_dir(here, max_bytes=n * T + 1)
+    return text.pack_sequences(ids, T)[:n]
+
+
+def _lm_trainer(torch, dk, layers=None, **kw):
+    """An LMTrainer at phase 6's width (``layers`` deep) from seed 2,
+    AdamW with a bf16 first moment; ``kw`` overrides LM_STREAM's batch
+    and epochs."""
+    cfg = dict(TRAIN, **({"num_layers": layers} if layers else {}))
+    model = dk["get_model"]("transformer_lm", dtype=torch.bfloat16,
+                            device=DEV, seed=2, **cfg)
+    opts = dict(batch_size=LM_STREAM["batch_size"],
+                num_epoch=LM_STREAM["num_epoch"],
+                worker_optimizer=dk["get_optimizer"](
+                    "adamw", TRAIN_LR, mu_dtype=torch.bfloat16))
+    opts.update(kw)
+    return dk["LMTrainer"](model, **opts)
+
+
+def lm_stream_phase(torch, np, dk, fa, pp, workdir, here):
+    """11b: the corpus as shards streamed through LMTrainer at the
+    flagship's width against the same trainer on the rows staged on the
+    device. Returns (summary, the shard directory)."""
+    toks = lm_corpus(np, dk, here)
+    n, T = toks.shape
+    if n != LM_STREAM["seqs"]:
+        raise AssertionError(f"11b: the corpus packs {n} sequences")
+    ds = dk["PartitionedDataset"].from_arrays({"tokens": toks})
+    shard_dir = dk["write_shards"](ds, os.path.join(workdir, "corpus"),
+                                   n // LM_STREAM["shards"])
+    sds = dk["ShardedDataset"](shard_dir)
+    stage = toks.nbytes // 2  # under the corpus: it streams
+    staged = _lm_trainer(torch, dk)
+    sync(torch)
+    t0 = time.perf_counter()
+    staged.train(ds)
+    sync(torch)
+    staged_s = time.perf_counter() - t0
+    del staged.model
+    _free(torch)
+    streamed = _lm_trainer(torch, dk, stage_limit_bytes=stage)
+    if not streamed._maybe_materialize(sds)[1]:
+        raise AssertionError("11b: the corpus did not stream")
+    zero_training_counts(fa, pp)
+    sync(torch)
+    t0 = time.perf_counter()
+    streamed.train(sds)
+    sync(torch)
+    streamed_s = time.perf_counter() - t0
+    launches = training_counts(fa, pp)
+    del streamed.model
+    _free(torch)
+    losses = np.array([h["loss"] for h in streamed.history])
+    per = n // LM_STREAM["batch_size"]
+    steps = LM_STREAM["num_epoch"] * per
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"11b: history {losses}: want {steps} finite "
+                             f"losses")
+    if not losses[per:2 * per].mean() < losses[:per].mean():
+        raise AssertionError(f"11b: epoch 2's mean loss did not fall: "
+                             f"{losses}")
+    if streamed.history != staged.history:
+        gap = float(np.abs(losses - [h["loss"] for h in staged.history]
+                           ).max())
+        raise AssertionError(f"11b: streamed history != staged history "
+                             f"(largest gap {gap})")
+    L = TRAIN["num_layers"]
+    hd = TRAIN["d_model"] // TRAIN["num_heads"]
+    want = L * steps if fa.preferred(T, hd, torch.bfloat16, DEV) else 0
+    expect = {k: (want if k in CAUSAL_NAMES else 0) for k in launches}
+    if launches != expect:
+        raise AssertionError(f"11b: kernel launches {launches} != {expect} "
+                             f"(layers x steps)")
+    tokens = steps * LM_STREAM["batch_size"] * T
+    return {
+        "corpus": f"{n} x {T} bytes of the repository's text, "
+                  f"{sds.num_shards} shards",
+        "stage_limit_bytes": stage, "steps": steps,
+        "losses": losses.tolist(), "history_equal": True,
+        "epoch_means": [float(losses[:per].mean()),
+                        float(losses[per:].mean())],
+        "launches": {k: launches[k] for k in CAUSAL_NAMES},
+        "streamed_tok_per_s": tokens / streamed_s,
+        "staged_tok_per_s": tokens / staged_s,
+        "streamed_s": streamed_s, "staged_s": staged_s,
+    }, sds
+
+
+def _timed_checkpointer(dk, directory, log):
+    """A Checkpointer whose saves and restores append (seconds, bytes of
+    the step's file) to ``log["save"]`` / ``log["restore"]``."""
+    ck = dk["Checkpointer"](directory, every_steps=1)
+    save, restore = ck.maybe_save, ck.restore
+
+    def timed_save(step, *a, **kw):
+        t0 = time.perf_counter()
+        saved = save(step, *a, **kw)
+        if saved:
+            log["save"].append((time.perf_counter() - t0,
+                                os.path.getsize(ck._path(step))))
+        return saved
+
+    def timed_restore(step=None, like=None):
+        t0 = time.perf_counter()
+        got, state = restore(step, like)
+        if state is not None:
+            log["restore"].append((time.perf_counter() - t0,
+                                   os.path.getsize(ck._path(got))))
+        return got, state
+
+    ck.maybe_save, ck.restore = timed_save, timed_restore
+    return ck
+
+
+def resume_phase(torch, np, dk, workdir, sds):
+    """11c: run A trains 2 epochs from 11b's shards with a checkpointer;
+    run B trains 1, and a new trainer over B's directory resumes to epoch
+    2: B's epoch-2 losses and final weights must equal A's."""
+    log = {"save": [], "restore": []}
+    stage = 1  # stream
+    dirs = [os.path.join(workdir, d) for d in ("ckpt_a", "ckpt_b")]
+    a = _lm_trainer(torch, dk, CKPT_LAYERS, stage_limit_bytes=stage,
+                    checkpointer=_timed_checkpointer(dk, dirs[0], log))
+    a.train(sds)
+    del a.model
+    _free(torch)
+    b1 = _lm_trainer(torch, dk, CKPT_LAYERS, stage_limit_bytes=stage,
+                     checkpointer=_timed_checkpointer(dk, dirs[1], log),
+                     num_epoch=1)
+    b1.train(sds)
+    del b1.model
+    _free(torch)
+    b2 = _lm_trainer(torch, dk, CKPT_LAYERS, stage_limit_bytes=stage,
+                     checkpointer=_timed_checkpointer(dk, dirs[1], log))
+    b2.train(sds)
+    del b2.model
+    _free(torch)
+    per = len(a.history) // 2
+    if not (b1.history == a.history[:per] and b2.history == a.history[per:]):
+        raise AssertionError(
+            f"11c: resumed losses {b2.history} != run A's epoch 2 "
+            f"{a.history[per:]}")
+    if not _params_equal(np, dk, b2.params, a.params):
+        raise AssertionError("11c: resumed weights != run A's")
+    # A saves epochs 1 and 2, B epoch 1, the resumed run epoch 2
+    if len(log["restore"]) != 1 or len(log["save"]) != 4:
+        raise AssertionError(f"11c: saves {log['save']}, restores "
+                             f"{log['restore']}")
+    for d in dirs:
+        shutil.rmtree(d)
+    save_s = [s for s, _ in log["save"]]
+    nbytes = log["save"][0][1]
+    rs, rb = log["restore"][0]
+    return {"layers": CKPT_LAYERS, "steps": len(a.history),
+            "epoch2_losses": [h["loss"] for h in b2.history],
+            "losses_equal": True, "params_equal": True,
+            "checkpoint_bytes": nbytes, "save_s": save_s,
+            "save_gb_per_s": [b / s / 1e9 for s, b in log["save"]],
+            "restore_s": rs, "restore_gb_per_s": rb / rs / 1e9}
+
+
+def streaming_phase(torch, np, dk, model, x):
+    """11d: RecordProducer -> socket -> StreamingPredictor on 11a's
+    trained CNN against ModelPredictor on the same rows."""
+    n = STREAM_RECORDS
+    records = [{"id": i, "features": x[i]} for i in range(n)]
+    trained = dk["Model"](model)
+    prod = dk["RecordProducer"](records, chunk=32).start()
+    pred = dk["StreamingPredictor"](trained, batch_size=STREAM_BATCH)
+    t0 = time.perf_counter()
+    out = list(pred.predict_stream(dk["socket_source"](prod.host, prod.port,
+                                                       timeout=120)))
+    wall = time.perf_counter() - t0
+    prod.join()
+    if [r["id"] for r in out] != list(range(n)):
+        raise AssertionError("11d: records out of order or missing")
+    got = np.stack([r["prediction"] for r in out])
+    want = dk["ModelPredictor"](trained).predict(
+        dk["PartitionedDataset"].from_arrays({"features": x[:n]})
+    ).column("prediction")
+    gap = float(np.abs(got - want).max())
+    if not gap <= STREAM_TOL:
+        raise AssertionError(f"11d: streamed predictions differ from "
+                             f"ModelPredictor's by {gap} > {STREAM_TOL}")
+    flush = np.asarray(pred.flush_ms)
+    return {"records": n, "batch_size": STREAM_BATCH,
+            "flushes": pred.batches_run, "records_per_s": n / wall,
+            "flush_ms_p50": float(np.percentile(flush, 50)),
+            "flush_ms_p99": float(np.percentile(flush, 99)),
+            "max_abs_gap_vs_model_predictor": gap, "tol": STREAM_TOL}
+
+
+def _keras_layer(cls, **cfg):
+    return {"class_name": cls, "config": cfg}
+
+
+def keras_configs(np):
+    """11e's three Keras configs (as ``model.get_config()`` writes them)
+    and seeded ``get_weights()`` lists: the reference's CIFAR-10 CNN
+    vocabulary, a functional block with an Add skip connection, and an
+    Embedding -> LSTM -> GRU -> Dense text model. Returns [(name, config,
+    weights, input shape, integer vocabulary or None)]."""
+    rng = np.random.default_rng(21)
+    w, seq = [], []
+
+    def conv(cin, cout):
+        w.extend([(rng.normal(size=(3, 3, cin, cout))
+                   * np.sqrt(2.0 / (9 * cin))).astype(np.float32),
+                  (rng.normal(size=cout) * 0.05).astype(np.float32)])
+        return _keras_layer("Conv2D", filters=cout, kernel_size=[3, 3],
+                            padding="same", activation="relu")
+
+    def bn(c):
+        w.extend([(1 + 0.1 * rng.normal(size=c)).astype(np.float32),
+                  (0.1 * rng.normal(size=c)).astype(np.float32),
+                  (0.1 * rng.normal(size=c)).astype(np.float32),
+                  rng.uniform(0.5, 1.5, size=c).astype(np.float32)])
+        return _keras_layer("BatchNormalization", epsilon=1e-3)
+
+    def dense(cin, cout, act):
+        w.extend([(rng.normal(size=(cin, cout)) / np.sqrt(cin)
+                   ).astype(np.float32),
+                  (rng.normal(size=cout) * 0.05).astype(np.float32)])
+        return _keras_layer("Dense", units=cout, activation=act)
+
+    cin, hw = KERAS_CNN["input"][2], KERAS_CNN["input"][0]
+    for width in KERAS_CNN["widths"]:
+        seq += [conv(cin, width), bn(width), conv(width, width), bn(width),
+                _keras_layer("MaxPooling2D", pool_size=[2, 2]),
+                _keras_layer("Dropout", rate=0.25)]
+        cin, hw = width, hw // 2
+    seq += [_keras_layer("Flatten"), dense(hw * hw * cin, KERAS_CNN["dense"],
+                                           "relu"),
+            _keras_layer("Dropout", rate=0.5), dense(KERAS_CNN["dense"], 10,
+                                                     "softmax")]
+    cnn = {"name": "cifar10_cnn", "layers": [_keras_layer(
+        "InputLayer", batch_shape=[None] + list(KERAS_CNN["input"]))] + seq}
+    out = [("sequential_cifar_cnn", cnn, w, KERAS_CNN["input"], None)]
+
+    # the weights in layer order: c1's kernel and bias, c2's, the head's
+    w = []
+    c = KERAS_CNN["widths"][0]
+    c1 = conv(KERAS_CNN["input"][2], c)["config"]
+    c2 = dict(conv(c, c)["config"], activation="linear")
+    dense(c, 10, "softmax")
+
+    def node(cls, name, parents, **cfg):
+        return {"class_name": cls, "name": name,
+                "config": dict(cfg, name=name),
+                "inbound_nodes": [[[p, 0, 0, {}] for p in parents]]
+                if parents else []}
+
+    graph = {"name": "skip_block", "layers": [
+        node("InputLayer", "in", [],
+             batch_shape=[None] + list(KERAS_CNN["input"])),
+        node("Conv2D", "c1", ["in"], **c1),
+        node("Conv2D", "c2", ["c1"], **c2),
+        node("Add", "skip", ["c1", "c2"]),
+        node("Activation", "act", ["skip"], activation="relu"),
+        node("MaxPooling2D", "pool", ["act"], pool_size=[2, 2]),
+        node("GlobalAveragePooling2D", "gap", ["pool"]),
+        node("Dense", "head", ["gap"], units=10, activation="softmax")],
+        "input_layers": [["in", 0, 0]], "output_layers": [["head", 0, 0]]}
+    out.append(("functional_add_skip", graph, w, KERAS_CNN["input"], None))
+
+    V, E, U, T = (KERAS_TEXT[k] for k in ("vocab", "embed", "units", "T"))
+    w = [(rng.normal(size=(V, E)) * 0.1).astype(np.float32)]
+    for cls, cin, gates in (("LSTM", E, 4), ("GRU", U, 3)):
+        w += [(rng.normal(size=(cin, gates * U)) / np.sqrt(cin)
+               ).astype(np.float32),
+              (rng.normal(size=(U, gates * U)) / np.sqrt(U)
+               ).astype(np.float32),
+              (rng.normal(size=(gates * U,) if cls == "LSTM"
+                          else (2, gates * U)) * 0.05).astype(np.float32)]
+    dense(U, 10, "softmax")
+    text = {"name": "text", "layers": [
+        _keras_layer("InputLayer", batch_shape=[None, T], dtype="int32"),
+        _keras_layer("Embedding", input_dim=V, output_dim=E),
+        _keras_layer("LSTM", units=U, return_sequences=True),
+        _keras_layer("GRU", units=U),
+        _keras_layer("Dense", units=10, activation="softmax")]}
+    out.append(("embedding_lstm_gru", text, w, (T,), V))
+    return out
+
+
+def keras_phase(torch, np, dk):
+    """11e: each config through from_keras_config on the card at f32 (no
+    TF32) against an f64 copy on the CPU; then SingleTrainer trains the
+    CNN one epoch with its softmax stripped."""
+    rng = np.random.default_rng(22)
+    out = {}
+    for name, config, weights, shape, vocab in keras_configs(np):
+        x = (rng.integers(0, vocab, size=(KERAS_ROWS,) + tuple(shape))
+             if vocab else rng.uniform(0, 1, size=(KERAS_ROWS,)
+                                       + tuple(shape)).astype(np.float32))
+        card = dk["from_keras_config"](config, weights, precision="highest",
+                                       device=DEV)
+        cpu = dk["from_keras_config"](config, weights, device="cpu")
+        cpu.module.double()
+        with torch.no_grad():
+            got = card.module(x).cpu().numpy()
+            want = cpu.module(x).numpy()
+        gap = _delta(np, got, want)
+        if not gap <= KERAS_TOL:
+            raise AssertionError(f"11e {name}: card f32 vs CPU f64 relative "
+                                 f"gap {gap} > {KERAS_TOL}")
+        out[name] = {"module": type(card.module).__name__,
+                     "params": sum(p.numel() for p in
+                                   card.module.parameters()),
+                     "rel_gap_vs_cpu_f64": gap}
+        del card, cpu
+    name, config, weights, shape, _ = keras_configs(np)[0]
+    model = dk["from_keras_config"](config, weights, strip_final_softmax=True,
+                                    device=DEV)
+    xs, y = cifar_rows(np, KERAS_TRAIN_ROWS)
+    ds = dk["PartitionedDataset"].from_arrays(
+        {"features": xs, "label": np.eye(10, dtype=np.float32)[y]})
+    tr = dk["SingleTrainer"](model.module, **KERAS_TRAIN)
+    t0 = time.perf_counter()
+    tr.train(ds)
+    wall = time.perf_counter() - t0
+    losses = [h["loss"] for h in tr.history]
+    if len(losses) != KERAS_TRAIN_ROWS // KERAS_TRAIN["batch_size"] or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"11e: imported CNN's losses {losses}")
+    out["single_trainer"] = {"steps": len(losses), "first_loss": losses[0],
+                             "last_loss": losses[-1], "wall_s": wall}
+    del model, tr
+    _free(torch)
+    return out
+
+
+def job_phase(torch, np, dk, shard_dir, here, cards=None):
+    """11f: a Job of 2 local processes trains DataParallelTrainer from
+    11a's shards, one card each over NCCL (gloo on the CPU); both ranks
+    must end bit-identical. Skipped, and said so, below two cards."""
+    cards = torch.cuda.device_count() if cards is None else cards
+    if cards < 2:
+        return {"phase": "11f", "skipped": "one card"}
+    out = tempfile.mkdtemp(dir=os.path.dirname(shard_dir))
+    cfg = {"out": out, "shards": shard_dir, "device": DEV,
+           "train": STREAM_CIFAR_TRAIN, "widths": JOB_WIDTHS}
+    job = dk["Job"](os.path.join(here, "chip_smoke.py"),
+                    ["--phase11f-worker", json.dumps(cfg)],
+                    hosts=["local", "local"], python=sys.executable,
+                    coordinator_port=_free_port(), ps_port=_free_port(),
+                    env={"PYTHONPATH": here})
+    t0 = time.perf_counter()
+    procs = job.run(wait=False)
+    try:
+        codes = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if codes != [0, 0]:
+        raise AssertionError(f"11f: job processes exited {codes}")
+    ranks = [json.load(open(os.path.join(out, f"rank{r}.json")))
+             for r in (0, 1)]
+    shutil.rmtree(out)
+    if ranks[0]["digest"] != ranks[1]["digest"] or \
+            ranks[0]["history"] != ranks[1]["history"]:
+        raise AssertionError("11f: the two ranks ended with different "
+                             "parameters or histories")
+    losses = [h["loss"] for h in ranks[0]["history"]]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"11f: losses not finite: {losses}")
+    return {"phase": "11f", "processes": 2, "backend": ranks[0]["backend"],
+            "steps": len(losses), "batches_per_rank": ranks[0]["batches"],
+            "bit_identical": True, "wall_s": wall,
+            "digest": ranks[0]["digest"]}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def job_worker(cfg_json: str) -> int:
+    """One process of 11f's Job (``chip_smoke.py --phase11f-worker
+    <json>``): join the world from the DK_TPU_* environment, train
+    DataParallelTrainer from the shards, write the parameters' digest."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from distkeras_torch import runtime, trainers
+    from distkeras_torch.data.shard_io import ShardedDataset
+    from distkeras_torch.models import get_model
+    from distkeras_torch.ops import rules
+
+    cfg = json.loads(cfg_json)
+    cpu = cfg["device"] == "cpu"
+    ctx = runtime.initialize(device="cpu" if cpu else None)
+    dev = ctx.device
+    model = get_model("cifar_cnn", device=dev, seed=0,
+                      widths=tuple(cfg["widths"]))
+    tr = trainers.DataParallelTrainer(model, **cfg["train"])
+    seen = []
+    windows = tr._stream_windows
+
+    def counted(*a):
+        inner = windows(*a)
+
+        def feed(epoch):
+            for xs, ys in inner(epoch):
+                seen.append(len(xs))
+                yield xs, ys
+        return feed
+
+    tr._stream_windows = counted
+    tr.train(ShardedDataset(cfg["shards"]))
+    h = hashlib.sha256()
+    for k, v in sorted(rules.flatten(tr.params).items()):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(v).tobytes())
+    with open(os.path.join(cfg["out"], f"rank{ctx.process_id}.json"),
+              "w") as fh:
+        json.dump({"digest": h.hexdigest(), "history": tr.history,
+                   "batches": sum(seen),
+                   "backend": torch.distributed.get_backend()}, fh)
+    runtime.shutdown()
+    return 0
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2344,6 +2981,13 @@ def main() -> int:
         from distkeras_torch import evaluators, predictors, trainers
         from distkeras_torch import transformers as stages
         from distkeras_torch.parameter_servers import DeltaParameterServer
+        from distkeras_torch import streaming
+        from distkeras_torch.checkpoint import Checkpointer
+        from distkeras_torch.data import shard_io, text
+        from distkeras_torch.job_deployment import Job
+        from distkeras_torch.models.wrapper import Model
+        from distkeras_torch.ops import rules
+        from distkeras_torch.utils.keras_import import from_keras_config
     except ImportError as e:
         return _fail(f"run from a checkout of the repository ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2368,7 +3012,16 @@ def main() -> int:
           "OneHotTransformer": stages.OneHotTransformer,
           "LabelIndexTransformer": stages.LabelIndexTransformer,
           "DeltaParameterServer": DeltaParameterServer,
-          **{name: getattr(trainers, name) for name in PS_NAMES}}
+          **{name: getattr(trainers, name) for name in PS_NAMES},
+          "write_shards": shard_io.write_shards,
+          "ShardedDataset": shard_io.ShardedDataset,
+          "native_dataio_active": shard_io.native_dataio_active,
+          "text": text, "Checkpointer": Checkpointer, "Model": Model,
+          "StreamingPredictor": streaming.StreamingPredictor,
+          "RecordProducer": streaming.RecordProducer,
+          "socket_source": streaming.socket_source,
+          "from_keras_config": from_keras_config, "Job": Job,
+          "rules": rules}
 
     smi = nvidia_smi()
     kern = build.load()
@@ -2465,6 +3118,34 @@ def main() -> int:
     modes["seconds"] = time.perf_counter() - t0
     _emit({"engine_modes_phase": modes})
 
+    workdir = tempfile.mkdtemp(prefix="dk_phase11_")
+    try:
+        t0 = time.perf_counter()
+        dp, cnn, cifar_sds, cifar_x = dp_stream_phase(torch, np, dk,
+                                                      workdir)
+        dp["seconds"] = time.perf_counter() - t0
+        _emit({"dp_stream_phase": dp})
+        t0 = time.perf_counter()
+        lm, corpus = lm_stream_phase(torch, np, dk, fa, pp, workdir, here)
+        lm["seconds"] = time.perf_counter() - t0
+        _emit({"lm_stream_phase": lm})
+        t0 = time.perf_counter()
+        resume = resume_phase(torch, np, dk, workdir, corpus)
+        resume["seconds"] = time.perf_counter() - t0
+        _emit({"resume_phase": resume})
+        t0 = time.perf_counter()
+        stream = streaming_phase(torch, np, dk, cnn, cifar_x)
+        stream["seconds"] = time.perf_counter() - t0
+        _emit({"streaming_phase": stream})
+        del cnn, cifar_x
+        t0 = time.perf_counter()
+        keras = keras_phase(torch, np, dk)
+        keras["seconds"] = time.perf_counter() - t0
+        _emit({"keras_phase": keras})
+        _emit(job_phase(torch, np, dk, cifar_sds.directory, here))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
     main_paged = next(c for c in paged if c["T"] == 64 and c["pool"] == "int8")
     main_splash = next(c for c in splash if c["dtype"] == "bf16")
     timed = ("T", "hd", "pool", "dtype", "starts", "ms", "plain_ms",
@@ -2559,4 +3240,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase11f-worker":
+        sys.exit(job_worker(sys.argv[2]))
     sys.exit(main())

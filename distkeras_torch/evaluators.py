@@ -3,7 +3,8 @@
 
 Reference: distkeras/evaluators.py · AccuracyEvaluator — a Spark stage
 comparing a label column with a prediction column. ``AccuracyEvaluator``
-is numpy over the collected columns; ``PerplexityEvaluator`` runs the
+is numpy over the partitions (or a ShardedDataset's shards, one at a
+time); ``PerplexityEvaluator`` runs the
 port's :class:`~distkeras_torch.models.TransformerLM` batch by batch on
 its device; ``LossEvaluator`` applies a port loss to two columns.
 """
@@ -17,11 +18,17 @@ import torch.nn.functional as F
 from distkeras_torch.data.dataset import PartitionedDataset
 
 
-def _reject_sharded(dataset):
-    if hasattr(dataset, "read_shard") or hasattr(dataset, "num_shards"):
-        raise NotImplementedError(
-            "evaluating a ShardedDataset is not ported yet (ROADMAP A9b); "
-            "load it into a PartitionedDataset")
+def _chunks(dataset):
+    """A dataset's partitions, or a ShardedDataset's shards read one at a
+    time."""
+    from distkeras_torch.data.shard_io import ShardedDataset
+
+    if isinstance(dataset, ShardedDataset):
+        for i in range(dataset.num_shards):
+            yield dataset.read_shard(i)
+    else:
+        for i in range(dataset.num_partitions):
+            yield dataset.partition(i)
 
 
 class Evaluator:
@@ -50,11 +57,15 @@ class AccuracyEvaluator(Evaluator):
             label = label.argmax(-1)
         return int(np.sum(pred.astype(np.int64) == label.astype(np.int64)))
 
-    def evaluate(self, dataset: PartitionedDataset) -> float:
-        _reject_sharded(dataset)
-        pred = dataset.column(self.prediction_col)
-        label = dataset.column(self.label_col)
-        return self._score(pred, label) / len(label)
+    def evaluate(self, dataset) -> float:
+        """A PartitionedDataset, or a ShardedDataset streamed shard by
+        shard (exact counts, one shard resident)."""
+        correct = total = 0
+        for part in _chunks(dataset):
+            correct += self._score(np.asarray(part[self.prediction_col]),
+                                   np.asarray(part[self.label_col]))
+            total += len(part[self.label_col])
+        return correct / total
 
 
 class PerplexityEvaluator(Evaluator):
@@ -81,12 +92,11 @@ class PerplexityEvaluator(Evaluator):
         return ce.reshape(len(toks), -1)[:n_valid].sum(), \
             n_valid * (toks.shape[1] - 1)
 
-    def evaluate(self, dataset: PartitionedDataset) -> float:
-        _reject_sharded(dataset)
+    def evaluate(self, dataset) -> float:
         sums, count = [], 0
         B = self.batch_size
-        for i in range(dataset.num_partitions):
-            toks = np.asarray(dataset.partition(i)[self.tokens_col])
+        for part in _chunks(dataset):
+            toks = np.asarray(part[self.tokens_col])
             if toks.ndim != 2:
                 raise ValueError(
                     f"'{self.tokens_col}' must be [N, T] token ids; got "
@@ -118,7 +128,6 @@ class LossEvaluator(Evaluator):
         self.label_col = label_col
 
     def evaluate(self, dataset: PartitionedDataset) -> float:
-        _reject_sharded(dataset)
         pred = torch.as_tensor(dataset.column(self.prediction_col))
         label = torch.as_tensor(dataset.column(self.label_col))
         return float(self._loss_fn(pred, label))

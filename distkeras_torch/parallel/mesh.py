@@ -142,3 +142,18 @@ def make_mesh(axes: Dict[str, int]) -> Mesh:
                 if rank in ranks:
                     groups[key] = g
     return Mesh(axes, coords, groups)
+
+
+def replica_groups(mesh: Mesh, batch_axis: str = "dp"):
+    """``(group index of this process, number of groups)``: the processes
+    grouped by their ``batch_axis`` coordinate, the data-feed unit of
+    multi-process streaming (reference: parallel/mesh.py ·
+    replica_groups). Processes of one group (their sequence shards span
+    processes) are batch REPLICAS and must feed identical rows; groups
+    feed disjoint rows, group ``g`` the ``g``-th block of the global
+    batch. Each mesh position here is one process, so the group is the
+    process's coordinate along ``batch_axis``."""
+    if batch_axis not in mesh.axis_names:
+        raise ValueError(f"mesh {mesh.axis_names} has no '{batch_axis}' "
+                         f"axis")
+    return mesh.index(batch_axis), mesh.axis_size(batch_axis)

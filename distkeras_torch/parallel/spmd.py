@@ -41,7 +41,8 @@ def _next_token_targets(tokens, sp_group, sp: int, my_sp: int):
 
 def make_lm_train_step(model, optimizer, mesh=None, window: bool = False,
                        fused_ce: bool = True, dp_axis: str = "dp",
-                       sp_axis: str = "sp", tp_axis=None):
+                       sp_axis: str = "sp", tp_axis=None,
+                       local_batch: bool = False):
     """The LM training step of a :class:`TransformerLM`, sharded over the
     data (``dp_axis``) and sequence (``sp_axis``) axes of ``mesh``.
 
@@ -72,6 +73,11 @@ def make_lm_train_step(model, optimizer, mesh=None, window: bool = False,
     ``features_only`` twin's output: the head product and softmax-CE run
     chunk by chunk and ``[B, T, V]`` logits never exist. Set False for
     the full-logits path.
+
+    ``local_batch=True`` changes the feed: each rank is handed only its
+    dp coordinate's ``[B/dp, T]`` rows (the disk-streaming feed, where
+    each replica group reads its own stride of shards) and takes just its
+    ``T/sp`` slice of them.
     """
     if tp_axis is not None:
         raise NotImplementedError(
@@ -113,11 +119,13 @@ def make_lm_train_step(model, optimizer, mesh=None, window: bool = False,
 
     def shard(tokens):
         B, T = tokens.shape
-        if B % dp or T % sp:
+        rows = 1 if local_batch else dp
+        if B % rows or T % sp:
             raise ValueError(f"batch [{B}, {T}] does not split over "
-                             f"dp={dp} x sp={sp}")
-        b, t = B // dp, T // sp
-        return tokens[my_dp * b:(my_dp + 1) * b, my_sp * t:(my_sp + 1) * t]
+                             f"dp={rows} x sp={sp}")
+        b, t = B // rows, T // sp
+        r0 = 0 if local_batch else my_dp * b
+        return tokens[r0:r0 + b, my_sp * t:(my_sp + 1) * t]
 
     def batch_update(tokens):
         tokens = shard(tokens)

@@ -13,6 +13,8 @@ pinned host buffer with ``non_blocking`` copies on the current stream,
 and its logits come back the same way, with at most
 :attr:`ModelPredictor._MAX_IN_FLIGHT` chunks in flight: chunk ``i + 1``'s
 upload and compute are queued before chunk ``i``'s result is read.
+:meth:`ModelPredictor.predict_sharded` runs the same feed shard by shard
+over a disk-sharded dataset.
 """
 
 from __future__ import annotations
@@ -99,18 +101,32 @@ class ModelPredictor(Predictor):
             drain_one()
         return np.concatenate(outs, axis=0)[:n]
 
-    def predict(self, dataset: PartitionedDataset) -> PartitionedDataset:
-        if hasattr(dataset, "read_shard") or hasattr(dataset, "num_shards"):
-            raise NotImplementedError(
-                "ModelPredictor over a ShardedDataset is not ported yet "
-                "(ROADMAP A9b); load it into a PartitionedDataset")
+    def predict(self, dataset) -> PartitionedDataset:
+        """Append ``output_col`` to every partition; a
+        :class:`~distkeras_torch.data.shard_io.ShardedDataset` is loaded
+        first (:meth:`predict_sharded` streams it instead)."""
+        from distkeras_torch.data.shard_io import ShardedDataset
+
+        if isinstance(dataset, ShardedDataset):
+            dataset = dataset.load()
         return dataset.with_column(
             self.output_col,
             lambda p: self._predict_array(p[self.features_col]))
 
     def predict_sharded(self, dataset, out_directory: str) -> str:
-        """Shard-by-shard inference into a new shard directory (the
-        reference's disk-scale path). Not ported yet."""
-        raise NotImplementedError(
-            "predict_sharded (disk-sharded datasets) is not ported yet "
-            "(ROADMAP A9b)")
+        """Disk-scale inference: stream a ShardedDataset shard by shard,
+        writing ``out_directory`` as a new shard directory with
+        ``output_col`` appended — one shard resident at a time (the
+        reference's mapPartitions predict at HDFS scale)."""
+        from distkeras_torch.data.shard_io import ShardedDataset, map_shards
+
+        if not isinstance(dataset, ShardedDataset):
+            raise TypeError("predict_sharded takes a ShardedDataset")
+
+        def stage(shard):
+            out = dict(shard)
+            out[self.output_col] = self._predict_array(
+                shard[self.features_col])
+            return out
+
+        return map_shards(dataset, stage, out_directory)

@@ -32,12 +32,21 @@ a window of steps each and then one round over all of them. ``remote_ps=
 (host, port)`` trains against a :class:`~distkeras_torch.networking.
 ParameterServerService` elsewhere. ``checkpointer=``
 (:class:`~distkeras_torch.checkpoint.Checkpointer`) saves and resumes
-``SingleTrainer``, ``DataParallelTrainer`` and the PS family.
+``SingleTrainer``, ``DataParallelTrainer``, ``LMTrainer`` and the PS
+family. Under :func:`distkeras_torch.runtime.initialize` (a multi-process
+:class:`~distkeras_torch.job_deployment.Job`) the PS family wires itself:
+the coordinator owns and serves the center, the other processes train
+against it through a proxy.
 
-Not ported yet, and raising with their ROADMAP item: disk-sharded
-datasets and ``LMTrainer(checkpointer=)`` (A9b), ``LMTrainer``'s ``tp``,
-``pp`` and ``ep`` axes and pipeline ``microbatches`` (A10); an MoE model
-(A10) raises where it is built.
+A :class:`~distkeras_torch.data.shard_io.ShardedDataset` trains
+everywhere a PartitionedDataset does: ``DataParallelTrainer``,
+``LMTrainer`` and the PS family stream it from disk shard by shard, the
+others load it. ``LMTrainer(checkpointer=)`` saves its parameters and
+optimizer state every epoch and resumes from them.
+
+Not ported yet, and raising with their ROADMAP item: ``LMTrainer``'s
+``tp``, ``pp`` and ``ep`` axes and pipeline ``microbatches`` (A10); an
+MoE model (A10) raises where it is built.
 """
 
 from __future__ import annotations
@@ -54,12 +63,24 @@ import torch
 from distkeras_torch import parameter_servers as ps_mod
 from distkeras_torch import workers as workers_mod
 from distkeras_torch.data.dataset import PartitionedDataset
+from distkeras_torch.data.shard_io import ShardedDataset
 from distkeras_torch.models.wrapper import Model
 from distkeras_torch.ops import rules
 from distkeras_torch.utils.history import History, average_histories
 from distkeras_torch.utils.losses import get_optimizer
 from distkeras_torch.workers import (SequentialWorker, _rows,
                                      batch_partition, opt_state_to_host)
+
+
+def _as_partitioned(dataset) -> PartitionedDataset:
+    """A PartitionedDataset as it is, a ShardedDataset loaded; anything
+    else raises."""
+    if isinstance(dataset, ShardedDataset):
+        return dataset.load()
+    if isinstance(dataset, PartitionedDataset):
+        return dataset
+    raise TypeError(f"train() takes a PartitionedDataset or a "
+                    f"ShardedDataset; got {type(dataset).__name__}")
 
 
 class Trainer:
@@ -173,14 +194,12 @@ class Trainer:
             self.record_training_end()
 
     def _coerce_dataset(self, dataset):
-        if isinstance(dataset, PartitionedDataset):
-            return dataset
-        if hasattr(dataset, "read_shard") or hasattr(dataset, "num_shards"):
-            raise NotImplementedError(
-                "disk-sharded datasets (ShardedDataset streaming) are not "
-                "ported yet (ROADMAP A9b); load it into a PartitionedDataset")
-        raise TypeError(f"train() takes a PartitionedDataset; got "
-                        f"{type(dataset).__name__}")
+        """Accept a :class:`~distkeras_torch.data.shard_io.ShardedDataset`
+        anywhere a PartitionedDataset works (reference: Trainer.
+        _coerce_dataset). Trainers that stream it (DataParallelTrainer,
+        the PS family, LMTrainer) override this to pass it through; the
+        rest materialize it."""
+        return _as_partitioned(dataset)
 
     def get_training_time(self) -> float:
         if self._t_start is None:
@@ -422,31 +441,103 @@ class DataParallelTrainer(Trainer):
                 f"per process")
         return make_mesh({"dp": n})
 
-    def _train(self, dataset: PartitionedDataset,
-               shuffle: bool = False) -> Model:
-        if shuffle:
-            dataset = dataset.shuffle(seed=self.seed)
+    def _coerce_dataset(self, dataset):
+        return dataset  # _train streams a ShardedDataset from disk
+
+    # batches per window on the disk-streaming path: one metrics read
+    # each, the epoch's windows read back once it ends
+    STREAM_GROUP = 16
+
+    def _train(self, dataset, shuffle: bool = False) -> Model:
         mesh = self._mesh()
         n, r = mesh.axis_size("dp"), mesh.index("dp")
         B = self.batch_size
-        xb, yb = batch_partition(dataset.repartition(1).partition(0),
-                                 self.features_col, self.label_col, B * n)
-        # this rank's slice of every global batch, in step order
-        local = {self.features_col: xb[:, r * B:(r + 1) * B].reshape(
-                     (-1,) + xb.shape[2:]),
-                 self.label_col: yb[:, r * B:(r + 1) * B].reshape(
-                     (-1,) + yb.shape[2:])}
         worker = SequentialWorker(self.model, self.params,
                                   group=mesh.group("dp"),
                                   **self.worker_kwargs())
-        self._epoch_checkpoints(worker, rank=r)
-        self.params, history = worker.train(r, local)
+        start = self._epoch_checkpoints(worker, rank=r)
+        if isinstance(dataset, ShardedDataset):
+            windows = self._stream_windows(dataset, worker, n, r, shuffle,
+                                           start)
+            self.params, history = worker.train_stream(r, windows)
+        else:
+            dataset = _as_partitioned(dataset)
+            if shuffle:
+                dataset = dataset.shuffle(seed=self.seed)
+            xb, yb = batch_partition(dataset.repartition(1).partition(0),
+                                     self.features_col, self.label_col,
+                                     B * n)
+            # this rank's slice of every global batch, in step order
+            local = {self.features_col: xb[:, r * B:(r + 1) * B].reshape(
+                         (-1,) + xb.shape[2:]),
+                     self.label_col: yb[:, r * B:(r + 1) * B].reshape(
+                         (-1,) + yb.shape[2:])}
+            self.params, history = worker.train(r, local)
         if self.metrics_writer is not None:
             for t, row in enumerate(history):
                 self.metrics_writer.log(step=t + 1, samples=B * n, **row)
         self.history = history
         self.executor_histories = [history]
         return Model(self.model)
+
+    def _stream_windows(self, sds: ShardedDataset, worker, n: int, r: int,
+                        shuffle: bool, start: int):
+        """The disk-streaming feed (reference: DataParallelTrainer._train's
+        sharded branch): ``windows(epoch)`` yields lists of up to
+        :attr:`STREAM_GROUP` device batches of this rank's rows. Shards
+        stream through the epoch without ever merging into one host
+        array, reshuffled two-level per epoch when ``shuffle``; the loader
+        casts f32 features to a bf16 model's dtype and assembles into
+        pinned memory, copied with ``non_blocking``.
+
+        Each of the ``n`` ranks streams the disjoint stride
+        ``range(r, num_shards, n)`` of the directory, every stride capped
+        at the smallest one's batch count, so every rank enters the
+        gradient all-reduce equally often."""
+        B = self.batch_size
+        shards, cap = None, None
+        if n > 1:
+            if sds.num_shards < n:
+                raise ValueError(
+                    f"sharded multi-process training needs >= {n} shards "
+                    f"(one per process); directory has {sds.num_shards} — "
+                    "rewrite with a smaller rows_per_shard")
+            shards = list(range(r, sds.num_shards, n))
+            cap = min(sum(sds.shard_rows[s]
+                          for s in range(p, sds.num_shards, n)) // B
+                      for p in range(n))
+            if cap == 0:
+                raise ValueError(
+                    "some process's shard slice holds fewer rows than one "
+                    f"batch (batch_size={self.batch_size}) — use smaller "
+                    "batches or rebalance the shard directory")
+        dev = worker.device
+        cast = ([self.features_col]
+                if getattr(self.model, "dtype", None) == torch.bfloat16
+                else None)
+        pin = dev.type == "cuda"
+
+        def put(a):
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
+            return t.to(dev, non_blocking=pin)
+
+        def windows(epoch):
+            seed = self.seed + start + epoch if shuffle else None
+            xs, ys = [], []
+            for i, b in enumerate(sds.batches(B, shuffle_seed=seed,
+                                              cast_bf16=cast, shards=shards,
+                                              pin_memory=pin)):
+                if cap is not None and i >= cap:
+                    break
+                xs.append(put(b[self.features_col]))
+                ys.append(put(b[self.label_col]))
+                if len(xs) == self.STREAM_GROUP:
+                    yield xs, ys
+                    xs, ys = [], []
+            if xs:
+                yield xs, ys
+
+        return windows
 
 
 class LMTrainer(Trainer):
@@ -466,7 +557,23 @@ class LMTrainer(Trainer):
     whose ranks each run ``train()`` on the SAME dataset (the process
     form of the reference's single program over the mesh). ``sp > 1``
     needs ``attention='ring'``. The returned :class:`Model` holds the
-    standard-attention twin of a ring model, sharing its parameters."""
+    standard-attention twin of a ring model, sharing its parameters.
+
+    A :class:`~distkeras_torch.data.shard_io.ShardedDataset` whose tokens
+    fit ``stage_limit_bytes`` is loaded and staged like an in-memory
+    one; a bigger one streams from disk in windows, shard by shard (the
+    same trajectory as in memory; ``shuffle=True`` becomes the two-level
+    per-epoch reshuffle). In a world of several processes it always
+    streams: the ranks of one dp coordinate (a replica group,
+    :func:`~distkeras_torch.parallel.mesh.replica_groups`) read the same
+    stride of shards, ``batch_size / dp`` rows a step, every stride
+    capped at the smallest one's step count.
+
+    ``checkpointer=`` saves the parameters, the optimizer state (AdamW's
+    bf16 first moment and its step count included) and ``{"epoch"}``
+    after every epoch, and a new trainer over the same directory resumes
+    after the last saved epoch: the same trajectory as a run that never
+    stopped."""
 
     # optimizer steps per window (one device-side loop, losses kept on
     # the device)
@@ -476,9 +583,6 @@ class LMTrainer(Trainer):
                  tokens_col: str = "tokens",
                  microbatches: Optional[int] = None, **kwargs):
         super().__init__(model, *args, **kwargs)
-        if self.checkpointer is not None:
-            raise NotImplementedError(
-                "LMTrainer(checkpointer=) is not ported yet (ROADMAP A9b)")
         if microbatches is not None:
             raise NotImplementedError(
                 "microbatches (pipeline-parallel training) is not ported "
@@ -493,6 +597,82 @@ class LMTrainer(Trainer):
         self.axes = axes
         self.tokens_col = tokens_col
 
+    def _coerce_dataset(self, dataset):
+        return dataset  # _maybe_materialize decides: load or stream
+
+    @staticmethod
+    def _world() -> int:
+        import torch.distributed as dist
+
+        return (dist.get_world_size() if dist.is_available()
+                and dist.is_initialized() else 1)
+
+    def _maybe_materialize(self, dataset):
+        """``(dataset, sharded)``: a sharded corpus that fits the staging
+        budget is loaded, so it is staged on the device once; a bigger
+        one streams. Several processes always stream (after a load every
+        process would feed every row)."""
+        if not isinstance(dataset, ShardedDataset):
+            return _as_partitioned(dataset), False
+        T = self._sharded_seq_len(dataset)
+        itemsize = np.dtype(
+            dataset.meta["columns"][self.tokens_col]["dtype"]).itemsize
+        small = dataset.num_rows * T * itemsize <= self.stage_limit_bytes
+        if small and self._world() == 1:
+            return dataset.load(), False
+        return dataset, True
+
+    def _sharded_seq_len(self, sds: ShardedDataset) -> int:
+        """Sequence length from the shard metadata (no reads)."""
+        if self.tokens_col not in sds.columns:
+            raise ValueError(
+                f"shard directory has no '{self.tokens_col}' column; "
+                f"available: {sds.columns}")
+        _, row_shape = sds._col_info(self.tokens_col)
+        if len(row_shape) != 1:
+            raise ValueError(
+                f"'{self.tokens_col}' must be [N, T] token ids; shard rows "
+                f"have shape {row_shape}")
+        return row_shape[0]
+
+    def _shard_slice(self, sds: ShardedDataset, rows_per_step: int,
+                     group=None):
+        """``(shard indices, per-epoch step cap)`` of this process: one
+        disjoint stride of shards per replica group (``group=(gid,
+        n_groups)``), every stride capped at the smallest stride's step
+        count so the collective step cannot fall out of step; a single
+        process streams everything, uncapped."""
+        if group is None or self._world() <= 1:
+            return None, None
+        gid, n_strides = group
+        if sds.num_shards < n_strides:
+            raise ValueError(
+                f"sharded multi-process LM training needs >= {n_strides} "
+                f"shards (one per feed stride); directory has "
+                f"{sds.num_shards}")
+        cap = min(sum(sds.shard_rows[s] for s in range(g, sds.num_shards,
+                                                       n_strides))
+                  // rows_per_step for g in range(n_strides))
+        if cap == 0:
+            raise ValueError(
+                "some stride's shard slice holds fewer rows than one "
+                f"step's batch ({rows_per_step}) — use smaller batches or "
+                "rebalance the shard directory")
+        return list(range(gid, sds.num_shards, n_strides)), cap
+
+    def _stream_steps(self, sds: ShardedDataset, rows_per_step: int,
+                      shuffle: bool, epoch: int, my_shards, cap):
+        """``[rows_per_step, T]`` int64 token tensors of one epoch, read
+        shard by shard (host memory of the order of a shard, not of the
+        corpus), reshuffled two-level with a per-epoch seed."""
+        seed = self.seed + epoch if shuffle else None
+        for n, b in enumerate(sds.batches(rows_per_step, shuffle_seed=seed,
+                                          shards=my_shards)):
+            if cap is not None and n >= cap:
+                break
+            yield torch.from_numpy(np.ascontiguousarray(
+                b[self.tokens_col], np.int64))
+
     def _single_chip_twin(self):
         """A standard-attention twin of the model sharing its parameters
         (the model itself unless it is a ring model): what the returned
@@ -504,13 +684,9 @@ class LMTrainer(Trainer):
         return self.model.clone(attention="standard")
 
     def _mesh(self, T: int):
-        import torch.distributed as dist
-
         from distkeras_torch.parallel.mesh import make_mesh
 
-        world = (dist.get_world_size() if dist.is_available()
-                 and dist.is_initialized() else 1)
-        axes = dict(self.axes) if self.axes else {"dp": world}
+        axes = dict(self.axes) if self.axes else {"dp": self._world()}
         dp, sp = axes.get("dp", 1), axes.get("sp", 1)
         if sp > 1 and self.model.attention != "ring":
             raise ValueError("sp > 1 needs the model built with "
@@ -523,19 +699,38 @@ class LMTrainer(Trainer):
                              f"by dp={dp}")
         return make_mesh({"dp": dp, "sp": sp})
 
-    def _train(self, dataset: PartitionedDataset,
-               shuffle: bool = False) -> Model:
+    def _restore(self, optimizer) -> int:
+        """Load the latest checkpoint's parameters and optimizer state into
+        the model and ``optimizer``; returns the epoch it resumes at."""
         from distkeras_torch import bridge
+
+        if self.checkpointer is None:
+            return 0
+        step, state = self.checkpointer.restore()
+        if state is None:
+            return 0
+        bridge.params_from_jax(state["params"], self.model)
+        if state["opt_state"]:
+            optimizer.load_state_dict(state["opt_state"])
+        return int(state["extra"].get("epoch", step))
+
+    def _train(self, dataset, shuffle: bool = False) -> Model:
+        from distkeras_torch import bridge
+        from distkeras_torch.parallel.mesh import replica_groups
         from distkeras_torch.parallel.spmd import make_lm_train_step
 
-        if shuffle:
-            dataset = dataset.shuffle(seed=self.seed)
-        tokens = np.asarray(dataset.column(self.tokens_col))
-        if tokens.ndim != 2:
-            raise ValueError(
-                f"'{self.tokens_col}' must be [N, T] int token ids, got "
-                f"shape {tokens.shape}")
-        n_rows, T = tokens.shape
+        dataset, sharded = self._maybe_materialize(dataset)
+        if sharded:
+            T, n_rows = self._sharded_seq_len(dataset), dataset.num_rows
+        else:
+            if shuffle:
+                dataset = dataset.shuffle(seed=self.seed)
+            tokens = np.asarray(dataset.column(self.tokens_col))
+            if tokens.ndim != 2:
+                raise ValueError(
+                    f"'{self.tokens_col}' must be [N, T] int token ids, got "
+                    f"shape {tokens.shape}")
+            n_rows, T = tokens.shape
         B = self.batch_size
         if n_rows < B:
             raise ValueError(
@@ -543,15 +738,42 @@ class LMTrainer(Trainer):
         if self.params is not None:
             bridge.params_from_jax(self.params, self.model)
         optimizer = get_optimizer(self.worker_optimizer, self.learning_rate)
-        step = make_lm_train_step(self.model, optimizer, mesh=self._mesh(T),
-                                  window=True)
-        n = (n_rows // B) * B
-        batches = tokens[:n].reshape(-1, B, T).astype(np.int64)
+        if not isinstance(optimizer, torch.optim.Optimizer):
+            optimizer = optimizer(self.model.parameters())
+        start = self._restore(optimizer)
+        mesh = self._mesh(T)
+        rank = mesh.index("dp") * mesh.axis_size("sp") + mesh.index("sp")
+        groups = replica_groups(mesh, "dp") if self._world() > 1 else None
+        step = make_lm_train_step(self.model, optimizer, mesh=mesh,
+                                  window=True,
+                                  local_batch=groups is not None and sharded)
         W = self.STREAM_GROUP
-        # stage everything on the device once when it fits the budget
-        if batches.nbytes <= self.stage_limit_bytes:
-            batches = torch.as_tensor(batches, device=self.model.device)
-        feed = [batches[i:i + W] for i in range(0, len(batches), W)]
+        dev = self.model.device
+        if sharded:
+            rows = B // groups[1] if groups is not None else B
+            my_shards, cap = self._shard_slice(dataset, rows, group=groups)
+
+            def feed(epoch):
+                window = []
+                for tb in self._stream_steps(dataset, rows, shuffle, epoch,
+                                             my_shards, cap):
+                    window.append(tb)
+                    if len(window) == W:
+                        yield torch.stack(window)
+                        window = []
+                if window:
+                    yield torch.stack(window)
+        else:
+            n = (n_rows // B) * B
+            batches = tokens[:n].reshape(-1, B, T).astype(np.int64)
+            # stage everything on the device once when it fits the budget
+            if batches.nbytes <= self.stage_limit_bytes:
+                batches = torch.as_tensor(batches, device=dev)
+            windows = [batches[i:i + W] for i in range(0, len(batches), W)]
+
+            def feed(epoch):
+                return windows
+        pin = dev.type == "cuda"
         # The reference's windowed step DONATES params and optimizer
         # state, so its caller's buffers die; this port updates the
         # module's parameters in place instead. self.params (the tree
@@ -559,10 +781,15 @@ class LMTrainer(Trainer):
         # so it stays valid if a window raises — the module then holds
         # the partly trained weights.
         history: History = []
-        for _epoch in range(self.num_epoch):
+        for epoch in range(start, self.num_epoch):
             # losses stay on the device until the epoch ends (no per-step
             # host sync)
-            epoch_losses = [step(fb) for fb in feed]
+            epoch_losses = []
+            for fb in feed(epoch):
+                if isinstance(fb, torch.Tensor) and fb.device != dev:
+                    fb = (fb.pin_memory() if pin else fb).to(
+                        dev, non_blocking=pin)
+                epoch_losses.append(step(fb))
             for losses in epoch_losses:
                 for loss in losses.float().cpu().numpy():
                     row = {"loss": float(loss)}
@@ -570,6 +797,12 @@ class LMTrainer(Trainer):
                     if self.metrics_writer is not None:
                         self.metrics_writer.log(
                             step=len(history), samples=B * T, **row)
+            if self.checkpointer is not None and rank == 0:
+                self.checkpointer.maybe_save(
+                    epoch + 1, bridge.params_to_jax(self.model),
+                    opt_state_to_host(optimizer),
+                    extra={"epoch": epoch + 1},
+                    force=epoch + 1 == self.num_epoch)
         self.params = bridge.params_to_jax(self.model)
         self.history = history
         self.executor_histories = [history]
@@ -671,30 +904,93 @@ class DistributedTrainer(Trainer):
             saved = None
         return step, saved
 
+    def _coerce_dataset(self, dataset):
+        return dataset  # _partitions streams a ShardedDataset per worker
+
+    def _partitions(self, dataset, n_parts: int, shuffle: bool):
+        """``get_partition(i)``: worker ``i``'s rows. A ShardedDataset is
+        read inside the worker's thread (native reads without the
+        interpreter lock, so the workers read in parallel): worker ``i``
+        takes every ``n_parts``-th shard of the (shuffled) shard order,
+        its rows shuffled when ``shuffle``; a restarted worker reads its
+        shards again, so host memory holds one partition per live
+        worker."""
+        if not isinstance(dataset, ShardedDataset):
+            dataset = _as_partitioned(dataset)
+            if shuffle:
+                dataset = dataset.shuffle(seed=self.seed)
+            return dataset.repartition(n_parts).partition
+        if dataset.num_shards < n_parts:
+            raise ValueError(
+                f"{dataset.num_shards} shards cannot feed {n_parts} workers "
+                "— re-write with more shards (write_shards "
+                "rows_per_shard=...)")
+        order = (np.random.default_rng(self.seed).permutation(
+            dataset.num_shards) if shuffle else np.arange(dataset.num_shards))
+
+        def get_partition(i):
+            shards = [dataset.read_shard(int(s)) for s in order[i::n_parts]]
+            part = {c: np.concatenate([sh[c] for sh in shards])
+                    for c in dataset.columns}
+            if shuffle:
+                perm = np.random.default_rng(self.seed + 1 + i).permutation(
+                    len(next(iter(part.values()))))
+                part = {c: v[perm] for c, v in part.items()}
+            return part
+
+        return get_partition
+
     def _train(self, dataset, shuffle: bool = False) -> Model:
-        from distkeras_torch import bridge
+        from distkeras_torch import bridge, runtime
 
         self.worker_restarts = 0  # per run (trainers are reusable)
         n_parts = self.num_workers * self.parallelism_factor
-        if shuffle:
-            dataset = dataset.shuffle(seed=self.seed)
-        dataset = dataset.repartition(n_parts)
+        get_partition = self._partitions(dataset, n_parts, shuffle)
         self.params = self._center_params()
-        is_owner = self.remote_ps is None
+        # single process (owns the center), an explicit remote_ps client,
+        # or wired by the runtime: the coordinator owns the center and
+        # serves it, every other process proxies to it
+        ctx = runtime.current()
+        multi = ctx is not None and ctx.num_processes > 1
+        is_owner = self.remote_ps is None and (not multi
+                                               or ctx.is_coordinator)
+        worker_offset = ctx.process_id * n_parts if multi else 0
         if self.checkpointer is not None and not is_owner:
             raise ValueError(
                 "checkpointer must live with the process that owns the "
-                "center (the ParameterServerService host), not a remote "
-                "client — pass it there instead")
+                "center (the coordinator / ParameterServerService host), "
+                "not a remote client — pass it there instead")
         restored_step, restored_opt = self._restore(n_parts)
-        if is_owner:
-            ps = self.allocate_parameter_server()
-            ps.checkpointer = self.checkpointer
-            ps.step_offset = restored_step
-        else:
+        service = None
+        if self.remote_ps is not None:
             from distkeras_torch.networking import RemoteParameterServer
 
             ps = RemoteParameterServer(*self.remote_ps)
+        elif not is_owner:
+            from distkeras_torch.networking import RemoteParameterServer
+
+            ps = RemoteParameterServer(*ctx.ps_hostport, secret=ctx.secret)
+        else:
+            if multi:
+                # PS math over the worker population (ADAG's mean, the
+                # EASGD barrier) counts every process's workers; set for
+                # this allocation only
+                self._ps_num_workers = self.num_workers * ctx.num_processes
+            try:
+                ps = self.allocate_parameter_server()
+            finally:
+                self.__dict__.pop("_ps_num_workers", None)
+            ps.checkpointer = self.checkpointer
+            ps.step_offset = restored_step
+            if multi:
+                from distkeras_torch.networking import ParameterServerService
+
+                host, port = ctx.ps_hostport
+                bind = host if host in ("127.0.0.1", "localhost") \
+                    else "0.0.0.0"
+                service = ParameterServerService(ps, host=bind, port=port,
+                                                 secret=ctx.secret)
+                service.start()
         self.parameter_server = ps
         ps.start()
 
@@ -715,12 +1011,13 @@ class DistributedTrainer(Trainer):
         restart_lock = threading.Lock()
 
         def run(i: int):
+            gi = worker_offset + i  # a worker id unique over the processes
             attempts = 0
             try:
                 while True:
                     try:
-                        _, history = workers[i].train(
-                            i, dataset.partition(i), ps)
+                        _, history = workers[i].train(gi, get_partition(i),
+                                                      ps)
                         results[i] = history
                         return
                     except (KeyboardInterrupt, SystemExit):
@@ -740,7 +1037,7 @@ class DistributedTrainer(Trainer):
                         workers[i] = replacement
             finally:
                 # shrink a synchronous barrier so survivors never deadlock
-                ps.leave(i)
+                ps.leave(gi)
 
         threads = [threading.Thread(target=run, args=(i,), daemon=True)
                    for i in range(n_parts)]
@@ -749,14 +1046,27 @@ class DistributedTrainer(Trainer):
         for t in threads:
             t.join()
         if is_owner:
+            if service is not None and not errors:
+                # the other processes still train against this center:
+                # wait until each has read its final center
+                if not service.wait_for_remote_done(ctx.num_processes - 1):
+                    warnings.warn(
+                        "timed out waiting for remote processes to read the "
+                        "final center — a peer likely died; the returned "
+                        "model reflects all commits received so far",
+                        RuntimeWarning)
             final = ps.get_model()
         elif errors:
-            ps.leave(-1)  # this process makes no further calls
+            # no further calls from this process (the leave with a
+            # negative id is the process-done sentinel)
+            ps.leave(-1 - worker_offset)
             final = None
         else:
             final = ps.get_model()
-            ps.leave(-1)
+            ps.leave(-1 - worker_offset)
         ps.stop()
+        if service is not None:
+            service.stop()
         if self.checkpointer is not None:
             opt_state, extra = ps.extra_state_fn()
             self.checkpointer.maybe_save(
@@ -867,7 +1177,8 @@ class ADAG(_DeltaFamilySpmdMixin, AsynchronousDistributedTrainer):
 
     def allocate_parameter_server(self):
         return ps_mod.ADAGParameterServer(self._center_tree(),
-                                          self.num_workers,
+                                          getattr(self, "_ps_num_workers",
+                                                  self.num_workers),
                                           device=self._devices()[0])
 
 
@@ -975,7 +1286,8 @@ class EASGD(SynchronousDistributedTrainer):
 
     def allocate_parameter_server(self):
         return ps_mod.EASGDParameterServer(
-            self._center_tree(), self.num_workers, rho=self.rho,
+            self._center_tree(),
+            getattr(self, "_ps_num_workers", self.num_workers), rho=self.rho,
             elastic_lr=self.elastic_lr, device=self._devices()[0])
 
     def _train(self, dataset, shuffle: bool = False) -> Model:
@@ -1024,6 +1336,7 @@ def _train_lockstep_spmd(self, dataset: PartitionedDataset, shuffle: bool,
             f"{engine} is single-process (every worker in one process); "
             "multi-process runs use the threaded PS engine (spmd=False) "
             "with remote_ps=")
+    dataset = _as_partitioned(dataset)  # a ShardedDataset loads
     if shuffle:
         dataset = dataset.shuffle(seed=self.seed)
     n = self.num_workers

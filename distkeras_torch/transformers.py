@@ -14,7 +14,8 @@ Stages:
 - :class:`ReshapeTransformer`    (reference · ReshapeTransformer)
 - :class:`LabelIndexTransformer` (reference · LabelIndexTransformer)
 
-``transform_sharded`` (disk-sharded datasets) raises: ROADMAP A9b.
+``transform_sharded`` runs a stage shard by shard over a disk-sharded
+dataset (:func:`distkeras_torch.data.shard_io.map_shards`).
 """
 
 from __future__ import annotations
@@ -33,11 +34,25 @@ class Transformer:
         raise NotImplementedError
 
     def transform_sharded(self, dataset, out_directory: str) -> str:
-        """Disk-scale transform over a ``ShardedDataset`` (the reference
-        writes a new shard directory). Not ported yet."""
-        raise NotImplementedError(
-            "transform_sharded (disk-sharded datasets) is not ported yet "
-            "(ROADMAP A9b); load the shards into a PartitionedDataset")
+        """Disk-scale transform: apply this stage shard by shard over a
+        :class:`~distkeras_torch.data.shard_io.ShardedDataset`, writing a
+        new shard directory (the reference's mapPartitions stage at HDFS
+        scale, one shard resident at a time). A stage that FITS
+        statistics from the data (``MinMaxTransformer`` without
+        ``o_min``/``o_max``) must be given them: fitted per shard, each
+        shard would be scaled differently, so that raises."""
+        from distkeras_torch.data.shard_io import map_shards
+
+        self._check_sharded_safe()
+
+        def stage(shard):
+            return self.transform(PartitionedDataset([shard])).partition(0)
+
+        return map_shards(dataset, stage, out_directory)
+
+    def _check_sharded_safe(self):
+        """Override to refuse per-shard application of a stage that fits
+        global statistics from the data."""
 
 
 class OneHotTransformer(Transformer):
@@ -77,6 +92,13 @@ class MinMaxTransformer(Transformer):
         self.n_min, self.n_max = n_min, n_max
         self.input_col = input_col
         self.output_col = output_col
+
+    def _check_sharded_safe(self):
+        if self.o_min is None or self.o_max is None:
+            raise ValueError(
+                "MinMaxTransformer without explicit o_min/o_max fits the "
+                "range from data; per-shard fitting would scale each shard "
+                "differently — pass o_min/o_max for transform_sharded")
 
     def transform(self, dataset: PartitionedDataset) -> PartitionedDataset:
         o_min = self.o_min

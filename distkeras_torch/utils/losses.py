@@ -196,6 +196,20 @@ class Adam(torch.optim.Optimizer):
                 st["nu"] = nu
         return loss
 
+    def load_state_dict(self, state_dict):
+        """``torch.optim.Optimizer.load_state_dict`` casts every float
+        state tensor to its parameter's dtype; a ``mu_dtype`` first
+        moment is cast back (exactly: it was stored in that dtype), so a
+        resumed run continues the same trajectory."""
+        super().load_state_dict(state_dict)
+        for group in self.param_groups:
+            if group["mu_dtype"] is None:
+                continue
+            for p in group["params"]:
+                st = self.state.get(p)
+                if st and "mu" in st:
+                    st["mu"] = st["mu"].to(group["mu_dtype"])
+
 
 class Adagrad(torch.optim.Optimizer):
     """``optax.adagrad``: ``optax.scale_by_rss`` — the accumulator starts at

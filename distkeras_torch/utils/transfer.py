@@ -23,6 +23,15 @@ def resolve_transfer_dtype(module, transfer_dtype):
     return transfer_dtype
 
 
+def pad_to_rows(x: np.ndarray, rows: int) -> np.ndarray:
+    """Pad the leading axis up to ``rows`` by repeating the first row, so
+    every model call sees one shape; callers slice the pad off after."""
+    if len(x) >= rows:
+        return x
+    pad = np.repeat(x[:1], rows - len(x), axis=0)
+    return np.concatenate([x, pad], axis=0)
+
+
 def narrow_cast(x: np.ndarray, target_dtype):
     """Cast ``x`` to ``target_dtype`` only when that narrows a floating
     array: never widen, never touch ints or bools (labels and token ids
@@ -31,7 +40,10 @@ def narrow_cast(x: np.ndarray, target_dtype):
     A torch dtype target (or its name, such as ``"bfloat16"``, which numpy
     has no dtype for) casts with torch on the host and returns a CPU
     ``torch.Tensor``: round-to-nearest-even, the values the device's own
-    cast would give. A numpy dtype target returns a numpy array."""
+    cast would give; float32 -> bfloat16 goes through the native kernel
+    of :func:`distkeras_torch.data.shard_io.cast_f32_bf16`, the bits the
+    disk-streaming loader gives. A numpy dtype target returns a numpy
+    array."""
     if target_dtype is None or not np.issubdtype(x.dtype, np.floating):
         return x
     if isinstance(target_dtype, str) and isinstance(
@@ -40,6 +52,10 @@ def narrow_cast(x: np.ndarray, target_dtype):
     if isinstance(target_dtype, torch.dtype):
         if (target_dtype.is_floating_point
                 and target_dtype.itemsize < x.dtype.itemsize):
+            if x.dtype == np.float32 and target_dtype == torch.bfloat16:
+                from distkeras_torch.data.shard_io import cast_f32_bf16
+
+                return cast_f32_bf16(x)
             return torch.from_numpy(np.ascontiguousarray(x)).to(target_dtype)
         return x
     td = np.dtype(target_dtype)

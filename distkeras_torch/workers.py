@@ -301,6 +301,27 @@ class SequentialWorker(Worker):
         self.params = bridge.params_to_jax(self.module)
         return self.params, history
 
+    def train_stream(self, index: int, windows) -> Tuple[dict, History]:
+        """:meth:`train` over a streamed feed: ``windows(epoch)`` yields
+        ``(xs, ys)`` lists of device batches, one window step each. The
+        epoch's metrics stay on the device until it ends, then are read
+        back together."""
+        from distkeras_torch import bridge
+
+        self.prepare()
+        self.index = index
+        history: History = []
+        callback = getattr(self, "epoch_callback", None)
+        for epoch in range(self.num_epoch):
+            pending = [self.window_step(xs, ys) for xs, ys in windows(epoch)]
+            rows = [row for ms in pending for row in _rows(ms)]
+            history.extend(rows)
+            self._log_steps(rows)
+            if callback is not None:
+                callback(epoch, self)
+        self.params = bridge.params_to_jax(self.module)
+        return self.params, history
+
 
 def opt_state_to_host(opt) -> dict:
     """An optimizer's ``state_dict`` with every tensor copied to the host

@@ -519,3 +519,122 @@ def test_tier_sizes_follow_the_serve_bench_rule():
     configuration: 4 prefixes of 32 blocks, worst case 50 blocks a slot
     (512 + 256 + 32 tokens), 2 slots."""
     assert chip_smoke.tier_sizes() == (1 + 2 * 50 + 42, 4 * 32 + 32)
+
+
+# -- phase 11 (I/O and deployment) on the CPU -----------------------------------
+
+
+def _io_dk():
+    from distkeras_torch import streaming
+    from distkeras_torch.checkpoint import Checkpointer
+    from distkeras_torch.data import shard_io, text
+    from distkeras_torch.job_deployment import Job
+    from distkeras_torch.models.wrapper import Model
+    from distkeras_torch.ops import rules
+    from distkeras_torch import trainers
+    from distkeras_torch.trainers import LMTrainer, SingleTrainer
+    from distkeras_torch.utils.keras_import import from_keras_config
+    from distkeras_torch.utils.losses import get_optimizer
+
+    dk = _ps_dk()
+    dk.update({"write_shards": shard_io.write_shards,
+               "ShardedDataset": shard_io.ShardedDataset,
+               "native_dataio_active": shard_io.native_dataio_active,
+               "text": text, "Checkpointer": Checkpointer, "Model": Model,
+               "StreamingPredictor": streaming.StreamingPredictor,
+               "RecordProducer": streaming.RecordProducer,
+               "socket_source": streaming.socket_source,
+               "from_keras_config": from_keras_config, "Job": Job,
+               "rules": rules, "LMTrainer": LMTrainer,
+               "DataParallelTrainer": trainers.DataParallelTrainer,
+               "SingleTrainer": SingleTrainer,
+               "get_optimizer": get_optimizer})
+    return dk
+
+
+def _narrow_io(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "STREAM_CIFAR_ROWS", 384)
+    monkeypatch.setattr(chip_smoke, "STREAM_ROWS_PER_SHARD", 80)
+    monkeypatch.setattr(chip_smoke, "STREAM_CIFAR_TRAIN", dict(
+        chip_smoke.STREAM_CIFAR_TRAIN, batch_size=32))
+    monkeypatch.setattr(chip_smoke, "TRAIN", dict(
+        vocab_size=256, d_model=32, num_heads=2, num_layers=2, max_len=32))
+    monkeypatch.setattr(chip_smoke, "LM_STREAM", dict(
+        chip_smoke.LM_STREAM, seqs=16, batch_size=4))
+    monkeypatch.setattr(chip_smoke, "CKPT_LAYERS", 1)
+    monkeypatch.setattr(chip_smoke, "STREAM_RECORDS", 100)
+    monkeypatch.setattr(chip_smoke, "STREAM_BATCH", 32)
+    monkeypatch.setattr(chip_smoke, "KERAS_CNN", dict(
+        chip_smoke.KERAS_CNN, widths=(4, 8, 8), dense=16))
+    monkeypatch.setattr(chip_smoke, "KERAS_TEXT", dict(
+        vocab=256, embed=8, units=16, T=8))
+    monkeypatch.setattr(chip_smoke, "KERAS_ROWS", 4)
+    monkeypatch.setattr(chip_smoke, "KERAS_TRAIN_ROWS", 128)
+    monkeypatch.setattr(chip_smoke, "KERAS_TRAIN", dict(
+        chip_smoke.KERAS_TRAIN, batch_size=32))
+    monkeypatch.setattr(chip_smoke, "JOB_WIDTHS", (4, 8, 8))
+
+
+def test_phase11_at_narrow_width(monkeypatch, tmp_path):
+    """Phase 11's functions and checks on the CPU at narrow widths and few
+    rows: 11a's streamed run equals the in-memory one bit for bit and the
+    pipeline's accuracy from shards equals memory's; 11b streams the
+    repository's text with the in-memory trajectory; 11c resumes exactly;
+    11d streams over a socket; 11e imports the three configs within 1e-4
+    of f64; 11f runs as a Job of two gloo processes (forced: no card
+    here) whose ranks end bit-identical, and prints its skip on one."""
+    import numpy as np
+    import torch
+
+    from distkeras_torch.ops import pallas_attention as fa
+    from distkeras_torch.ops import pallas_pair as pp
+
+    _narrow_io(monkeypatch)
+    dk = _io_dk()
+    here = os.path.dirname(os.path.abspath(chip_smoke.__file__))
+    dp, cnn, sds, x = chip_smoke.dp_stream_phase(torch, np, dk,
+                                                 str(tmp_path))
+    assert dp["steps"] == 2 * (384 // 32) and dp["history_equal"]
+    assert sds.num_shards == 5 and dp["streamed_epoch"]["idle_share"] is None
+    lm, corpus = chip_smoke.lm_stream_phase(torch, np, dk, fa, pp,
+                                            str(tmp_path), here)
+    assert lm["steps"] == 8 and corpus.num_shards == 4
+    assert lm["launches"] == {n: 0 for n in chip_smoke.CAUSAL_NAMES}
+    resume = chip_smoke.resume_phase(torch, np, dk, str(tmp_path), corpus)
+    assert resume["losses_equal"] and len(resume["epoch2_losses"]) == 4
+    stream = chip_smoke.streaming_phase(torch, np, dk, cnn, x)
+    assert stream["flushes"] >= 4 and stream["max_abs_gap_vs_model_"
+                                             "predictor"] <= 1e-2
+    keras = chip_smoke.keras_phase(torch, np, dk)
+    assert keras["functional_add_skip"]["module"] == "KerasImportedGraph"
+    assert keras["single_trainer"]["steps"] == 4
+    assert chip_smoke.job_phase(torch, np, dk, sds.directory, here,
+                                cards=1) == {"phase": "11f",
+                                             "skipped": "one card"}
+    job = chip_smoke.job_phase(torch, np, dk, sds.directory, here, cards=2)
+    assert job["bit_identical"] and job["backend"] == "gloo"
+    # 5 shards of 76-77 rows: strides of 3 and 2 shards, capped at 4
+    assert job["batches_per_rank"] == 2 * 4
+
+
+def test_phase11_resume_check_catches_a_lost_first_moment(monkeypatch,
+                                                         tmp_path):
+    """11c on the CPU with the optimizer's resume fault put back (the bf16
+    first moment left as ``torch.optim`` casts it, f32): the resumed run
+    leaves the uninterrupted trajectory and the check fails."""
+    import numpy as np
+    import torch
+
+    from distkeras_torch.utils import losses
+
+    _narrow_io(monkeypatch)
+    dk = _io_dk()
+    toks = np.random.default_rng(0).integers(0, 256, size=(16, 32))
+    sds = dk["ShardedDataset"](dk["write_shards"](
+        dk["PartitionedDataset"].from_arrays({"tokens": toks}),
+        str(tmp_path / "c"), 4))
+    monkeypatch.setattr(losses.Adam, "load_state_dict",
+                        torch.optim.Optimizer.load_state_dict)
+    with pytest.raises(AssertionError, match="11c"):
+        chip_smoke.resume_phase(torch, np, dk, str(tmp_path), sds)

@@ -18,7 +18,9 @@ from the same numpy datasets and weights.
   -> OneHot -> SingleTrainer -> ModelPredictor -> LabelIndex ->
   AccuracyEvaluator) through both packages from the same weights gives
   the same predictions and accuracy.
-- The disk-sharded entry points raise naming ROADMAP A9.
+- The disk-sharded entry points (``transform_sharded``,
+  ``predict_sharded``, evaluators over shards) equal the reference's on a
+  2-shard directory.
 """
 
 import numpy as np
@@ -115,20 +117,57 @@ def test_transformer_matches_jax(stage):
 
 
 def test_sharded_entry_points_raise_a9(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ttf.OneHotTransformer(3).transform_sharded(object(), str(tmp_path))
-    _, pm = _loaded("mlp", "float32", 0, features=(4,),
-                    port_kw=dict(in_features=3))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tp.ModelPredictor(pm).predict_sharded(object(), str(tmp_path))
+    # ported now: on a 2-shard directory, transform_sharded ->
+    # predict_sharded -> AccuracyEvaluator equal the reference's, and the
+    # loaded-dataset forms (predict, evaluate) equal the sharded ones
+    from distkeras_tpu.data.shard_io import ShardedDataset as JSD
+    from distkeras_tpu.data.shard_io import write_shards as jwrite
+    from distkeras_torch.data.shard_io import ShardedDataset, write_shards
 
-    class Shards:  # duck-typed like the reference's ShardedDataset
-        num_shards = 2
-
-    with pytest.raises(NotImplementedError, match="A9"):
-        tp.ModelPredictor(pm).predict(Shards())
-    with pytest.raises(NotImplementedError, match="A9"):
-        te.AccuracyEvaluator().evaluate(Shards())
+    rng = np.random.default_rng(8)
+    cols = {"features": rng.normal(size=(37, 3)).astype(np.float32),
+            "label": rng.integers(0, 4, size=37)}
+    write_shards(TDS.from_arrays(cols), str(tmp_path / "t"),
+                 rows_per_shard=20)
+    jwrite(JDS.from_arrays(cols), str(tmp_path / "j"), rows_per_shard=20)
+    tsd, jsd = ShardedDataset(str(tmp_path / "t")), JSD(str(tmp_path / "j"))
+    assert tsd.num_shards == 2
+    jm, pm = _loaded("mlp", "float32", 0, features=(4,), num_classes=4,
+                     port_kw=dict(in_features=3))
+    got = ttf.OneHotTransformer(4, "label", "label_encoded").transform_sharded(
+        tsd, str(tmp_path / "t1"))
+    want = jtf.OneHotTransformer(4, "label", "label_encoded"
+                                 ).transform_sharded(jsd, str(tmp_path / "j1"))
+    got = tp.ModelPredictor(pm).predict_sharded(ShardedDataset(got),
+                                                str(tmp_path / "t2"))
+    want = jp.ModelPredictor(jm).predict_sharded(JSD(want),
+                                                 str(tmp_path / "j2"))
+    got = ttf.LabelIndexTransformer(4).transform_sharded(
+        ShardedDataset(got), str(tmp_path / "t3"))
+    want = jtf.LabelIndexTransformer(4).transform_sharded(
+        JSD(want), str(tmp_path / "j3"))
+    tout, jout = ShardedDataset(got), JSD(want)
+    assert tout.shard_rows == jout.shard_rows == [18, 19]
+    for i in range(2):
+        a, b = tout.read_shard(i), jout.read_shard(i)
+        assert sorted(a) == sorted(b)
+        for c in a:
+            np.testing.assert_allclose(a[c], b[c], rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(a["predicted_index"],
+                                      b["predicted_index"])
+    acc = te.AccuracyEvaluator(label_col="label_encoded").evaluate(tout)
+    assert acc == je.AccuracyEvaluator(label_col="label_encoded"
+                                       ).evaluate(jout)
+    assert acc == te.AccuracyEvaluator(label_col="label_encoded"
+                                       ).evaluate(tout.load())
+    loaded = tp.ModelPredictor(pm).predict(tsd)
+    np.testing.assert_array_equal(loaded.column("prediction"),
+                                  tout.load().column("prediction"))
+    with pytest.raises(ValueError, match="o_min/o_max"):
+        ttf.MinMaxTransformer().transform_sharded(tsd, str(tmp_path / "x"))
+    with pytest.raises(TypeError, match="ShardedDataset"):
+        tp.ModelPredictor(pm).predict_sharded(TDS.from_arrays(cols),
+                                              str(tmp_path / "y"))
 
 
 # -- the predictor --------------------------------------------------------------

@@ -18,7 +18,8 @@ handed to both sides as ``params=``).
   ``tests/test_trainers.py`` holds the reference itself, and end with
   equal weights on both ranks.
 - ``profile_dir=`` writes a Chrome trace; ``metrics_path=`` a JSONL;
-  ``checkpointer=`` saves each epoch and a second run resumes past them.
+  ``checkpointer=`` saves each epoch and a second run resumes past them;
+  a ``ShardedDataset`` trains as its rows in memory do.
 
 The JAX side is imported inside the tests: the spawned ranks import this
 module and must load only torch and the port.
@@ -445,11 +446,19 @@ def test_dist_keras_trainers_raise_for_a9(what, tmp_path):
         _tree_close(trainer.params, again.params, 0)
         return
 
-    class Shards:  # duck-typed like the reference's ShardedDataset
-        num_shards = 2
+    # ported now: a ShardedDataset loads and trains as the same rows in
+    # memory do, bit for bit
+    from distkeras_torch.data.shard_io import ShardedDataset, write_shards
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        tt.SingleTrainer(_port_mlp(), **TRAIN_KW).train(Shards())
+    cols = _columns(64)
+    write_shards(PartitionedDataset.from_arrays(cols), str(tmp_path / "s"),
+                 rows_per_shard=24)
+    mem = tt.SingleTrainer(_port_mlp(), **TRAIN_KW)
+    mem.train(PartitionedDataset.from_arrays(cols))
+    disk = tt.SingleTrainer(_port_mlp(), **TRAIN_KW)
+    disk.train(ShardedDataset(str(tmp_path / "s")))
+    assert disk.history == mem.history and len(mem.history) == 8
+    _tree_close(mem.params, disk.params, 0)
 
 
 def test_trainers_default_to_the_card():

@@ -1,8 +1,8 @@
 """Import hygiene of the port: importing every ``distkeras_torch``
-module (the serving, training, sequence-parallel and dist-keras slices
-alike) loads no ``jax``, ``flax``, ``optax`` or ``distkeras_tpu`` module
-(checked in a fresh interpreter, since this test process imports both
-packages),
+module (the serving, training, sequence-parallel, dist-keras and I/O
+slices alike) loads no ``jax``, ``flax``, ``optax`` or ``distkeras_tpu``
+module, nor ``keras``, which may load jax (checked in a fresh
+interpreter, since this test process imports both packages),
 and ``chip_smoke.py`` imports none of them either (checked on its
 syntax tree), nor do ``ab_kernels.py`` and ``ab_engine.py``. Importing a module
 builds no kernel and needs no card."""
@@ -29,7 +29,7 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                    "distkeras_tpu"))
+                                    "distkeras_tpu", "keras"))
 from distkeras_torch.kernels import build
 print(json.dumps({"modules": names, "bad": bad,
                   "built": build._loaded is not None}))
@@ -81,7 +81,14 @@ def test_port_modules_import_no_jax():
                  "distkeras_torch.checkpoint",
                  "distkeras_torch.networking",
                  "distkeras_torch.serving.kvpool",
-                 "distkeras_torch.serving.weights"):
+                 "distkeras_torch.serving.weights",
+                 "distkeras_torch.data.shard_io",
+                 "distkeras_torch.data.text",
+                 "distkeras_torch.data.spark_adapter",
+                 "distkeras_torch.streaming",
+                 "distkeras_torch.runtime",
+                 "distkeras_torch.job_deployment",
+                 "distkeras_torch.utils.keras_import"):
         assert must in res["modules"]
 
 

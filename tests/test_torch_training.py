@@ -383,11 +383,39 @@ def test_lm_trainer_deferred_features_raise(what, tmp_path):
         return
     model = get_model("transformer_lm", **kw)
     if what == "sharded":
-        class Shards:  # duck-typed like the reference's ShardedDataset
-            num_shards = 2
+        # ported now: a streamed shard directory trains as its rows in
+        # memory do, bit for bit
+        from distkeras_torch.data.shard_io import ShardedDataset, write_shards
 
-        with pytest.raises(NotImplementedError, match="A9"):
-            LMTrainer(model, batch_size=2).train(Shards())
+        write_shards(ds, str(tmp_path / "s"), rows_per_shard=3)
+        mem = LMTrainer(model, batch_size=2)
+        mem.train(ds)
+        disk = LMTrainer(get_model("transformer_lm", **kw), batch_size=2,
+                         stage_limit_bytes=1)
+        disk.train(ShardedDataset(str(tmp_path / "s")))
+        assert disk.history == mem.history and len(mem.history) == 2
+        return
+    if what == "checkpointer":
+        # ported now: a run stopped after epoch 1 resumes to epoch 2 on the
+        # trajectory of a run that never stopped
+        from distkeras_torch.checkpoint import Checkpointer
+        from distkeras_torch.ops import rules
+
+        opt = get_optimizer("adamw", 1e-2, mu_dtype=torch.bfloat16)
+        run = dict(batch_size=2, worker_optimizer=opt, num_epoch=2)
+        whole = LMTrainer(model, **run)
+        whole.train(ds)
+        ck = str(tmp_path / "ck")
+        LMTrainer(get_model("transformer_lm", **kw), checkpointer=Checkpointer(
+            ck, every_steps=1), **dict(run, num_epoch=1)).train(ds)
+        resumed = LMTrainer(get_model("transformer_lm", **kw),
+                            checkpointer=Checkpointer(ck, every_steps=1),
+                            **run)
+        resumed.train(ds)
+        assert resumed.history == whole.history[2:]
+        for k, v in rules.flatten(whole.params).items():
+            np.testing.assert_array_equal(rules.flatten(resumed.params)[k],
+                                          v)
         return
     if what == "profile_dir":
         # ported now: the epoch runs inside a torch.profiler trace
@@ -398,8 +426,7 @@ def test_lm_trainer_deferred_features_raise(what, tmp_path):
         assert len(list(trace_dir.glob("trace-*.json"))) == 1
         return
     item, args = {"axes": ("A10", dict(axes={"dp": 1, "tp": 2})),
-                  "microbatches": ("A10", dict(microbatches=4)),
-                  "checkpointer": ("A9", dict(checkpointer=object()))}[what]
+                  "microbatches": ("A10", dict(microbatches=4))}[what]
     with pytest.raises(NotImplementedError, match=item):
         LMTrainer(model, batch_size=2, **args).train(ds)
 
