@@ -4,6 +4,9 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and ``nvcc``; it exits non-zero without printing a result when
 CUDA is unavailable or when the port's package is not beside it.
+``python3 chip_smoke.py --phase12`` runs phase 12 alone after phase 3
+(its yardstick): on a host of two cards or more its ranks run over
+NCCL.
 
 Phases (any failure exits non-zero):
 
@@ -222,6 +225,31 @@ Phases (any failure exits non-zero):
    one card each over NCCL) trains ``DataParallelTrainer`` from 11a's
    shards; both ranks must end bit-identical. On one card it prints
    ``{"phase": "11f", "skipped": "one card"}``.
+12. **Tensor parallelism (tp=2).** Two ranks, subprocesses of this
+   script (``--phase12-worker``), started after the kernels are built:
+   one card each over NCCL with two cards or more, else both on the one
+   card over gloo on CUDA tensors; the phase's line says which backend
+   and how many cards ran. (12a) An f32 witness first: phase 4's
+   ``EXACT`` widths, one SGD step of ``make_lm_train_step(tp_axis='tp')``
+   on [2, 128] tokens — its loss and the gathered parameters within 1e-5
+   of the tp=1 step on the same weights and tokens. Then phase 6's
+   flagship (d2048/h8/L8/v8192, bf16 with f32 masters, T=2048, AdamW
+   3e-4, bf16 first moment, fused CE) at tp=2 for 3 steps, B=8 with two
+   cards or more, B=2 on one card (gloo stages every all-reduce through
+   the host): every loss finite and within 5e-2 of the tp=1 step's
+   (rank 0 runs it), the replicated parameters bit-identical across the
+   ranks, each causal kernel (forward, dq, dk/dv) launched layers x
+   steps times on each rank at [B, 2048, 4, 256]; prints ms/step and
+   tok/s. (12b) The f32 witness: phase 4's model through chunked,
+   monolithic, pipelined, multi-step k=4 and n-gram engines on both
+   layouts, the host tier's churn and a block export -> import both
+   ways between a tp=2 and a tp=1 engine — every stream equal to the
+   tp=1 engine's token for token on each rank. Then phase 3's flagship
+   (2 KV heads: one a rank) on phase 3's mix, paged and slot, chunked:
+   the streams bit-identical across the ranks, the paged and splash
+   launches of each rank equal to phase 3's counts; prints the share of
+   greedy tokens equal to phase 3's, each flip's ``top2_gap``, ms/tick
+   and tok/s (on one card the ranks share it: not a tp speed).
 
 Output: JSON lines per phase, the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line (the serving rows carry every timed shape
@@ -308,6 +336,19 @@ TRAIN = dict(vocab_size=8192, d_model=2048, num_heads=8, num_layers=8,
 TRAIN_B, TRAIN_W, TRAIN_LR = 8, 5, 3e-4
 TRAIN_LOSS_TOL = 5e-2  # kernel path vs the blocked twin, per step
 TRAINER_ROWS = 40
+# phase 12: tensor parallelism over two ranks; the shard shapes its
+# kernels run at (phase 2 and 5 time them beside the full ones)
+TP = 2
+TP_TRAIN_STEPS = 3
+# B with two cards or more, and on one card: two ranks share it over
+# gloo, which stages every all-reduce through the host
+TP_TRAIN_B = {"cards": 8, "one_card": 2}
+TP_WITNESS = dict(B=2, T=128, lr=0.1, tol=1e-5)
+TP_MODES = ("chunked", "monolithic", "pipelined", "multi_step", "ngram")
+TP_TIMEOUT_S = 900
+PAGED_TP = dict(H=4, Hk=1)
+SPLASH_TP = dict(H=4, Hk=1)
+CAUSAL_TP = dict(H=4, T=(2048,))
 # phase 8: the dist-keras core
 CIFAR_TIMED_WINDOWS = 5
 CIFAR_LOSS_TOL = 2e-2  # first step's bf16 loss vs the f32 twin's
@@ -522,13 +563,16 @@ def _depths(S, hi):
     return [0] + [int(hi * (i + 0.37) / (S - 1)) for i in range(S - 2)] + [hi]
 
 
-def paged_cases(torch, F, pa):
-    S, H, Hk, hd, bs, MB = (PAGED[k] for k in ("S", "H", "Hk", "hd", "bs",
-                                                "MB"))
+def paged_cases(torch, F, pa, over=None):
+    """The paged kernel at phase 2's shapes, with ``over`` replacing some
+    of them (``PAGED_TP``: one tp=2 rank's heads)."""
+    cfg = dict(PAGED, **(over or {}))
+    S, H, Hk, hd, bs, MB = (cfg[k] for k in ("S", "H", "Hk", "hd", "bs",
+                                              "MB"))
     P = S * MB + 1
     gen = torch.Generator(device=DEV).manual_seed(1)
     cases = []
-    for T in PAGED["T"]:
+    for T in cfg["T"]:
         L = MB * bs
         lens = torch.tensor(_depths(S, L - T), dtype=torch.int32,
                             device=DEV)
@@ -569,7 +613,11 @@ def paged_cases(torch, F, pa):
             if err > tol:
                 raise AssertionError(
                     f"paged T={T} {kind}: max abs err {err} > {tol}")
-            case = {"T": T, "pool": kind, "max_abs_err": err, "tol": tol}
+            case = {"T": T, "H": H, "Hk": Hk, "pool": kind,
+                    "max_abs_err": err, "tol": tol,
+                    # the exact result's own rounding to the output dtype
+                    "out_rounding": (ref.to(dt).float() - ref).abs().max()
+                    .item()}
             if kind in ("bf16", "int8"):
                 case["ms"] = time_ms(torch, lambda: pa.paged_attention(
                     q, kp, vp, tables, lens, ks, vs))
@@ -673,11 +721,15 @@ def _edge_check(kernel, kind, T, H, Hk, hd, out, ref):
             "hd": hd, "max_abs_err": err, "tol": 1e-2}
 
 
-def splash_cases(torch, F, sp):
-    S, Hk, L = SPLASH["S"], SPLASH["Hk"], SPLASH["L"]
+def splash_cases(torch, F, sp, over=None, more=None, v_std=1.0):
+    """The splash kernel at phase 2's shapes (``over`` replacing some of
+    the main one's, ``more`` the other shapes, ``SPLASH_MORE`` by
+    default; values drawn at ``v_std``)."""
+    cfg = dict(SPLASH, **(over or {}))
+    more = SPLASH_MORE if more is None else more
+    S, Hk, L = cfg["S"], cfg["Hk"], cfg["L"]
     gen = torch.Generator(device=DEV).manual_seed(2)
-    shapes = ((SPLASH["T"], SPLASH["hd"], SPLASH["H"], "depth"),
-              ) + SPLASH_MORE
+    shapes = ((cfg["T"], cfg["hd"], cfg["H"], "depth"),) + tuple(more)
     cases = []
     for T, hd, H, start_kind in shapes:
         starts = (torch.zeros(S, dtype=torch.int32, device=DEV)
@@ -688,7 +740,8 @@ def splash_cases(torch, F, sp):
             dt = torch.float32 if kind == "f32" else torch.bfloat16
             q = torch.randn((S, T, H, hd), generator=gen, device=DEV).to(dt)
             k = torch.randn((S, L, Hk, hd), generator=gen, device=DEV).to(dt)
-            v = torch.randn((S, L, Hk, hd), generator=gen, device=DEV).to(dt)
+            v = (v_std * torch.randn((S, L, Hk, hd), generator=gen,
+                                     device=DEV)).to(dt)
             out = sp.splash_prefill_attention(q, k, v, starts)
             sync(torch)
             ref = sp.splash_prefill_reference(q.float(), k.float(),
@@ -700,8 +753,10 @@ def splash_cases(torch, F, sp):
             tol = 1e-5 if dt == torch.float32 else 1e-2
             if err > tol:
                 raise AssertionError(f"{name}: max abs err {err} > {tol}")
-            case = {"T": T, "L": L, "hd": hd, "H": H, "starts": start_kind,
-                    "dtype": kind, "max_abs_err": err, "tol": tol}
+            case = {"T": T, "L": L, "hd": hd, "H": H, "Hk": Hk,
+                    "starts": start_kind, "dtype": kind, "max_abs_err": err,
+                    "tol": tol, "out_rounding": (ref.to(dt).float() - ref)
+                    .abs().max().item()}
             if kind == "bf16":
                 case["ms"] = time_ms(torch, lambda: sp.splash_prefill_attention(
                     q, k, v, starts))
@@ -724,11 +779,14 @@ def splash_cases(torch, F, sp):
 # -- phase 5: the training kernels against their plain versions ---------
 
 
-def causal_cases(torch, F, fa):
-    B, H, hd = CAUSAL["B"], CAUSAL["H"], CAUSAL["hd"]
+def causal_cases(torch, F, fa, over=None):
+    """The causal kernels at phase 5's shapes (``over`` replacing some:
+    ``CAUSAL_TP``, one tp=2 rank's heads); the first T is timed."""
+    cfg = dict(CAUSAL, **(over or {}))
+    B, H, hd = cfg["B"], cfg["H"], cfg["hd"]
     gen = torch.Generator(device=DEV).manual_seed(7)
     cases = []
-    for T in CAUSAL["T"]:
+    for T in cfg["T"]:
         shape = (B, T, H, hd)
         q, k, do = (torch.randn(shape, generator=gen, device=DEV)
                     .to(torch.bfloat16) for _ in range(3))
@@ -743,8 +801,8 @@ def causal_cases(torch, F, fa):
         for name, t in (("out", out), ("dq", dq), ("dk", dk), ("dv", dv)):
             if not torch.isfinite(t.float()).all():
                 raise AssertionError(f"causal T={T}: non-finite {name}")
-        case = {"T": T, "out_abs_err": (out.float() - ref_out).abs().max()
-                .item(),
+        case = {"T": T, "H": H, "out_abs_err": (out.float() - ref_out)
+                .abs().max().item(),
                 "lse_abs_err": (lse - ref_lse).abs().max().item()}
         for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
             case[f"{name}_rel_err"] = ((got.float() - ref).abs().max()
@@ -760,7 +818,7 @@ def causal_cases(torch, F, fa):
             raise AssertionError(f"causal T={T}: {bad} over tolerance "
                                  f"{CAUSAL_TOL}: {case}")
         del ref_out, ref_lse, grads
-        if T == CAUSAL["T"][0]:
+        if T == cfg["T"][0]:
             case.update(causal_times(torch, F, fa, q, k, v, out, lse, do))
         cases.append(case)
     return cases
@@ -1733,8 +1791,10 @@ def serve(torch, np, dk, model, requests, **kw):
     the engine."""
     kw.setdefault("slots", 8)
     kw.setdefault("prefill_chunk", 64)
+    if "mesh" not in kw:  # a tp engine runs on its model's device
+        kw["device"] = DEV
     eng = dk["ServingEngine"](
-        model, device=DEV, registry=dk["telemetry"].MetricRegistry(),
+        model, registry=dk["telemetry"].MetricRegistry(),
         tracer=dk["telemetry"].Tracer(), **kw)
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -1894,17 +1954,18 @@ def _launches(pa, sp):
     return (pa.paged_attention.launches, sp.splash_prefill_attention.launches)
 
 
-def _differ(torch, np, model, requests, got, want, what):
-    """Fail phase 4 on a stream mismatch, naming each differing greedy
-    stream's first flip and its top-2 logit gap (a near tie shows as a
-    gap at f32's rounding of the logits) and the differing sampled
-    requests."""
+def _differ(torch, np, model, requests, got, want, what,
+            phase="exact phase"):
+    """Fail phase 4 (or ``phase``) on a stream mismatch, naming each
+    differing greedy stream's first flip and its top-2 logit gap (a near
+    tie shows as a gap at f32's rounding of the logits) and the
+    differing sampled requests."""
     if got == want:
         return
     flips = greedy_flips(torch, np, model, requests, got, want)
     sampled = [i for i, ((_, c), x, y) in enumerate(zip(requests, got, want))
                if c.get("temperature", 0.0) != 0.0 and x != y]
-    raise AssertionError(f"exact phase: {what}: streams differ (greedy "
+    raise AssertionError(f"{phase}: {what}: streams differ (greedy "
                          f"flips {flips}, sampled requests {sampled})")
 
 
@@ -2948,7 +3009,436 @@ def job_worker(cfg_json: str) -> int:
     return 0
 
 
-def main() -> int:
+# -- phase 12: tensor parallelism -----------------------------------------------
+
+
+def tp_phase(torch, np, here, phase3, cards=None, python=None):
+    """Phase 12: two tp ranks (``chip_smoke.py --phase12-worker``, one
+    card each over NCCL with two cards or more, else both on one card
+    over gloo; gloo CPU ranks when ``DEV`` is the CPU) train (12a) and
+    serve (12b); ``phase3`` holds phase 3's streams and launch counts by
+    layout. A rank that fails stops the phase (its error quoted); a rank
+    still running at the deadline is named as stalled. ``python`` is the
+    command prefix that starts a worker (default: this interpreter)."""
+    if cards is None:
+        cards = torch.cuda.device_count() if DEV == "cuda" else 1
+    backend = "nccl" if DEV == "cuda" and cards >= 2 else "gloo"
+    one_card = DEV == "cuda" and cards < 2
+    out = tempfile.mkdtemp(prefix="dk_phase12_")
+    cfg = {"out": out, "port": _free_port(), "device": DEV,
+           "backend": backend, "cards": min(cards, TP) if DEV == "cuda"
+           else 0, "train": TRAIN, "lr": TRAIN_LR, "steps": TP_TRAIN_STEPS,
+           "train_b": TP_TRAIN_B["one_card" if one_card else "cards"],
+           "witness": TP_WITNESS, "exact": EXACT, "exact_tier": EXACT_TIER,
+           "exact_requests": [(p.tolist(), c) for p, c in exact_requests(
+               np, EXACT["vocab_size"])],
+           "modes": TP_MODES, "flagship": FLAGSHIP,
+           "system_prefix": SYSTEM_PREFIX, "prompt_lens": PROMPT_LENS,
+           "phase3_streams": phase3["streams"]}
+    path = os.path.join(out, "cfg.json")
+    with open(path, "w") as fh:
+        json.dump(cfg, fh)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = list(python or [sys.executable])
+    logs = [open(os.path.join(out, f"rank{r}.log"), "w") for r in range(TP)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        cmd + [os.path.join(here, "chip_smoke.py"), "--phase12-worker",
+               path, str(r)], env=env, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(TP)]
+    try:
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll() not in
+                   (None, 0)]
+            if bad:
+                tail = open(os.path.join(out, f"rank{bad[0]}.log")).read()
+                raise AssertionError(f"12: rank {bad[0]} failed:\n"
+                                     f"{tail[-4000:]}")
+            if time.monotonic() > deadline:
+                stalled = [r for r, p in enumerate(procs)
+                           if p.poll() is None]
+                raise AssertionError(f"12: ranks {stalled} stalled past "
+                                     f"{TP_TIMEOUT_S} s")
+            time.sleep(0.2)
+        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if bad:
+            tail = open(os.path.join(out, f"rank{bad[0]}.log")).read()
+            raise AssertionError(f"12: rank {bad[0]} failed:\n"
+                                 f"{tail[-4000:]}")
+        ranks = [json.load(open(os.path.join(out, f"rank{r}.json")))
+                 for r in range(TP)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for fh in logs:
+            fh.close()
+    wall = time.perf_counter() - t0
+    shutil.rmtree(out, ignore_errors=True)
+    return tp_check(np, ranks, phase3, cfg, wall)
+
+
+def tp_check(np, ranks, phase3, cfg, wall):
+    """The cross-rank checks of phase 12 and its summary line."""
+    tr = [r["train"] for r in ranks]
+    L, W = cfg["train"]["num_layers"], cfg["steps"]
+    for r, t in enumerate(tr):
+        losses = np.asarray(t["losses"])
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"12a: rank {r} losses not finite: "
+                                 f"{losses}")
+        gap = float(np.abs(losses - np.asarray(tr[0]["tp1_losses"])).max())
+        if not gap <= TRAIN_LOSS_TOL:
+            raise AssertionError(f"12a: rank {r}'s losses {losses} are "
+                                 f"{gap} off the tp=1 step's "
+                                 f"{tr[0]['tp1_losses']}")
+        want = L * W if t["kernel_selected"] else 0
+        if t["launches"] != {n: want for n in CAUSAL_NAMES}:
+            raise AssertionError(f"12a: rank {r} launched {t['launches']}, "
+                                 f"not {want} (layers x steps) each")
+        if t["kernel_selected"] and t["shapes"] != [t["shard_shape"]]:
+            raise AssertionError(f"12a: rank {r} ran the causal kernels at "
+                                 f"{t['shapes']}, not {t['shard_shape']}")
+    if len({t["replicated_digest"] for t in tr}) != 1:
+        raise AssertionError("12a: the replicated parameters differ across "
+                             "the ranks")
+    sv = [r["serve"] for r in ranks]
+    for layout in ("paged", "slot"):
+        if sv[0][layout]["streams"] != sv[1][layout]["streams"]:
+            raise AssertionError(f"12b: {layout} streams differ across the "
+                                 f"ranks")
+        for r, v in enumerate(sv):
+            if v[layout]["launches"] != phase3["launches"][layout]:
+                raise AssertionError(
+                    f"12b: rank {r}'s {layout} launches "
+                    f"{v[layout]['launches']} != phase 3's "
+                    f"{phase3['launches'][layout]}")
+    if ranks[0]["serve_witness"] != ranks[1]["serve_witness"]:
+        raise AssertionError("12b: the witness streams differ across the "
+                             "ranks")
+    label = {"backend": ranks[0]["backend"], "cards": cfg["cards"],
+             "processes": TP}
+    if cfg["cards"] == 1:
+        label["note"] = ("both ranks share one card over gloo: not a tp "
+                         "speed")
+    t0 = tr[0]
+    B, T = cfg["train_b"], cfg["train"]["max_len"]
+    a = {**label, "config": f"d{cfg['train']['d_model']}/h"
+         f"{cfg['train']['num_heads']}/L{L}/v{cfg['train']['vocab_size']}"
+         f"/T{T}/b{B}-bf16-adamw-mubf16-fusedce-tp{TP}",
+         "witness": ranks[0]["train_witness"],
+         "losses": [t["losses"] for t in tr], "tp1_losses": t0["tp1_losses"],
+         "max_loss_gap_vs_tp1": max(float(np.abs(np.asarray(t["losses"])
+                                                 - t0["tp1_losses"]).max())
+                                    for t in tr),
+         "replicated_bit_identical": True,
+         "ms_per_step": [t["ms_per_step"] for t in tr],
+         "tok_per_s": [B * T / (t["ms_per_step"] / 1e3) for t in tr],
+         "launches_per_rank": [t["launches"] for t in tr],
+         "kernel_shape": t0["shard_shape"], "batch": B}
+    if cfg["cards"] == 1:
+        a["batch_note"] = (f"B cut to {B} from {TP_TRAIN_B['cards']} on one "
+                           f"card: gloo stages every all-reduce through "
+                           f"the host")
+    b = {**label, "witness_modes": ranks[0]["serve_witness"]["modes"],
+         "witness_tier": ranks[0]["serve_witness"]["tier"],
+         "witness_migrate": ranks[0]["serve_witness"]["migrate"]}
+    for layout in ("paged", "slot"):
+        v = {k: x for k, x in sv[0][layout].items() if k != "streams"}
+        v["ms_per_tick"] = [x[layout]["ms_per_tick"] for x in sv]
+        v["tok_per_s"] = [x[layout]["tok_per_s"] for x in sv]
+        v["launches_per_rank"] = [x[layout]["launches"] for x in sv]
+        v["streams_bit_identical_across_ranks"] = True
+        b[layout] = v
+    return {"phase": "12", "12a": a, "12b": b, "wall_s": wall}
+
+
+def _digest(torch, tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_train_witness(torch, np, dk, mesh, cfg):
+    """12a's f32 witness: one SGD step at tp=2 against the tp=1 step on
+    the same weights and tokens (loss and the gathered parameters)."""
+    w, E = cfg["witness"], cfg["exact"]
+    tokens = np.random.default_rng(12).integers(
+        0, E["vocab_size"], size=(w["B"], w["T"]))
+    one = dk["get_model"]("transformer_lm", dtype=torch.float32, device=DEV,
+                          seed=3, **E)
+    want = dk["make_lm_train_step"](one, dk["get_optimizer"](
+        "sgd", w["lr"]))(tokens).item()
+    want_p = dk["rules"].flatten(dk["bridge"].params_to_jax(one))
+    with mesh:
+        tp = dk["get_model"]("transformer_lm", dtype=torch.float32,
+                             device=DEV, seed=3, tp_size=TP, **E)
+    got = dk["make_lm_train_step"](tp, dk["get_optimizer"]("sgd", w["lr"]),
+                                   mesh=mesh, tp_axis="tp")(tokens).item()
+    with mesh:
+        got_p = dk["rules"].flatten(dk["bridge"].params_to_jax(tp))
+    res = {"loss": got, "tp1_loss": want, "loss_gap": abs(got - want),
+           "param_gap": max(float(np.abs(got_p[k] - v).max())
+                            for k, v in want_p.items()), "tol": w["tol"]}
+    if not (res["loss_gap"] <= w["tol"] and res["param_gap"] <= w["tol"]):
+        raise AssertionError(f"12a: the f32 witness is off the tp=1 step: "
+                             f"{res}")
+    return res
+
+
+def tp_train(torch, np, dk, fa, mesh, cfg, rank):
+    """12a: the flagship's step at tp=2 (rank 0 also runs the tp=1 step
+    on the same weights and tokens)."""
+    tcfg, B, W = cfg["train"], cfg["train_b"], cfg["steps"]
+    T, H = tcfg["max_len"], tcfg["num_heads"]
+    hd = tcfg["d_model"] // H
+    tokens = torch.as_tensor(np.random.default_rng(13).integers(
+        0, tcfg["vocab_size"], size=(W, B, T)), device=DEV)
+
+    def opt():
+        return dk["get_optimizer"]("adamw", cfg["lr"],
+                                   mu_dtype=torch.bfloat16)
+
+    tp1 = None
+    if rank == 0:
+        one = dk["get_model"]("transformer_lm", dtype=torch.bfloat16,
+                              device=DEV, seed=0, **tcfg)
+        step = dk["make_lm_train_step"](one, opt())
+        tp1 = [step(t).item() for t in tokens]
+        del one, step
+        _free(torch)
+    with mesh:
+        model = dk["get_model"]("transformer_lm", dtype=torch.bfloat16,
+                                device=DEV, seed=0, tp_size=TP, **tcfg)
+    step = dk["make_lm_train_step"](model, opt(), mesh=mesh, tp_axis="tp")
+    shapes = set()
+    plain = fa.pallas_causal_attention
+
+    def seen(q, k, v, block=None):
+        shapes.add(tuple(q.shape))
+        return plain(q, k, v, block)
+
+    fa.pallas_causal_attention = seen
+    zero_training_counts(fa, dk["pp"])
+    losses, times = [], []
+    try:
+        for t in tokens:
+            sync(torch)
+            t0 = time.perf_counter()
+            losses.append(step(t).item())
+            times.append(time.perf_counter() - t0)
+    finally:
+        fa.pallas_causal_attention = plain
+    launches = {n: getattr(fa, n).launches for n in CAUSAL_NAMES}
+    rep = [p for n, p in model.named_parameters()
+           if dk["tp_dim"](n) is None]
+    out = {"losses": losses, "tp1_losses": tp1,
+           "ms_per_step": float(np.mean(times[1:]) * 1e3),
+           "first_step_ms": times[0] * 1e3, "launches": launches,
+           "shapes": sorted(list(s) for s in shapes),
+           "shard_shape": [B, T, H // TP, hd],
+           "kernel_selected": bool(fa.preferred(T, hd, torch.bfloat16,
+                                                DEV)),
+           "replicated_digest": _digest(torch, rep)}
+    del step, model
+    _free(torch)
+    return out
+
+
+def tp_serve_witness(torch, np, dk, mesh, cfg, rank):
+    """12b's f32 witness on each rank: the tp=2 engine's streams equal the
+    tp=1 engine's in every mode of ``cfg['modes']`` on both layouts, over
+    the host tier's churn, and after a block export -> import each way
+    between a tp=2 and a tp=1 engine."""
+    model = dk["get_model"]("transformer_lm", dtype=torch.float32,
+                            device=DEV, seed=3, **cfg["exact"])
+    requests = [(np.asarray(p, np.int32), c)
+                for p, c in cfg["exact_requests"]]
+    modes = dict(EXACT_MODES)
+    res = {"modes": {}}
+    for paged in (True, False):
+        layout = "paged" if paged else "slot"
+        for name in cfg["modes"]:
+            kw = dict(modes[name], paged=paged, block_size=16)
+            _, want, _ = serve(torch, np, dk, model, requests, **kw)
+            _, got, eng = serve(torch, np, dk, model, requests, mesh=mesh,
+                                **kw)
+            _differ(torch, np, model, requests, got, want,
+                    f"{layout} {name} tp={TP} vs tp=1", phase="12b")
+            res["modes"][f"{layout}_{name}"] = {
+                "streams_equal": True, "tp": eng.stats()["tp"],
+                "digest": _digest(torch, [torch.tensor(s) for s in got])}
+    T = cfg["exact_tier"]
+    rng = np.random.default_rng(9)
+    prefixes = [rng.integers(0, model.vocab_size, size=T["prefix_len"])
+                for _ in range(T["prefixes"])]
+    churn = [(np.concatenate([pre, rng.integers(
+        0, model.vocab_size, size=T["tail"])]).astype(np.int32),
+        dict(temperature=0.8, seed=r * 10 + i, max_new_tokens=T["max_new"]))
+        for r in range(T["reps"]) for i, pre in enumerate(prefixes)]
+    pb = T["prefix_len"] // 16
+    worst = -(-(T["prefix_len"] + T["tail"] + T["max_new"]) // 16)
+    tier = dict(slots=2, paged=True, block_size=16, prefill_chunk=16,
+                num_blocks=1 + worst + pb, host_blocks=T["prefixes"] * pb + pb)
+    streams = {}
+    for where in ({}, {"mesh": mesh}):
+        eng, out = None, []
+        for p, c in churn:  # one at a time: the churn order is the trace
+            if eng is None:
+                _, s, eng = serve(torch, np, dk, model, [(p, c)], **where,
+                                  **tier)
+            else:
+                r = eng.submit(p, **c)
+                eng.drain(timeout=300)
+                s = [r.stream.tokens(timeout=10)]
+            out += s
+        streams["tp2" if where else "tp1"] = out
+    st = eng.stats()
+    if st["block_restores"] == 0:
+        raise AssertionError("12b: the tp=2 host tier never restored")
+    _differ(torch, np, model, churn, streams["tp2"], streams["tp1"],
+            f"host tier tp={TP} vs tp=1", phase="12b")
+    res["tier"] = {"streams_equal": True,
+                   "demotions": st["block_demotions"],
+                   "restores": st["block_restores"]}
+    prompt, _ = requests[3]
+    greedy = [(prompt, dict(max_new_tokens=16, seed=0))]
+    kw = dict(paged=True, block_size=16)
+    _, one, _ = serve(torch, np, dk, model, greedy, **kw)
+    res["migrate"] = {}
+    for tag, src_w, dst_w in (("tp2_to_tp1_device", {"mesh": mesh}, {}),
+                              ("tp1_to_tp2_host", {},
+                               {"mesh": mesh, "host_blocks": 32})):
+        _, _, src = serve(torch, np, dk, model,
+                          [(prompt, dict(max_new_tokens=1, seed=0))],
+                          **src_w, **kw)
+        exp = src.export_blocks(prompt)
+        dst = dk["ServingEngine"](
+            model, slots=8, prefill_chunk=64,
+            registry=dk["telemetry"].MetricRegistry(),
+            tracer=dk["telemetry"].Tracer(), **kw,
+            **(dst_w if "mesh" in dst_w else dict(dst_w, device=DEV)))
+        imp = dst.import_blocks(prompt, exp["blocks"])
+        r = dst.submit(prompt, **greedy[0][1])
+        dst.drain(timeout=300)
+        _differ(torch, np, model, greedy, [r.stream.tokens(timeout=10)],
+                one, f"imported {tag} vs one engine", phase="12b")
+        if dst.prefix_hit_tokens != imp["tokens"] or imp["tokens"] == 0:
+            raise AssertionError(f"12b: the import {tag} ({imp}) did not "
+                                 f"serve the prompt's prefix")
+        res["migrate"][tag] = {"streams_equal": True,
+                               "tokens": imp["tokens"], "mode": imp["mode"]}
+    del model
+    _free(torch)
+    return res
+
+
+def tp_serve(torch, np, dk, pa, sp, mesh, cfg):
+    """12b at full width: phase 3's flagship and mix on tp=2 engines,
+    paged and slot; returns per layout the streams, this rank's launch
+    counts, rates and the share of greedy tokens equal to phase 3's."""
+    model = dk["get_model"]("transformer_lm", dtype=torch.bfloat16,
+                            device=DEV, seed=0, **cfg["flagship"])
+    requests = dk["serving_requests"](model.vocab_size,
+                                      cfg["system_prefix"],
+                                      tuple(cfg["prompt_lens"]))
+    out = {}
+    for paged in (True, False):
+        layout = "paged" if paged else "slot"
+        kw = dict(mesh=mesh, paged=paged, block_size=16)
+        serve(torch, np, dk, model, requests[:2], **kw)  # warm
+        pa.paged_attention.launches = 0
+        sp.splash_prefill_attention.launches = 0
+        summary, streams, eng = serve(torch, np, dk, model, requests, **kw)
+        summary["launches"] = {
+            "paged_attention": pa.paged_attention.launches,
+            "splash_prefill": sp.splash_prefill_attention.launches}
+        ref = cfg["phase3_streams"][layout]
+        summary["greedy_match_vs_tp1"] = greedy_match(requests, streams, ref)
+        summary["greedy_flips_vs_tp1"] = greedy_flips(torch, np, model,
+                                                      requests, streams, ref)
+        summary["cache_kv_heads"] = int(eng._cache.layers[0]["key"]
+                                        .shape[-2])
+        summary["streams"] = streams
+        summary["tp"] = eng.stats()["tp"]
+        out[layout] = summary
+        del eng
+    del model
+    _free(torch)
+    return out
+
+
+def tp_worker(cfg_path: str, rank: int) -> int:
+    """One rank of phase 12 (``chip_smoke.py --phase12-worker <cfg>
+    <rank>``): join the two-rank world, run 12a and 12b, write this
+    rank's results."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    global DEV
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from distkeras_torch import bridge, telemetry
+    from distkeras_torch.bench import serving_requests
+    from distkeras_torch.kernels import build
+    from distkeras_torch.models import get_model
+    from distkeras_torch.ops import paged_attention as pa
+    from distkeras_torch.ops import pallas_attention as fa
+    from distkeras_torch.ops import pallas_pair as pp
+    from distkeras_torch.ops import rules
+    from distkeras_torch.ops import splash_prefill as sp
+    from distkeras_torch.parallel.mesh import make_mesh
+    from distkeras_torch.parallel.spmd import make_lm_train_step, tp_dim
+    from distkeras_torch.serving import ServingEngine
+    from distkeras_torch.utils.losses import get_optimizer
+
+    cfg = json.load(open(cfg_path))
+    DEV = cfg["device"]
+    if DEV == "cuda":
+        # one card a rank over NCCL; both on card 0 over gloo
+        torch.cuda.set_device(rank if cfg["backend"] == "nccl" else 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.load()
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // TP))
+    dist.init_process_group(cfg["backend"],
+                            init_method=f"tcp://127.0.0.1:{cfg['port']}",
+                            rank=rank, world_size=TP,
+                            timeout=datetime.timedelta(seconds=300))
+    dk = {"get_model": get_model, "bridge": bridge, "rules": rules,
+          "make_lm_train_step": make_lm_train_step,
+          "get_optimizer": get_optimizer, "tp_dim": tp_dim, "pp": pp,
+          "ServingEngine": ServingEngine, "telemetry": telemetry,
+          "serving_requests": serving_requests}
+    try:
+        train_mesh = make_mesh({"dp": 1, "sp": 1, "tp": TP})
+        serve_mesh = make_mesh({"model": TP})
+        res = {"rank": rank, "backend": dist.get_backend()}
+        res["train_witness"] = tp_train_witness(torch, np, dk, train_mesh,
+                                                cfg)
+        res["train"] = tp_train(torch, np, dk, fa, train_mesh, cfg, rank)
+        res["serve_witness"] = tp_serve_witness(torch, np, dk, serve_mesh,
+                                                cfg, rank)
+        res["serve"] = tp_serve(torch, np, dk, pa, sp, serve_mesh, cfg)
+        with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def main(phase12_only: bool = False) -> int:
+    """The smoke (every phase), or with ``phase12_only`` phase 12 alone
+    after phase 3, its yardstick (``chip_smoke.py --phase12``: the
+    tensor-parallel ranks over NCCL on a host of several cards)."""
     try:
         import numpy as np
         import torch
@@ -3035,12 +3525,36 @@ def main() -> int:
         "backward_build": bwd_facts,
         "device": torch.cuda.get_device_name(0),
     }})
+    if phase12_only:
+        t0 = time.perf_counter()
+        serving, _, _, chunked = serving_phase(torch, np, dk, pa, sp)
+        serving["seconds"] = time.perf_counter() - t0
+        _emit({"serving_phase": serving})
+        _free(torch)
+        _emit(tp_phase(torch, np, here, {
+            "streams": chunked,
+            "launches": {k: serving[k]["launches"]
+                         for k in ("paged", "slot")}}))
+        print(smi, flush=True)
+        _emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
     t0 = time.perf_counter()
     paged = paged_cases(torch, F, pa)
     splash = splash_cases(torch, F, sp)
     edges = edge_cases(torch, pa, sp)
+    # one tp=2 rank's heads (phase 12): H/2 query heads over Hk/2
+    paged_tp = paged_cases(torch, F, pa, PAGED_TP)
+    # values at std 0.5, as the edge cases: the depth-0 row's queries
+    # average 1-5 value rows, and bf16's own rounding of |O| in [4, 8) is
+    # 0.0156, over the 1e-2 tolerance (each case reports the exact
+    # result's rounding, out_rounding, beside its error)
+    splash_tp = splash_cases(torch, F, sp, SPLASH_TP, (), v_std=0.5)
     _emit({"kernel_phase": {"paged_attention": paged,
                             "splash_prefill": splash, "edges": edges,
+                            "paged_attention_tp2_shard": paged_tp,
+                            "splash_prefill_tp2_shard": splash_tp,
                             "seconds": time.perf_counter() - t0}})
 
     t0 = time.perf_counter()
@@ -3056,7 +3570,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     causal = causal_cases(torch, F, fa)
+    causal_tp = causal_cases(torch, F, fa, CAUSAL_TP)
     _emit({"training_kernel_phase": {"causal_attention": causal,
+                                     "causal_attention_tp2_shard": causal_tp,
                                      "tol": CAUSAL_TOL,
                                      "seconds": time.perf_counter() - t0}})
 
@@ -3146,18 +3662,26 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    _free(torch)
+    tp = tp_phase(torch, np, here, {
+        "streams": chunked,
+        "launches": {k: serving[k]["launches"] for k in ("paged", "slot")}})
+    _emit(tp)
+
     main_paged = next(c for c in paged if c["T"] == 64 and c["pool"] == "int8")
     main_splash = next(c for c in splash if c["dtype"] == "bf16")
-    timed = ("T", "hd", "pool", "dtype", "starts", "ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms")
+    timed = ("T", "H", "Hk", "hd", "pool", "dtype", "starts", "ms",
+             "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
-    for name, src, rep, case, cases in (
+    for name, src, rep, case, cases, layout in (
             ("paged_attention", "distkeras_torch/csrc/paged_attention.cu",
              "distkeras_tpu/ops/paged_attention.py:166", main_paged,
-             paged + [c for c in edges if c["kernel"] == "paged"]),
+             paged + paged_tp + [c for c in edges if c["kernel"] == "paged"],
+             "paged"),
             ("splash_prefill", "distkeras_torch/csrc/splash_prefill.cu",
              "distkeras_tpu/ops/splash_prefill.py:163", main_splash,
-             splash + [c for c in edges if c["kernel"] == "splash"])):
+             splash + splash_tp + [c for c in edges
+                                   if c["kernel"] == "splash"], "slot")):
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             # the main path's launches by what each ran (launch_route)
@@ -3168,9 +3692,13 @@ def main() -> int:
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
             "library_ms": case["library_ms"],
             # every timed shape of the main path (the row's own numbers
-            # are the first one's): decode, chunk, verify, monolithic
+            # are the first one's): decode, chunk, verify, monolithic,
+            # and one tp=2 rank's heads (H=4, Hk=1)
             "shapes": [{k: c[k] for k in timed if k in c}
                        for c in cases if "ms" in c],
+            # phase 12's flagship run, each rank's launches
+            "tp2_launches_per_rank": [
+                n[name] for n in tp["12b"][layout]["launches_per_rank"]],
         })
     main_causal = causal[0]
     for kern, line, err_keys, lib in (
@@ -3183,13 +3711,27 @@ def main() -> int:
             "source": "distkeras_torch/csrc/causal_attention.cu",
             "replaces": f"distkeras_tpu/ops/pallas_attention.py:{line}",
             "launches": training["launches"][name],
-            "max_abs_err": max(c[k] for c in causal for k in err_keys),
+            "max_abs_err": max(c[k] for c in causal + causal_tp
+                               for k in err_keys),
             "ms": main_causal[f"{kern}_ms"],
             "plain_ms": main_causal[f"{kern}_plain_ms"],
             "bound_ms": main_causal[f"{kern}_bound_ms"],
             "bound_by": main_causal[f"{kern}_bound_by"],
             "library_ms": lib,
+            # one tp=2 rank's heads, and phase 12's launches per rank
+            "tp2_shard": {k: causal_tp[0][f"{kern}_{k}"] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")} | {
+                "shape": [CAUSAL["B"], CAUSAL_TP["T"][0], CAUSAL_TP["H"],
+                          CAUSAL["hd"]],
+                "library_ms": (causal_tp[0]["fwd_library_ms"]
+                               if kern == "fwd" else None)},
+            "tp2_launches_per_rank": [
+                n[name] for n in tp["12a"]["launches_per_rank"]],
         })
+        if kern != "fwd":
+            rows[-1]["tp2_shard"]["bwd_ms"] = causal_tp[0]["bwd_ms"]
+            rows[-1]["tp2_shard"]["bwd_library_ms"] = causal_tp[0][
+                "bwd_library_ms"]
         if name in fwd_facts:
             rows[-1]["build"] = fwd_facts[name]
         if name in bwd_facts:
@@ -3242,4 +3784,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--phase11f-worker":
         sys.exit(job_worker(sys.argv[2]))
-    sys.exit(main())
+    if len(sys.argv) == 4 and sys.argv[1] == "--phase12-worker":
+        sys.exit(tp_worker(sys.argv[2], int(sys.argv[3])))
+    sys.exit(main(phase12_only=sys.argv[1:] == ["--phase12"]))

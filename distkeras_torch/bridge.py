@@ -15,6 +15,11 @@ The JAX side is plain numpy: :func:`params_from_jax` takes what
 ``jax.tree.map(np.asarray, variables)`` gives, and :func:`params_to_jax`
 returns nested dicts of numpy arrays (f32) that ``jnp.asarray`` loads.
 Neither imports jax.
+
+A tensor-parallel model (``tp_size > 1``) bridges the FULL (unsharded)
+tree: :func:`params_from_jax` loads this rank's slice of each sharded
+leaf, :func:`params_to_jax` gathers them over the tp group (collective:
+every tp rank calls it, inside ``with mesh:``).
 """
 
 from __future__ import annotations
@@ -59,8 +64,11 @@ def params_from_jax(tree: dict, model) -> None:
     """Load a flax ``{"params": ...}`` tree of numpy arrays into ``model``
     in place. Every leaf must match a port parameter by name and shape,
     and every port parameter must be covered — a partial load raises."""
+    from distkeras_torch.parallel.spmd import shard_tensor, tp_dim
+
     params = tree["params"] if "params" in tree else tree
     own = dict(model.named_parameters())
+    tp, rank = getattr(model, "tp_size", 1), getattr(model, "tp_rank", 0)
     seen = set()
     for path, leaf in _flatten(params):
         name = _port_name(path)
@@ -68,6 +76,9 @@ def params_from_jax(tree: dict, model) -> None:
             raise KeyError(f"flax leaf {'/'.join(path)} has no port "
                            f"parameter '{name}'")
         arr = np.asarray(leaf)
+        if tp > 1 and tp_dim(name) is not None:
+            arr = shard_tensor(torch.from_numpy(np.ascontiguousarray(arr)),
+                               tp_dim(name), rank, tp).numpy()
         dst = own[name]
         if tuple(arr.shape) != tuple(dst.shape):
             raise ValueError(f"{'/'.join(path)}: flax shape "
@@ -83,9 +94,15 @@ def params_from_jax(tree: dict, model) -> None:
 @torch.no_grad()
 def params_to_jax(model) -> Dict[str, dict]:
     """The inverse of :func:`params_from_jax`: ``{"params": nested dict
-    of float32 numpy arrays}`` in the flax tree layout."""
+    of float32 numpy arrays}`` in the flax tree layout (a tp model's
+    gathered: the full tree)."""
+    params = model.named_parameters()
+    if getattr(model, "tp_size", 1) > 1:
+        from distkeras_torch.parallel.spmd import gather_state
+
+        params = gather_state(model).items()
     out: Dict[str, dict] = {}
-    for name, p in model.named_parameters():
+    for name, p in params:
         path = _jax_path(name)
         node = out
         for key in path[:-1]:

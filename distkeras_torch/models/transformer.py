@@ -54,9 +54,20 @@ accumulation and f32 logits.
 Decoding: :func:`generate` (greedy or sampled with a per-call
 ``torch.Generator``) and :func:`beam_search`.
 
+Tensor parallelism (``tp_size > 1``, Megatron-style, the reference's
+``TPDenseGeneral`` modes): each tp rank is one process holding its own
+slice of the heads and of the MLP hidden dimension — ``qkv`` /
+``q_proj`` / ``kv_proj`` and ``mlp_up`` column-parallel, ``out`` and
+``mlp_down`` row-parallel, one ``all_reduce`` per col -> row pair
+(:mod:`distkeras_torch.parallel.collectives`). Rank ``r`` holds heads
+``[r H/tp, (r+1) H/tp)`` and KV heads ``[r Hk/tp, (r+1) Hk/tp)``, so the
+GQA grouping is the same on every rank. The rank is read from the mesh
+bound by ``with mesh:`` when the model is built (and its ``tp_axis``
+group when it runs); a ``tp_size=n`` model built from a seed holds
+exactly the slices of the ``tp_size=1`` model built from that seed.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): :class:`MoeLM` and ``moe_experts`` (A10) and ``tp_size > 1``
-(A10).
+item): :class:`MoeLM` and ``moe_experts`` (A10).
 """
 
 from __future__ import annotations
@@ -77,6 +88,8 @@ from distkeras_torch.ops import pallas_attention as _fa
 from distkeras_torch.ops import splash_prefill as _sp
 from distkeras_torch.ops.flash_attention import blocked_causal_attention
 from distkeras_torch.ops.ring_attention import ring_attention
+from distkeras_torch.parallel.collectives import copy_to_tp, reduce_from_tp
+from distkeras_torch.parallel.mesh import current_mesh
 from distkeras_torch.utils.device import resolve_device
 
 _NEG_INF = -1e30
@@ -114,8 +127,6 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 def _ring_shard(cfg):
     """(sequence group, shard index) of a ``'ring'`` model: the bound
     mesh's ``cfg.seq_axis`` group and this rank's coordinate on it."""
-    from distkeras_torch.parallel.mesh import current_mesh
-
     mesh = current_mesh()
     if mesh is None or cfg.seq_axis not in mesh.axis_names:
         raise ValueError(
@@ -124,6 +135,28 @@ def _ring_shard(cfg):
             f"make_mesh({{'dp': ..., '{cfg.seq_axis}': ...}}):`, or train it "
             f"through make_lm_train_step(mesh=...)")
     return mesh.group(cfg.seq_axis), mesh.index(cfg.seq_axis)
+
+
+def _tp_mesh(tp_axis: str, tp_size: int):
+    """The bound mesh a ``tp_size > 1`` model is built and run in: its
+    ``tp_axis`` must be of size ``tp_size``."""
+    mesh = current_mesh()
+    if (mesh is None or tp_axis not in mesh.axis_names
+            or mesh.axis_size(tp_axis) != tp_size):
+        raise ValueError(
+            f"tp_size={tp_size} shards heads over the '{tp_axis}' axis of "
+            f"a bound mesh of that size: build and call the model inside "
+            f"`with make_mesh({{..., '{tp_axis}': {tp_size}}}):` (got "
+            f"{mesh!r}), or train it through make_lm_train_step(mesh=..., "
+            f"tp_axis='{tp_axis}')")
+    return mesh
+
+
+def _tp_group(tp_axis: str, tp_size: int):
+    """The tp process group of the bound mesh (None at tp_size=1)."""
+    if tp_size == 1:
+        return None
+    return _tp_mesh(tp_axis, tp_size).group(tp_axis)
 
 
 def sinusoidal_positions(max_len: int, dim: int) -> np.ndarray:
@@ -211,36 +244,70 @@ class Embed(nn.Module):
 
 class TPDenseGeneral(nn.Module):
     """Dense projection contracting the trailing ``len(in_shape)`` axes
-    of ``x`` into ``features`` — the reference's ``TPDenseGeneral`` at
-    ``tp_size=1``. ``kernel`` keeps the flax shape ``in_shape +
-    features`` (so weights bridge by name) and is used as one
+    of ``x`` into ``features`` — the reference's ``TPDenseGeneral``.
+    ``in_shape`` and ``features`` are the GLOBAL (``tp_size=1``) shapes;
+    ``kernel`` keeps the flax shape ``in_shape + features`` of this
+    rank's slice (so weights bridge by name) and is used as one
     ``[fan_in, out]`` matrix. Kernel and bias are f32 master weights,
     cast to the model dtype on every call as the reference casts them
     (a bf16 copy stored in their place would put the optimizer's
-    updates on bf16 weights)."""
+    updates on bf16 weights).
+
+    With ``tp_size > 1``, rank ``tp_rank`` of the bound mesh's
+    ``tp_axis`` holds, in ``mode='col'``, the contiguous ``1/tp`` slice
+    of ``features[shard_dim]`` (its input is replicated: the caller puts
+    :func:`~distkeras_torch.parallel.collectives.copy_to_tp` before it,
+    once per input however many col layers read it); in ``mode='row'``
+    the slice of ``in_shape[0]`` — its input is the col layer's local
+    output, its partial products are summed over the tp group, and the
+    replicated bias is added once, after the sum. The kernel is drawn
+    at its full shape from ``gen`` and sliced, so a sharded layer holds
+    exactly the slice of the unsharded layer drawn from the same
+    generator state."""
 
     def __init__(self, in_shape, features, dtype, device, gen,
-                 use_bias: bool = True, tp_size: int = 1):
+                 use_bias: bool = True, tp_size: int = 1,
+                 mode: Optional[str] = None, shard_dim: int = 0,
+                 tp_axis: str = "tp", tp_rank: Optional[int] = None):
         super().__init__()
-        if tp_size != 1:
-            raise NotImplementedError(
-                "tensor-parallel TPDenseGeneral (tp_size > 1) is not "
-                "ported yet (ROADMAP A10)")
-        self.in_shape = tuple(in_shape)
-        self.features = tuple(features)
+        if mode not in (None, "col", "row"):
+            raise ValueError(f"Unknown TPDenseGeneral mode '{mode}'. "
+                             "Known: col, row")
+        in_shape, features = tuple(in_shape), tuple(features)
         self.dtype = dtype
-        self.fan_in = int(np.prod(self.in_shape))
-        self.kernel = nn.Parameter(_trunc_normal(
-            self.in_shape + self.features, self.fan_in, device, gen))
+        self.tp_size, self.tp_axis = tp_size, tp_axis
+        self.mode = mode if tp_size > 1 else None
+        full = _trunc_normal(in_shape + features, int(np.prod(in_shape)),
+                             device, gen)
+        if self.mode is not None:
+            if tp_rank is None:
+                tp_rank = _tp_mesh(tp_axis, tp_size).index(tp_axis)
+            dim = len(in_shape) + shard_dim if self.mode == "col" else 0
+            n = full.shape[dim]
+            if n % tp_size:
+                raise ValueError(
+                    f"{self.mode}-parallel dim {n} not divisible by "
+                    f"tp_size={tp_size}")
+            full = full.narrow(dim, tp_rank * (n // tp_size),
+                               n // tp_size).contiguous()
+            if self.mode == "col":
+                features = tuple(full.shape[len(in_shape):])
+            else:
+                in_shape = (n // tp_size,) + in_shape[1:]
+        self.in_shape, self.features = in_shape, features
+        self.kernel = nn.Parameter(full)
         self.bias = (nn.Parameter(torch.zeros(self.features, device=device))
                      if use_bias else None)
 
     def forward(self, x):
         n = len(self.in_shape)
         lead = tuple(x.shape[:-n])
-        xm = x.reshape(lead + (self.fan_in,)).to(self.dtype)
-        km = self.kernel.reshape(self.fan_in, -1).to(self.dtype)
+        xm = x.reshape(lead + (int(np.prod(self.in_shape)),)).to(self.dtype)
+        km = self.kernel.reshape(xm.shape[-1], -1).to(self.dtype)
         y = torch.matmul(xm, km).reshape(lead + self.features)
+        if self.mode == "row":
+            # the Megatron g-op: one all-reduce completes the product
+            y = reduce_from_tp(y, _tp_group(self.tp_axis, self.tp_size))
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
@@ -311,22 +378,29 @@ class CausalSelfAttention(nn.Module):
     time (``cfg``), so one set of parameters serves every twin."""
 
     def __init__(self, d_model: int, num_heads: int,
-                 num_kv_heads: Optional[int], dtype, device, gen):
+                 num_kv_heads: Optional[int], dtype, device, gen,
+                 tp_size: int = 1, tp_axis: str = "tp", tp_rank: int = 0):
         super().__init__()
         H = num_heads
         hd = d_model // H
         Hk = num_kv_heads or H
-        self.num_heads, self.num_kv_heads, self.head_dim = H, Hk, hd
+        # this rank's heads: H/tp query heads over Hk/tp KV heads
+        self.num_heads, self.num_kv_heads = H // tp_size, Hk // tp_size
+        self.head_dim = hd
         self.dtype = dtype
+        self.tp_size, self.tp_axis = tp_size, tp_axis
+        tp = dict(tp_size=tp_size, tp_axis=tp_axis, tp_rank=tp_rank)
         if Hk == H:
             self.qkv = TPDenseGeneral((d_model,), (3, H, hd), dtype, device,
-                                      gen)
+                                      gen, mode="col", shard_dim=1, **tp)
         else:
             self.q_proj = TPDenseGeneral((d_model,), (H, hd), dtype, device,
-                                         gen)
+                                         gen, mode="col", shard_dim=0, **tp)
             self.kv_proj = TPDenseGeneral((d_model,), (2, Hk, hd), dtype,
-                                          device, gen)
-        self.out = TPDenseGeneral((H, hd), (d_model,), dtype, device, gen)
+                                          device, gen, mode="col",
+                                          shard_dim=1, **tp)
+        self.out = TPDenseGeneral((H, hd), (d_model,), dtype, device, gen,
+                                  mode="row", **tp)
 
     # -- kernel selection -------------------------------------------------
 
@@ -439,6 +513,8 @@ class CausalSelfAttention(nn.Module):
                 block_tables=None, seq_lens=None, valid_lens=None):
         B, T, D = x.shape
         H, Hk, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        # one conjugate for every column-parallel projection of x
+        x = copy_to_tp(x, _tp_group(self.tp_axis, self.tp_size))
         if Hk == H:
             qkv = self.qkv(x)  # [B, T, 3, H, hd]
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -510,16 +586,19 @@ class Block(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int,
                  num_kv_heads: Optional[int], mlp_ratio: int, dtype, device,
-                 gen):
+                 gen, tp_size: int = 1, tp_axis: str = "tp",
+                 tp_rank: int = 0):
         super().__init__()
+        tp = dict(tp_size=tp_size, tp_axis=tp_axis, tp_rank=tp_rank)
+        self.tp_size, self.tp_axis = tp_size, tp_axis
         self.LayerNorm_0 = LayerNorm(d_model, dtype, device)
         self.CausalSelfAttention_0 = CausalSelfAttention(
-            d_model, num_heads, num_kv_heads, dtype, device, gen)
+            d_model, num_heads, num_kv_heads, dtype, device, gen, **tp)
         self.LayerNorm_1 = LayerNorm(d_model, dtype, device)
         self.mlp_up = TPDenseGeneral((d_model,), (d_model * mlp_ratio,),
-                                     dtype, device, gen)
+                                     dtype, device, gen, mode="col", **tp)
         self.mlp_down = TPDenseGeneral((d_model * mlp_ratio,), (d_model,),
-                                       dtype, device, gen)
+                                       dtype, device, gen, mode="row", **tp)
 
     def forward(self, x, cfg, cache=None, layer=None, cur=None,
                 block_tables=None, seq_lens=None, valid_lens=None):
@@ -528,7 +607,8 @@ class Block(nn.Module):
                                            block_tables, seq_lens,
                                            valid_lens)
         h = self.LayerNorm_1(x)
-        h = self.mlp_up(h)
+        h = self.mlp_up(copy_to_tp(h, _tp_group(self.tp_axis,
+                                                self.tp_size)))
         h = F.gelu(h, approximate="tanh")  # flax nn.gelu's default
         h = self.mlp_down(h)
         return x + h
@@ -541,7 +621,7 @@ _CONFIG_FIELDS = (
     "attention", "tp_size", "moe_experts", "remat", "decode", "pos_emb",
     "num_kv_heads", "cache_dtype", "slot_cursor", "paged",
     "page_block_size", "num_pages", "paged_kernel", "prefill_kernel",
-    "features_only", "seq_axis",
+    "features_only", "seq_axis", "tp_axis",
 )
 
 
@@ -555,6 +635,10 @@ class TransformerLM(nn.Module):
     ``"cpu"`` explicitly for the host) and ``seed`` (the parameter
     init's ``torch.Generator`` seed). Decode twins come from
     :meth:`clone` and take a :class:`KVCache` from :meth:`init_cache`.
+    A ``tp_size > 1`` model is built inside ``with mesh:`` (its rank is
+    ``tp_rank``, this process's coordinate on the mesh's ``tp_axis``)
+    and runs inside a bound mesh of the same tp size; :meth:`shard`
+    makes one from a ``tp_size=1`` model's weights.
     """
 
     _DENSE_MAX_T = 512
@@ -570,7 +654,8 @@ class TransformerLM(nn.Module):
                  paged: bool = False, page_block_size: int = 16,
                  num_pages: int = 0, paged_kernel: str = "auto",
                  prefill_kernel: str = "auto", features_only: bool = False,
-                 seq_axis: str = "sp", device=None, seed: int = 0):
+                 seq_axis: str = "sp", tp_axis: str = "tp", device=None,
+                 seed: int = 0):
         super().__init__()
         if isinstance(dtype, str):
             dtype = getattr(torch, dtype)
@@ -578,11 +663,14 @@ class TransformerLM(nn.Module):
         for name in _CONFIG_FIELDS:
             setattr(self, name, cfg[name])
         self._validate()
+        self.tp_rank = (_tp_mesh(tp_axis, tp_size).index(tp_axis)
+                        if tp_size > 1 else 0)
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
+        tp = dict(tp_size=tp_size, tp_axis=tp_axis, tp_rank=self.tp_rank)
         self.embed = Embed(vocab_size, d_model, dtype, dev, gen)
         self.blocks = nn.ModuleList(
-            Block(d_model, num_heads, num_kv_heads, 4, dtype, dev, gen)
+            Block(d_model, num_heads, num_kv_heads, 4, dtype, dev, gen, **tp)
             for _ in range(num_layers))
         self.ln_f = LayerNorm(d_model, dtype, dev)
         self.head = VocabHead(d_model, vocab_size, dtype, dev, gen)
@@ -592,10 +680,8 @@ class TransformerLM(nn.Module):
         if self.remat not in ("none", "block"):
             raise ValueError(
                 f"Unknown remat policy '{self.remat}'. Known: none, block")
-        if self.tp_size != 1:
-            raise NotImplementedError(
-                "tp_size > 1 (tensor parallelism) is not ported yet "
-                "(ROADMAP A10)")
+        if self.tp_size < 1:
+            raise ValueError(f"tp_size must be >= 1; got {self.tp_size}")
         if self.moe_experts:
             raise NotImplementedError(
                 "moe_experts > 0 (Switch-MoE MLPs) is not ported yet "
@@ -610,6 +696,13 @@ class TransformerLM(nn.Module):
         if self.num_heads % Hk:
             raise ValueError(f"num_heads={self.num_heads} not divisible by "
                              f"num_kv_heads={Hk}")
+        if self.num_heads % self.tp_size:
+            raise ValueError(f"num_heads={self.num_heads} not divisible by "
+                             f"tp_size={self.tp_size}")
+        if Hk % self.tp_size:
+            raise ValueError(
+                f"num_kv_heads={Hk} not divisible by tp_size="
+                f"{self.tp_size} (each tp shard needs whole KV heads)")
         if self.cache_dtype not in ("model", "int8"):
             raise ValueError(
                 f"Unknown cache_dtype '{self.cache_dtype}'. "
@@ -671,8 +764,9 @@ class TransformerLM(nn.Module):
         cfg.update(overrides)
         for name in _CONFIG_FIELDS:
             setattr(twin, name, cfg[name])
+        twin.tp_rank = self.tp_rank
         for fixed in ("vocab_size", "d_model", "num_heads", "num_layers",
-                      "num_kv_heads", "dtype"):
+                      "num_kv_heads", "dtype", "tp_size", "tp_axis"):
             if cfg[fixed] != getattr(self, fixed):
                 raise ValueError(f"clone() cannot change '{fixed}': the "
                                  f"parameters are shared")
@@ -682,13 +776,34 @@ class TransformerLM(nn.Module):
         twin._set_pos_table()
         return twin
 
+    def shard(self, mesh, tp_axis: str = "tp") -> "TransformerLM":
+        """A tensor-parallel twin of this ``tp_size=1`` model for this
+        process's position on ``mesh``'s ``tp_axis``: the same
+        configuration at ``tp_size = mesh.axis_size(tp_axis)``, holding
+        contiguous copies of this rank's slices of the weights (its own
+        parameters, not shared)."""
+        from distkeras_torch.parallel.spmd import shard_state
+
+        if self.tp_size != 1:
+            raise ValueError("shard() takes a tp_size=1 model; this one "
+                             f"has tp_size={self.tp_size}")
+        n = mesh.axis_size(tp_axis)
+        with mesh:
+            twin = TransformerLM(**dict(self.config(), tp_size=n,
+                                        tp_axis=tp_axis),
+                                 device=self.device)
+        twin.load_state_dict(shard_state(self.state_dict(), twin.tp_rank,
+                                         n))
+        return twin
+
     def init_cache(self, batch: int = 1) -> KVCache:
         """Zeroed decode cache for this (decode-mode) twin: ``batch``
         slots of ``max_len`` positions, or the paged pool."""
         if not self.decode:
             raise ValueError("init_cache needs a decode twin "
                              "(model.clone(decode=True))")
-        Hk = self.num_kv_heads or self.num_heads
+        # this rank's KV heads under tensor parallelism
+        Hk = (self.num_kv_heads or self.num_heads) // self.tp_size
         hd = self.d_model // self.num_heads
         quant = self.cache_dtype == "int8"
         store = torch.int8 if quant else self.dtype
@@ -715,6 +830,12 @@ class TransformerLM(nn.Module):
     def forward(self, tokens, cache: Optional[KVCache] = None,
                 block_tables=None, seq_lens=None, valid_lens=None):
         B, T = tokens.shape
+        if (self.tp_size > 1 and _tp_mesh(self.tp_axis, self.tp_size).index(
+                self.tp_axis) != self.tp_rank):
+            raise ValueError(
+                f"this tp model holds rank {self.tp_rank}'s slices but runs "
+                f"at coordinate {current_mesh().index(self.tp_axis)} of the "
+                f"bound mesh's '{self.tp_axis}' axis")
         if valid_lens is not None and not (self.slot_cursor or self.paged):
             raise ValueError(
                 "valid_lens (chunked mixed prefill/decode) needs per-row "

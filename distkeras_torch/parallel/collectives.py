@@ -14,6 +14,18 @@ must be issued in the same order on every rank; callers keep that order
 by giving each communication step ONE call (several tensors ride it as
 streams or stacked), so that the backward's calls form a chain of data
 dependencies.
+
+Tensor parallelism (Megatron's conjugate pair, the port's form of the
+transposes ``shard_map``'s autodiff inserts for the reference):
+:func:`copy_to_tp` goes before a column-parallel layer (identity forward,
+``all_reduce`` of the input's gradient backward: each head shard's
+gradient of a replicated input is partial), :func:`reduce_from_tp` after
+a row-parallel one (``all_reduce`` forward, identity backward).
+:func:`all_gather_tp` assembles a tensor sharded along one dimension
+(the engine's host-side paths and the plain-layout checkpoints). Every
+tp collective is an ``all_reduce``: gloo on CUDA tensors serves only
+``all_reduce`` and ``broadcast``, and two ranks sharing one card cannot
+run NCCL.
 """
 
 from __future__ import annotations
@@ -113,3 +125,67 @@ def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     y = x.detach().clone()
     dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
     return y
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_tp(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Megatron's f: the identity forward; backward, the input gradient
+    summed over the tp ``group`` (a replicated input feeding
+    column-parallel layers gets one partial gradient per head shard).
+    The identity itself in a group of one."""
+    if group_size(group) == 1:
+        return x
+    return _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Megatron's g: forward, the partial products of a row-parallel
+    layer summed over the tp ``group``; backward, the identity (the
+    replicated output's gradient is every shard's). The identity itself
+    in a group of one."""
+    if group_size(group) == 1:
+        return x
+    return _ReduceFromTP.apply(x, group)
+
+
+@torch.no_grad()
+def all_gather_tp(x: torch.Tensor, group=None, dim: int = 0
+                  ) -> torch.Tensor:
+    """The shards of ``x`` along ``dim`` over ``group``, concatenated in
+    group-rank order (a new contiguous tensor; ``x`` itself in a group of
+    one). One ``all_reduce`` of a zero-padded slab, summed as bytes so
+    every value (signed zeros and NaN payloads included) arrives bit for
+    bit. Not differentiable."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    x = x.contiguous()
+    slab = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    slab[group_rank(group)] = x
+    dist.all_reduce(slab.view(-1).view(torch.uint8), op=dist.ReduceOp.SUM,
+                    group=group)
+    return torch.cat(tuple(slab.unbind(0)), dim=dim)

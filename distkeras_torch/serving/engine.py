@@ -72,15 +72,32 @@ with the weight version), live counters/gauges/histograms in a
 postmortem JSONL on crash, and per-request JSONL records through
 :class:`~distkeras_torch.utils.metrics.MetricsWriter`.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``mesh`` (A10) and ``watchdog`` (A11). The TCP loop thread that
-marshals control calls (``serve_forever``, ``call_in_loop``) is A11;
+Tensor-parallel serving (``mesh=make_mesh({"model": n})``): every rank
+is one process that builds the engine from the same ``tp_size=1`` model
+and is submitted the same requests in the same order; the engine serves
+a tp twin holding this rank's slice of the heads and the MLP
+(:meth:`~distkeras_torch.models.transformer.TransformerLM.shard`) over
+caches of ``Hk/tp`` KV heads, with one ``all_reduce`` per col -> row
+projection pair inside each tick. The logits after the last all-reduce
+are identical on every rank and the per-slot generators are seeded the
+same, so every rank samples the same tokens and plans the same next
+tick: the ranks step in lock step, and no plan decision reads a clock
+(deadlines are refused). Host-side KV (the host tier, exported and
+imported blocks) is unsharded: gathered over tp on the way out, sliced
+on the way in, so a block moves between engines of any tp degree.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+``watchdog`` (A11). The TCP loop thread that marshals control calls
+(``serve_forever``, ``call_in_loop``) is A11;
 :meth:`ServingEngine.update_weights`, :meth:`~ServingEngine.export_blocks`
-and :meth:`~ServingEngine.import_blocks` are called between steps.
+and :meth:`~ServingEngine.import_blocks` are called between steps (by
+every rank of a tp engine, in the same order: an export gathers over
+tp).
 """
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import tempfile
 import time
@@ -94,6 +111,10 @@ import torch.nn.functional as F
 
 from distkeras_torch import bridge, telemetry
 from distkeras_torch.models.transformer import filter_logits, sample_tokens
+from distkeras_torch.parallel.collectives import all_gather_tp
+from distkeras_torch.parallel.mesh import Mesh
+from distkeras_torch.parallel.spmd import (draft_param_specs, shard_tensor,
+                                           tp_dim)
 from distkeras_torch.serving.kvpool import BlockPool, HostBlockPool
 from distkeras_torch.serving.prefix import RadixPrefixIndex
 from distkeras_torch.serving.scheduler import (
@@ -423,6 +444,13 @@ class ServingEngine:
         streams stay bit-identical to the k=1 engine. Any other state
         falls back to one-token ticks (``multi_step_fallbacks`` counts
         the reasons). Default 1: off.
+      mesh / tp_axis: tensor-parallel serving over a 1-D process mesh
+        (``make_mesh({"model": n})``, this process one rank of it): heads
+        and the MLP sharded over ``tp_axis`` (see the module docstring).
+        Pass the ``tp_size=1`` model; the engine runs on its device (one
+        card a rank over NCCL, or the CPU over gloo), so ``device=``
+        must stay None. A draft whose head counts divide ``n`` is sharded
+        like the flagship, any other runs whole on every rank.
       device: where the engine runs; ``None`` means the CUDA card (and
         raises without one). Must be the model's (and the draft's)
         device.
@@ -445,7 +473,8 @@ class ServingEngine:
                  prefill_chunk: Optional[int] = DEFAULT_PREFILL_CHUNK,
                  flight=True, flight_capacity: int = 512,
                  postmortem_dir: Optional[str] = None,
-                 mesh=None, paged_kernel: str = "auto",
+                 mesh=None, tp_axis: str = "model",
+                 paged_kernel: str = "auto",
                  prefill_kernel: str = "auto",
                  draft=None, spec_k: int = 4, ngram_max: int = 3,
                  device=None, pipeline: bool = False, role: str = "mixed",
@@ -466,8 +495,38 @@ class ServingEngine:
             raise ValueError(
                 f"prefill_chunk must be >= 1 (or None for monolithic "
                 f"prefill); got {prefill_chunk}")
+        self.mesh, self.tp_axis, self.tp = mesh, tp_axis, 1
         if mesh is not None:
-            raise _not_ported("tensor-parallel serving (mesh)", "A10")
+            if not isinstance(mesh, Mesh):
+                raise ValueError(
+                    f"mesh= takes a distkeras_torch.parallel.mesh mesh "
+                    f"(make_mesh({{'{tp_axis}': n}})); got "
+                    f"{type(mesh).__name__}")
+            sizes = mesh.shape
+            if tp_axis not in sizes:
+                raise ValueError(
+                    f"mesh axes {mesh.axis_names} have no '{tp_axis}' "
+                    f"axis — build the serving mesh as "
+                    f"make_mesh({{'{tp_axis}': n}})")
+            if any(n > 1 for a, n in sizes.items() if a != tp_axis):
+                raise ValueError(
+                    f"the serving mesh must be 1-D over '{tp_axis}' "
+                    f"(got {sizes}): the engine shards heads only — "
+                    f"batch parallelism is the router's job, one engine "
+                    f"per replica")
+            if getattr(model, "tp_size", 1) != 1:
+                raise ValueError(
+                    "pass the training-mode (tp_size=1) model; the "
+                    "engine clones tensor-parallel decode twins for the "
+                    "mesh itself")
+            if device is not None:
+                raise ValueError(
+                    "device= and mesh= are mutually exclusive: a "
+                    "tensor-parallel engine spans its mesh's devices; "
+                    "per-replica device pinning is for single-chip "
+                    "engines")
+            self.tp = sizes[tp_axis]
+        self._tp_group = mesh.group(tp_axis) if self.tp > 1 else None
         self.role = role
         self.multi_step_k = multi_step_k
         self.multi_step_fallbacks: dict = {}
@@ -500,7 +559,9 @@ class ServingEngine:
                         f"vocab_size={model.vocab_size}: proposals must "
                         f"live in the flagship's token space")
                 self.draft_kind = "model"
-        self._device = resolve_device(device)
+        # a tp rank runs where its model lives (its card, or the CPU)
+        self._device = (model.device if mesh is not None
+                        else resolve_device(device))
         for m in (model,) + ((draft,) if self.draft_kind == "model" else ()):
             if (m.device.type != self._device.type
                     or (self._device.index is not None
@@ -528,6 +589,10 @@ class ServingEngine:
         self._tick_ns = 0    # total tick wall time (plan+device+stream)
         self.model = (model if max_len is None
                       else model.clone(max_len=max_len))
+        # the module the ticks run: the model itself, or under a mesh its
+        # tp twin holding this rank's slices (the decode twins share it)
+        self._served = (self.model if self.tp == 1
+                        else self.model.shard(mesh, tp_axis))
         self.slots = slots
         self.paged = paged
         self.registry = registry or telemetry.get_registry()
@@ -576,7 +641,7 @@ class ServingEngine:
                                   host_tier=self.host)
             self.prefix = (RadixPrefixIndex(block_size)
                            if prefix_cache else None)
-            self._dm = self.model.clone(
+            self._dm = self._served.clone(
                 decode=True, paged=True, page_block_size=block_size,
                 num_pages=num_blocks, paged_kernel=paged_kernel,
                 prefill_kernel=prefill_kernel,
@@ -596,13 +661,13 @@ class ServingEngine:
                     "host_blocks requires paged=True")
             self.pool = None
             self.prefix = None
-            self._dm = self.model.clone(
+            self._dm = self._served.clone(
                 decode=True, slot_cursor=True,
                 prefill_kernel=prefill_kernel,
             )
             # the monolithic prefill's B=1 twin (scalar cursor)
-            self._dm_one = self.model.clone(decode=True,
-                                            prefill_kernel=prefill_kernel)
+            self._dm_one = self._served.clone(decode=True,
+                                              prefill_kernel=prefill_kernel)
             self._cache = self._dm.init_cache(slots)
         self._dm_draft = None
         if self.draft_kind == "model":
@@ -610,6 +675,11 @@ class ServingEngine:
             # positions (same max_len, same slot count), so its proposals
             # condition on the identical token history
             self.draft_model = draft.clone(max_len=self.model.max_len)
+            # sharded like the flagship when its heads divide tp, else
+            # whole on every rank (identical proposals by construction)
+            self.draft_tp = draft_param_specs(draft, self.tp, tp_axis)[1]
+            if self.draft_tp > 1:
+                self.draft_model = self.draft_model.shard(mesh, tp_axis)
             self._dm_draft = self.draft_model.clone(
                 decode=True, slot_cursor=True,
                 prefill_kernel=prefill_kernel)
@@ -795,6 +865,11 @@ class ServingEngine:
                 "engine is draining: admissions are closed, in-flight "
                 "streams are finishing"
             )
+        if self.tp > 1 and deadline_s is not None:
+            raise ValueError(
+                "deadline_s expires by each rank's own clock: the ranks of "
+                "a tensor-parallel engine would plan different ticks and "
+                "fall out of lock step")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must contain at least one token")
@@ -839,9 +914,12 @@ class ServingEngine:
         free finished slots, and refill them from the queue in the same
         call. Returns False when there is nothing to do. An exception
         escaping the cycle dumps the flight recorder to a postmortem
-        JSONL before re-raising."""
+        JSONL before re-raising. A tensor-parallel engine binds its
+        mesh around the step (the twins read their tp group from it)."""
         try:
-            return self._step()
+            with (self.mesh if self.mesh is not None
+                  else contextlib.nullcontext()):
+                return self._step()
         except Exception as e:
             self._m_crashes.inc()
             if self.flight is not None:
@@ -994,17 +1072,23 @@ class ServingEngine:
         parameters and completes on them (stream order); the next
         dispatch reads the new ones. A draft model's weights are not
         updated. ``version`` stamps the new weights; the engine keeps it
-        monotonic (a stale or absent version bumps by one). Returns
+        monotonic (a stale or absent version bumps by one). A
+        tensor-parallel engine is pushed the FULL tree on every rank and
+        stages this rank's slices into its tp twin (the ``tp_size=1``
+        model it was built from keeps its weights). Returns
         ``{"version", "swap_ms"}``."""
         t0 = time.perf_counter()
         if not (isinstance(variables, dict) and "params" in variables):
             variables = {"params": variables}
         validate_like(self._param_tree(), {"params": variables["params"]})
         staged = []
-        for name, p in self.model.named_parameters():
+        for name, p in self._served.named_parameters():
             node = variables
             for key in bridge.flax_key(name).split("/"):
                 node = node[key]
+            if self.tp > 1:
+                node = shard_tensor(torch.as_tensor(node), tp_dim(name),
+                                    self._served.tp_rank, self.tp)
             cuda = self._device.type == "cuda"
             host = torch.empty(p.shape, dtype=p.dtype, pin_memory=cuda)
             if isinstance(node, torch.Tensor):
@@ -1150,8 +1234,16 @@ class ServingEngine:
         per-leaf ``[block_size, ...]`` contents (every leaf of the paged
         cache is block-major: K, V and the int8 scales), into pinned
         host tensors on the card. Every copy is queued before the one
-        wait, so a round pays one device round trip."""
+        wait, so a round pays one device round trip. A tensor-parallel
+        engine gathers each leaf's blocks over tp first (collective): the
+        host copies hold every KV head."""
         leaves = list(self._cache.leaves())
+        if self.tp > 1 and blks:
+            idx = torch.as_tensor(blks, dtype=torch.long, device=self._device)
+            leaves = [all_gather_tp(leaf.index_select(0, idx),
+                                    self._tp_group, dim=2)
+                      for leaf in leaves]
+            blks = range(len(blks))
         cuda = self._device.type == "cuda"
         out = []
         for blk in blks:
@@ -1178,10 +1270,14 @@ class ServingEngine:
         non-blocking copy and one ``index_copy_``, all queued on the
         stream before whatever tick is dispatched next — which reads the
         blocks after they land. The staging buffers ride that tick
-        (``_staged``) until it is reconciled."""
+        (``_staged``) until it is reconciled. Host contents hold every KV
+        head; a tensor-parallel engine uploads its rank's slice."""
         idx = self._to_device(np.asarray(dsts, np.int64))
         for j, leaf in enumerate(self._cache.leaves()):
             stacked = torch.stack([torch.as_tensor(e[j]) for e in entries])
+            if self.tp > 1:
+                stacked = shard_tensor(stacked, 2, self._served.tp_rank,
+                                       self.tp)
             if self._device.type == "cuda":
                 stacked = stacked.pin_memory()
                 self._staged.append(stacked)
@@ -1531,7 +1627,9 @@ class ServingEngine:
         bs = self.block_size
         n = min(len(blocks), int(prompt.size) // bs)
         leaves = list(self._cache.leaves())
-        want = [tuple(leaf.shape[1:]) for leaf in leaves]
+        # the host layout: every KV head (dim 1 of a block), whatever tp
+        want = [(leaf.shape[1], leaf.shape[2] * self.tp)
+                + tuple(leaf.shape[3:]) for leaf in leaves]
         for bl in blocks[:n]:
             if (len(bl) != len(want)
                     or any(tuple(np.shape(a)) != w
@@ -2592,6 +2690,7 @@ class ServingEngine:
         qos_depth = self.scheduler.depth_by_tier()
         out = {
             "device": str(self._device),
+            "tp": self.tp,
             "role": self.role,
             "prefill_kernel": self.prefill_kernel,
             "ticks": self.ticks,

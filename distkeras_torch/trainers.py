@@ -552,12 +552,17 @@ class LMTrainer(Trainer):
     (``loss``/``metrics``/``label_col`` are ignored — an LM supervises
     itself).
 
-    ``axes`` names ``dp`` and ``sp`` (default ``{"dp": world size}``);
-    their product must be the size of the ``torch.distributed`` world,
-    whose ranks each run ``train()`` on the SAME dataset (the process
-    form of the reference's single program over the mesh). ``sp > 1``
-    needs ``attention='ring'``. The returned :class:`Model` holds the
-    standard-attention twin of a ring model, sharing its parameters.
+    ``axes`` names ``dp``, ``sp`` and ``tp`` (default ``{"dp": world
+    size}``); their product must be the size of the ``torch.distributed``
+    world, whose ranks each run ``train()`` on the SAME dataset (the
+    process form of the reference's single program over the mesh), laid
+    out dp-major, tp fastest. ``sp > 1`` needs ``attention='ring'``;
+    ``tp > 1`` a model built with ``tp_size = tp`` inside ``with
+    make_mesh({"dp": .., "sp": .., "tp": ..}):`` (the same layout), each
+    rank holding its slice of the heads and the MLP. The returned
+    :class:`Model` holds the standard-attention twin of a ring model,
+    sharing its parameters (a tp model runs inside its mesh);
+    ``params`` and checkpoints are always the plain, unsharded layout.
 
     A :class:`~distkeras_torch.data.shard_io.ShardedDataset` whose tokens
     fit ``stage_limit_bytes`` is loaded and staged like an in-memory
@@ -573,7 +578,8 @@ class LMTrainer(Trainer):
     bf16 first moment and its step count included) and ``{"epoch"}``
     after every epoch, and a new trainer over the same directory resumes
     after the last saved epoch: the same trajectory as a run that never
-    stopped."""
+    stopped. Both are saved in the plain layout (a tp model's gathered),
+    so a checkpoint resumes at any tp degree."""
 
     # optimizer steps per window (one device-side loop, losses kept on
     # the device)
@@ -588,12 +594,12 @@ class LMTrainer(Trainer):
                 "microbatches (pipeline-parallel training) is not ported "
                 "yet (ROADMAP A10)")
         extra = {k: v for k, v in (axes or {}).items()
-                 if k not in ("dp", "sp") and v != 1}
+                 if k not in ("dp", "sp", "tp") and v != 1}
         if extra:
             raise NotImplementedError(
-                f"LMTrainer axes {extra}: tensor, pipeline and expert "
-                f"parallelism are not ported yet (ROADMAP A10); the mesh "
-                f"takes 'dp' and 'sp'")
+                f"LMTrainer axes {extra}: pipeline and expert parallelism "
+                f"are not ported yet (ROADMAP A10); the mesh takes 'dp', "
+                f"'sp' and 'tp'")
         self.axes = axes
         self.tokens_col = tokens_col
 
@@ -687,7 +693,10 @@ class LMTrainer(Trainer):
         from distkeras_torch.parallel.mesh import make_mesh
 
         axes = dict(self.axes) if self.axes else {"dp": self._world()}
-        dp, sp = axes.get("dp", 1), axes.get("sp", 1)
+        dp, sp, tp = axes.get("dp", 1), axes.get("sp", 1), axes.get("tp", 1)
+        if self.model.tp_size != tp:
+            raise ValueError(f"model.tp_size={self.model.tp_size} != mesh "
+                             f"tp size {tp}")
         if sp > 1 and self.model.attention != "ring":
             raise ValueError("sp > 1 needs the model built with "
                              "attention='ring' (seq_axis='sp')")
@@ -697,7 +706,8 @@ class LMTrainer(Trainer):
         if self.batch_size % dp:
             raise ValueError(f"batch_size={self.batch_size} not divisible "
                              f"by dp={dp}")
-        return make_mesh({"dp": dp, "sp": sp})
+        return make_mesh({"dp": dp, "sp": sp, "tp": tp} if tp > 1
+                         else {"dp": dp, "sp": sp})
 
     def _restore(self, optimizer) -> int:
         """Load the latest checkpoint's parameters and optimizer state into
@@ -711,13 +721,19 @@ class LMTrainer(Trainer):
             return 0
         bridge.params_from_jax(state["params"], self.model)
         if state["opt_state"]:
-            optimizer.load_state_dict(state["opt_state"])
+            opt_state = state["opt_state"]
+            if self.model.tp_size > 1:
+                from distkeras_torch.parallel.spmd import shard_opt_state
+
+                opt_state = shard_opt_state(opt_state, optimizer, self.model)
+            optimizer.load_state_dict(opt_state)
         return int(state["extra"].get("epoch", step))
 
     def _train(self, dataset, shuffle: bool = False) -> Model:
         from distkeras_torch import bridge
         from distkeras_torch.parallel.mesh import replica_groups
-        from distkeras_torch.parallel.spmd import make_lm_train_step
+        from distkeras_torch.parallel.spmd import (gather_opt_state,
+                                                   make_lm_train_step)
 
         dataset, sharded = self._maybe_materialize(dataset)
         if sharded:
@@ -742,11 +758,20 @@ class LMTrainer(Trainer):
             optimizer = optimizer(self.model.parameters())
         start = self._restore(optimizer)
         mesh = self._mesh(T)
-        rank = mesh.index("dp") * mesh.axis_size("sp") + mesh.index("sp")
+        tp = self.model.tp_size
+        first = all(c == 0 for c in mesh.coords.values())
         groups = replica_groups(mesh, "dp") if self._world() > 1 else None
         step = make_lm_train_step(self.model, optimizer, mesh=mesh,
                                   window=True,
+                                  tp_axis="tp" if tp > 1 else None,
                                   local_batch=groups is not None and sharded)
+
+        def plain_state():
+            # the plain layout (a tp model's gathered: every rank calls it)
+            with mesh:
+                return (bridge.params_to_jax(self.model),
+                        gather_opt_state(optimizer, self.model, mesh)
+                        if tp > 1 else opt_state_to_host(optimizer))
         W = self.STREAM_GROUP
         dev = self.model.device
         if sharded:
@@ -797,13 +822,15 @@ class LMTrainer(Trainer):
                     if self.metrics_writer is not None:
                         self.metrics_writer.log(
                             step=len(history), samples=B * T, **row)
-            if self.checkpointer is not None and rank == 0:
-                self.checkpointer.maybe_save(
-                    epoch + 1, bridge.params_to_jax(self.model),
-                    opt_state_to_host(optimizer),
-                    extra={"epoch": epoch + 1},
-                    force=epoch + 1 == self.num_epoch)
-        self.params = bridge.params_to_jax(self.model)
+            if self.checkpointer is not None and (first or tp > 1):
+                params, opt_state = plain_state()
+                if first:
+                    self.checkpointer.maybe_save(
+                        epoch + 1, params, opt_state,
+                        extra={"epoch": epoch + 1},
+                        force=epoch + 1 == self.num_epoch)
+        with mesh:
+            self.params = bridge.params_to_jax(self.model)
         self.history = history
         self.executor_histories = [history]
         return Model(self._single_chip_twin())

@@ -395,6 +395,31 @@ def test_phase2_times_the_new_shapes(monkeypatch):
                                                            "operations")
 
 
+def test_phase2_times_one_tp_ranks_heads(monkeypatch):
+    """Phase 2's paged and splash cases at one tp=2 rank's heads (half
+    the query heads over half the KV heads), every timed shape held and
+    timed beside its bound, the splash values at std 0.5."""
+    import torch
+    import torch.nn.functional as F
+
+    pa, sp = _standin_kernels(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "PAGED", dict(
+        S=3, H=4, Hk=2, hd=64, bs=16, MB=8, T=(1, 16)))
+    monkeypatch.setattr(chip_smoke, "SPLASH", dict(S=3, T=16, H=4, Hk=2,
+                                                   hd=64, L=128))
+    over = dict(H=2, Hk=1)
+    paged = chip_smoke.paged_cases(torch, F, pa, over)
+    splash = chip_smoke.splash_cases(torch, F, sp, over, (), v_std=0.5)
+    assert {(c["T"], c["H"], c["Hk"]) for c in paged if "ms" in c} == {
+        (1, 2, 1), (16, 2, 1)}
+    assert [(c["T"], c["H"], c["Hk"]) for c in splash if "ms" in c] == [
+        (16, 2, 1)]
+    for c in paged + splash:
+        assert c["max_abs_err"] <= c["tol"]
+        if "ms" in c:
+            assert c["bound_ms"] > 0
+
+
 def test_phase4_holds_every_mode_at_narrow_width(monkeypatch):
     """Phase 4 end to end on the CPU (a narrow f32 model, the serving
     kernels stood in by their plain versions): every mode on both
@@ -638,3 +663,142 @@ def test_phase11_resume_check_catches_a_lost_first_moment(monkeypatch,
                         torch.optim.Optimizer.load_state_dict)
     with pytest.raises(AssertionError, match="11c"):
         chip_smoke.resume_phase(torch, np, dk, str(tmp_path), sds)
+
+
+# -- phase 12 (tensor parallelism) on the CPU -----------------------------------
+
+
+_NARROW_TP_EXACT = dict(vocab_size=64, d_model=64, num_heads=4,
+                        num_kv_heads=2, num_layers=2, max_len=256,
+                        pos_emb="rope", cache_dtype="int8")
+
+
+def _narrow_tp(monkeypatch):
+    """Phase 12 at narrow widths on two gloo CPU ranks: the flagship and
+    the training model cut to 2 layers of width 64 / 32 (4 heads over 2
+    KV heads: one a rank), phase 4's requests to 4-20 new tokens, three
+    of the witness modes."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "TRAIN", dict(
+        vocab_size=128, d_model=32, num_heads=4, num_layers=2, max_len=32))
+    monkeypatch.setattr(chip_smoke, "TP_TRAIN_B", {"cards": 4,
+                                                   "one_card": 2})
+    monkeypatch.setattr(chip_smoke, "TP_WITNESS", dict(
+        chip_smoke.TP_WITNESS, T=16))
+    monkeypatch.setattr(chip_smoke, "EXACT", _NARROW_TP_EXACT)
+    monkeypatch.setattr(chip_smoke, "EXACT_TIER", dict(
+        prefixes=3, prefix_len=32, tail=4, reps=2, max_new=4))
+    monkeypatch.setattr(chip_smoke, "TP_MODES", ("chunked", "multi_step",
+                                                 "ngram"))
+    full = chip_smoke.exact_requests
+    monkeypatch.setattr(chip_smoke, "exact_requests", lambda np, V: [
+        (p[:40], dict(c, max_new_tokens=c["max_new_tokens"] - 20))
+        for p, c in full(np, V)])
+    monkeypatch.setattr(chip_smoke, "FLAGSHIP", dict(_NARROW_TP_EXACT,
+                                                     d_model=32))
+    monkeypatch.setattr(chip_smoke, "SYSTEM_PREFIX", 16)
+    monkeypatch.setattr(chip_smoke, "PROMPT_LENS", (20, 40, 12, 30))
+
+
+def _phase3_narrow():
+    """Phase 3's results at the narrow flagship on the CPU (its tp=1
+    streams; no kernel launches on CPU tensors)."""
+    import numpy as np
+    import torch
+
+    dk = _serving_dk()
+    model = dk["get_model"]("transformer_lm", dtype=torch.bfloat16,
+                            device="cpu", seed=0, **chip_smoke.FLAGSHIP)
+    requests = dk["serving_requests"](model.vocab_size,
+                                      chip_smoke.SYSTEM_PREFIX,
+                                      chip_smoke.PROMPT_LENS)
+    streams = {}
+    for paged in (True, False):
+        _, s, _ = chip_smoke.serve(torch, np, dk, model, requests,
+                                   paged=paged, block_size=16)
+        streams["paged" if paged else "slot"] = s
+    zero = {"paged_attention": 0, "splash_prefill": 0}
+    return {"streams": streams, "launches": {"paged": zero, "slot": zero}}
+
+
+def test_phase12_at_narrow_width(monkeypatch):
+    """Phase 12 end to end on two gloo CPU ranks at narrow widths: the f32
+    witness of 12a, three tp=2 steps within 5e-2 of tp=1 with the
+    replicated weights bit-identical across the ranks, the f32 serving
+    witness (modes on both layouts, the host tier, migration both ways)
+    equal to tp=1, and the flagship's streams bit-identical across the
+    ranks with phase 3's launch counts."""
+    import numpy as np
+    import torch
+
+    _narrow_tp(monkeypatch)
+    here = os.path.dirname(os.path.abspath(chip_smoke.__file__))
+    res = chip_smoke.tp_phase(torch, np, here, _phase3_narrow())
+    a, b = res["12a"], res["12b"]
+    assert a["backend"] == "gloo" and a["processes"] == 2
+    assert a["witness"]["param_gap"] <= 1e-5
+    assert a["max_loss_gap_vs_tp1"] <= chip_smoke.TRAIN_LOSS_TOL
+    assert a["kernel_shape"] == [4, 32, 2, 8]
+    assert set(b["witness_modes"]) == {f"{layout}_{m}"
+                                       for layout in ("paged", "slot")
+                                       for m in chip_smoke.TP_MODES}
+    assert b["witness_tier"]["restores"] > 0
+    assert {m["mode"] for m in b["witness_migrate"].values()} == {
+        "device", "host"}
+    for layout in ("paged", "slot"):
+        assert b[layout]["tp"] == 2 and b[layout]["cache_kv_heads"] == 1
+        assert b[layout]["streams_bit_identical_across_ranks"]
+        assert 0.0 <= b[layout]["greedy_match_vs_tp1"] <= 1.0
+
+
+_FAULT_LAUNCHER = '''
+import runpy
+import sys
+
+import torch
+import torch.distributed as dist
+
+import distkeras_torch.parallel.spmd as spmd
+
+real = spmd.make_lm_train_step
+
+
+def faulty(model, optimizer, mesh=None, tp_axis=None, **kw):
+    """The step with replicated gradients all-reduced over tp as well:
+    summed tp times."""
+    if tp_axis is not None:
+        if not isinstance(optimizer, torch.optim.Optimizer):
+            optimizer = optimizer(model.parameters())
+        inner, group = optimizer.step, mesh.group(tp_axis)
+
+        def step(*a, **k):
+            for n, p in model.named_parameters():
+                if spmd.tp_dim(n) is None and p.grad is not None:
+                    dist.all_reduce(p.grad, group=group)
+            return inner(*a, **k)
+
+        optimizer.step = step
+    return real(model, optimizer, mesh=mesh, tp_axis=tp_axis, **kw)
+
+
+spmd.make_lm_train_step = faulty
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+'''
+
+
+def test_phase12_catches_replicated_grads_summed_over_tp(monkeypatch,
+                                                         tmp_path):
+    """With the replicated parameters' gradients all-reduced over tp as
+    well (so summed tp times), 12a's f32 witness leaves the tp=1 step and
+    the phase fails, naming 12a."""
+    import numpy as np
+    import torch
+
+    _narrow_tp(monkeypatch)
+    here = os.path.dirname(os.path.abspath(chip_smoke.__file__))
+    launcher = tmp_path / "faulty_launch.py"
+    launcher.write_text(_FAULT_LAUNCHER)
+    with pytest.raises(AssertionError, match="12a: the f32 witness"):
+        chip_smoke.tp_phase(torch, np, here, _phase3_narrow(),
+                            python=[sys.executable, str(launcher)])

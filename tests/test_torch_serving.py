@@ -27,6 +27,7 @@ from distkeras_tpu.serving import ServingEngine as JaxEngine  # noqa: E402
 from distkeras_torch import bridge, telemetry  # noqa: E402
 from distkeras_torch.models import get_model  # noqa: E402
 from distkeras_torch.models.transformer import generate  # noqa: E402
+from distkeras_torch.parallel.mesh import local_mesh  # noqa: E402
 from distkeras_torch.serving import ServingEngine  # noqa: E402
 
 KW = dict(vocab_size=97, d_model=64, num_heads=4, num_layers=2, max_len=64,
@@ -143,13 +144,16 @@ def test_mid_block_divergence_copies_on_write():
     assert eng.stats()["prefix_hit_tokens"] == 12
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "A10"),
+@pytest.mark.parametrize("kw,match", [
+    (dict(mesh=object()), "make_mesh"),
+    (dict(mesh=local_mesh({"dp": 1})), "no 'model' axis"),
 ])
-def test_deferred_engine_options_raise(kw, item):
+def test_deferred_engine_options_raise(kw, match):
+    """mesh= is ported (tests/test_torch_tp_serving.py): what is not a
+    serving mesh is refused."""
     _, _, pm = _pair()
-    with pytest.raises(NotImplementedError, match=item):
-        ServingEngine(pm, device="cpu", **kw)
+    with pytest.raises(ValueError, match=match):
+        ServingEngine(pm, **kw)
 
 
 @pytest.mark.parametrize("method,args,item", [

@@ -294,7 +294,8 @@ def test_train_step_deferred_features_raise():
     pm = get_model("transformer_lm", dtype=torch.float32, device="cpu",
                    **TINY)
     mesh = make_mesh({"dp": 1, "sp": 1})
-    with pytest.raises(NotImplementedError, match="A10"):
+    # tp is ported: a tp_axis the mesh lacks is refused
+    with pytest.raises(ValueError, match="no 'tp' axis"):
         make_lm_train_step(pm, get_optimizer("sgd"), mesh=mesh,
                            tp_axis="tp")
     ring = get_model("transformer_lm", dtype=torch.float32, device="cpu",
@@ -425,7 +426,8 @@ def test_lm_trainer_deferred_features_raise(what, tmp_path):
         assert len(trainer.history) == 2
         assert len(list(trace_dir.glob("trace-*.json"))) == 1
         return
-    item, args = {"axes": ("A10", dict(axes={"dp": 1, "tp": 2})),
+    # tp axes are ported (tests/test_torch_tp.py); pipeline ones are not
+    item, args = {"axes": ("A10", dict(axes={"dp": 1, "pp": 2})),
                   "microbatches": ("A10", dict(microbatches=4))}[what]
     with pytest.raises(NotImplementedError, match=item):
         LMTrainer(model, batch_size=2, **args).train(ds)

@@ -229,7 +229,8 @@ def test_deferred_features_raise(what):
     """Features still deferred raise naming their ROADMAP item; remat,
     the blocked and pallas modes and T > 512 (deferred before the
     training slice) now run, and so does the ring inside a mesh
-    (deferred before the sequence-parallel slice)."""
+    (deferred before the sequence-parallel slice); tp_size > 1 needs a
+    bound mesh (deferred before the tensor-parallel slice)."""
     kw = dict(BASE, dtype=torch.float32, device="cpu")
     if what == "moe_lm":
         with pytest.raises(NotImplementedError, match="A10"):
@@ -240,7 +241,8 @@ def test_deferred_features_raise(what):
         with pytest.raises(ValueError, match="remat"):
             get_model("transformer_lm", remat="full", **kw)
     elif what == "tp":
-        with pytest.raises(NotImplementedError, match="A10"):
+        # ported now: a tp model is built and run inside a bound mesh
+        with pytest.raises(ValueError, match="bound mesh"):
             get_model("transformer_lm", tp_size=2, **kw)
     elif what == "long_t":
         m = get_model("transformer_lm", **dict(kw, max_len=1024))
