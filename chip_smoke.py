@@ -5,8 +5,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and ``nvcc``; it exits non-zero without printing a result when
 CUDA is unavailable or when the port's package is not beside it.
 ``python3 chip_smoke.py --phase12`` runs phase 12 alone after phase 3
-(its yardstick): on a host of two cards or more its ranks run over
-NCCL.
+(its yardstick), ``python3 chip_smoke.py --phase13`` phase 13 alone
+after phases 6 and 6b (its yardsticks): on a host of two cards or more
+their ranks run over NCCL.
 
 Phases (any failure exits non-zero):
 
@@ -250,13 +251,44 @@ Phases (any failure exits non-zero):
    launches of each rank equal to phase 3's counts; prints the share of
    greedy tokens equal to phase 3's, each flip's ``top2_gap``, ms/tick
    and tok/s (on one card the ranks share it: not a tp speed).
+13. **Pipeline, experts and the ring at sp=2.** (13b, in this process)
+   the MoE twin of phase 6's flagship (``moe_lm``: 8 experts of 2048 x
+   8192, top-1, capacity factor 1.25; ~2.3 B parameters) at ep=1, 3
+   AdamW steps on phase 6's first batch: losses finite and falling, the
+   causal kernels launched layers x steps times; prints ms/step, tok/s,
+   peak memory, each layer's share of dropped (token, choice) pairs and
+   the aux loss. Then two ranks (``--phase13-worker``, as phase 12's:
+   NCCL one card each on two cards or more, else gloo on the one card,
+   every permute, all-to-all and all-reduce staged through the host).
+   Each first runs three f32 witnesses at phase 4's widths, one SGD step
+   each: pp=2 (M=4) against the unsharded step and sp=2 against sp=1
+   (loss and gathered weights within 1e-5), and the MoE step at ep=2
+   against dp=2 x ep=1 on the same rows (within 1e-6). Then (13a) phase
+   6's flagship, weights and first 3 batches at pp=2, M=8 microbatches
+   of 1 row, AdamW: every loss within 5e-2 of phase 6's, the replicated
+   embedding, final norm and head bit-identical across the stages, each
+   causal kernel launched 4 layers x 8 microbatches x 3 steps times a
+   rank at [1, 2048, 8, 256]; (13b) the MoE flagship at ep=2 for 2
+   steps: losses finite and equal on both ranks, the replicated leaves
+   bit-identical; (13c) phase 6b's ring at sp=2 (two 512-token zigzag
+   chunks a rank) for 3 steps through the bucketed gradient reduce:
+   every loss within 5e-2 of phase 6b's, the replicas bit-identical,
+   each pair kernel launched as ``pair_per_layer(2)`` predicts. Prints
+   ms/step, tok/s and peak memory a rank, the bubble (pp-1)/(M+pp-1),
+   the all-reduces a step against the per-parameter count (on one card
+   the ranks share it: not a parallel speed). Then the causal kernels at
+   the pp microbatch [1, 2048, 8, 256] and the pair kernels at the sp=2
+   chunk [8, 512, 8, 256], timed as phases 5 and 5b time theirs.
 
 Output: JSON lines per phase, the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line (the serving rows carry every timed shape
 in ``shapes``; the three forward rows and the causal and
 pair dq and dk/dv rows also carry their ``build`` facts; the dq and
 dk/dv rows carry ``bwd_ms``, the two as the backward runs them with one
-prep pass, ``bwd_library_ms``, SDPA's backward, and ``sdpa_backend``),
+prep pass, ``bwd_library_ms``, SDPA's backward, and ``sdpa_backend``;
+the causal rows carry ``pp_microbatch`` (phase 13's shape, timed),
+``pp_launches_per_rank`` and ``moe_launches``, the pair rows
+``sp2_chunk`` and ``sp2_launches_per_rank``),
 and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -324,12 +356,20 @@ CAUSAL_TOL = dict(out=1e-2, lse=1e-3, grad=2e-2)
 # the ring's pair kernels at the flagship's chunk (T=2048 at sp=1: C=1024,
 # the same pair shape as T=8192 at sp=4) and a smaller one (phase 5b)
 PAIR = dict(B=8, H=8, hd=256, C=(1024, 320))
-# pair launches per layer of one ring step at sp=1: step 0 runs two
-# wedges and a rectangle, checkpointed (its forward runs again in the
-# backward)
-PAIR_PER_LAYER = {"pair_wedge_fwd": 4, "pair_rect_fwd": 2,
-                  "pair_wedge_dq": 2, "pair_rect_dq": 1,
-                  "pair_wedge_dkv": 2, "pair_rect_dkv": 1}
+
+
+def pair_per_layer(sp):
+    """Pair launches per layer of one ring step at ``sp`` shards, as the
+    zigzag ring runs them: step 0 two wedges and a rectangle, each of
+    the sp - 1 ring steps two rectangles, every step checkpointed (its
+    forward runs again in the backward)."""
+    rects = 1 + 2 * (sp - 1)
+    return {"pair_wedge_fwd": 4, "pair_rect_fwd": 2 * rects,
+            "pair_wedge_dq": 2, "pair_rect_dq": rects,
+            "pair_wedge_dkv": 2, "pair_rect_dkv": rects}
+
+
+PAIR_PER_LAYER = pair_per_layer(1)
 # the reference's lm_bench step (bench.py:130-194), phases 6 and 7
 TRAIN = dict(vocab_size=8192, d_model=2048, num_heads=8, num_layers=8,
              max_len=2048)
@@ -349,6 +389,25 @@ TP_TIMEOUT_S = 900
 PAGED_TP = dict(H=4, Hk=1)
 SPLASH_TP = dict(H=4, Hk=1)
 CAUSAL_TP = dict(H=4, T=(2048,))
+# phase 13: pipeline (13a), expert (13b) and sequence (13c) parallelism
+# over two ranks at phase 6's flagship: pp=2 with M=8 microbatches of 1
+# row; the MoE twin (8 experts, top-1, capacity factor 1.25) at ep=1 in
+# this process, then at ep=2; the ring at sp=2 (two 512-token zigzag
+# chunks a rank). The f32 witnesses at phase 4's widths (EXACT): pp=2 and
+# sp=2 against the unsharded step within 1e-5, ep=2 against dp=2 x ep=1
+# on the same rows within 1e-6, one SGD step each
+P13 = 2
+PP_MICRO = 8
+P13_STEPS = 3
+MOE = dict(moe_experts=8, moe_top_k=1)
+MOE_EP_STEPS = 2
+P13_WITNESS = dict(M=4, B=2, T=128, lr=0.1, pp_tol=1e-5, ep_tol=1e-6,
+                   sp_tol=1e-5)
+P13_TIMEOUT_S = 900
+# the kernels' shapes on phase 13's path: one pp microbatch, one sp=2
+# rank's chunk
+CAUSAL_PP = dict(B=1, T=(2048,))
+PAIR_SP2 = dict(C=(512,))
 # phase 8: the dist-keras core
 CIFAR_TIMED_WINDOWS = 5
 CIFAR_LOSS_TOL = 2e-2  # first step's bf16 loss vs the f32 twin's
@@ -913,12 +972,15 @@ def sdpa_backend(torch, fn):
 # -- phase 5b: the ring's pair kernels against their plain versions ------
 
 
-def pair_cases(torch, F, pp):
-    B, H, hd = PAIR["B"], PAIR["H"], PAIR["hd"]
+def pair_cases(torch, F, pp, over=None):
+    """The pair kernels at phase 5b's shapes (``over`` replacing some:
+    ``PAIR_SP2``, the sp=2 ring's chunk); the first C is timed."""
+    cfg = dict(PAIR, **(over or {}))
+    B, H, hd = cfg["B"], cfg["H"], cfg["hd"]
     gen = torch.Generator(device=DEV).manual_seed(8)
     bf16 = torch.bfloat16
     cases = []
-    for C in PAIR["C"]:
+    for C in cfg["C"]:
         shape = (B, C, H, hd)
         # q arrives pre-scaled, as the ring hands it over
         q = (torch.randn(shape, generator=gen, device=DEV) * hd ** -0.5).to(
@@ -959,7 +1021,7 @@ def pair_cases(torch, F, pp):
                 raise AssertionError(f"pair {variant} C={C}: {bad} over "
                                      f"tolerance {CAUSAL_TOL}: {case}")
             del ref_o, ref_lse, grads
-            if C == PAIR["C"][0]:
+            if C == cfg["C"][0]:
                 case.update(pair_times(torch, F, pp, q, k, v, o, lse, do,
                                        dlse, causal))
             cases.append(case)
@@ -3035,40 +3097,54 @@ def tp_phase(torch, np, here, phase3, cards=None, python=None):
            "modes": TP_MODES, "flagship": FLAGSHIP,
            "system_prefix": SYSTEM_PREFIX, "prompt_lens": PROMPT_LENS,
            "phase3_streams": phase3["streams"]}
+    ranks, wall = run_ranks("12", cfg, TP, TP_TIMEOUT_S, here, python)
+    return tp_check(np, ranks, phase3, cfg, wall)
+
+
+def run_ranks(phase, cfg, world, timeout_s, here, python=None):
+    """Start ``world`` ranks of ``phase`` (``chip_smoke.py
+    --phase<phase>-worker <cfg> <rank>``, each logging to
+    ``cfg['out']``) and wait for them: ``(each rank's JSON result,
+    seconds)``. A rank that fails stops the phase with its log's tail;
+    ranks still running at the deadline are named as stalled; every
+    rank is killed on the way out."""
+    out = cfg["out"]
     path = os.path.join(out, "cfg.json")
     with open(path, "w") as fh:
         json.dump(cfg, fh)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     cmd = list(python or [sys.executable])
-    logs = [open(os.path.join(out, f"rank{r}.log"), "w") for r in range(TP)]
+    logs = [open(os.path.join(out, f"rank{r}.log"), "w")
+            for r in range(world)]
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
-        cmd + [os.path.join(here, "chip_smoke.py"), "--phase12-worker",
-               path, str(r)], env=env, stdout=logs[r],
-        stderr=subprocess.STDOUT) for r in range(TP)]
+        cmd + [os.path.join(here, "chip_smoke.py"),
+               f"--phase{phase}-worker", path, str(r)], env=env,
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+
+    def failed(r):
+        tail = open(os.path.join(out, f"rank{r}.log")).read()
+        return AssertionError(f"{phase}: rank {r} failed:\n{tail[-4000:]}")
+
     try:
-        deadline = time.monotonic() + TP_TIMEOUT_S
+        deadline = time.monotonic() + timeout_s
         while any(p.poll() is None for p in procs):
             bad = [r for r, p in enumerate(procs) if p.poll() not in
                    (None, 0)]
             if bad:
-                tail = open(os.path.join(out, f"rank{bad[0]}.log")).read()
-                raise AssertionError(f"12: rank {bad[0]} failed:\n"
-                                     f"{tail[-4000:]}")
+                raise failed(bad[0])
             if time.monotonic() > deadline:
                 stalled = [r for r, p in enumerate(procs)
                            if p.poll() is None]
-                raise AssertionError(f"12: ranks {stalled} stalled past "
-                                     f"{TP_TIMEOUT_S} s")
+                raise AssertionError(f"{phase}: ranks {stalled} stalled "
+                                     f"past {timeout_s} s")
             time.sleep(0.2)
         bad = [r for r, p in enumerate(procs) if p.returncode != 0]
         if bad:
-            tail = open(os.path.join(out, f"rank{bad[0]}.log")).read()
-            raise AssertionError(f"12: rank {bad[0]} failed:\n"
-                                 f"{tail[-4000:]}")
+            raise failed(bad[0])
         ranks = [json.load(open(os.path.join(out, f"rank{r}.json")))
-                 for r in range(TP)]
+                 for r in range(world)]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3076,9 +3152,8 @@ def tp_phase(torch, np, here, phase3, cards=None, python=None):
                 p.wait()
         for fh in logs:
             fh.close()
-    wall = time.perf_counter() - t0
     shutil.rmtree(out, ignore_errors=True)
-    return tp_check(np, ranks, phase3, cfg, wall)
+    return ranks, time.perf_counter() - t0
 
 
 def tp_check(np, ranks, phase3, cfg, wall):
@@ -3435,10 +3510,548 @@ def tp_worker(cfg_path: str, rank: int) -> int:
     return 0
 
 
-def main(phase12_only: bool = False) -> int:
+# -- phase 13: pipeline, expert and sequence parallelism -------------------
+
+
+def _peak_mb(torch):
+    return (torch.cuda.max_memory_allocated() / 2**20 if DEV == "cuda"
+            else None)
+
+
+def _reset_peak(torch):
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def moe_routing(torch, np, model, tokens):
+    """The share of (token, choice) pairs each MoE layer of ``model``
+    drops at capacity on ``tokens`` (one no-grad forward, the layers'
+    inputs routed again), and the mean aux loss."""
+    from distkeras_torch.ops.moe import route
+
+    seen = []
+    hooks = [b.moe.register_forward_hook(
+        lambda mod, args, out: seen.append((mod, args[0])))
+        for b in model.blocks]
+    try:
+        with torch.no_grad():
+            _, auxes = model(tokens, return_aux=True)
+            dropped = []
+            for mod, x in seen:
+                x = x.reshape(-1, x.shape[-1]).float()
+                E = mod.router.shape[1]
+                C = max(1, int(mod.capacity_factor * mod.top_k
+                               * x.shape[0] / E))
+                keep = route(x, mod.router, E, mod.top_k, C)[-1]
+                dropped.append(1.0 - keep.float().mean().item())
+    finally:
+        for h in hooks:
+            h.remove()
+    return dropped, float(sum(a.item() for a in auxes) / len(auxes))
+
+
+def moe_phase(torch, np, dk, fa, pp):
+    """13b in this process: the MoE twin of phase 6's flagship (8
+    experts, top-1, capacity factor 1.25) at ep=1, P13_STEPS AdamW steps
+    on phase 6's first batch."""
+    V, D, H, L = (TRAIN[k] for k in ("vocab_size", "d_model", "num_heads",
+                                     "num_layers"))
+    B, T = TRAIN_B, TRAIN["max_len"]
+    tokens = train_tokens(torch, np)[0]
+    model = dk["get_model"]("moe_lm", dtype=torch.bfloat16, device=DEV,
+                            seed=0, **TRAIN, **MOE)
+    n_params = sum(p.numel() for p in model.parameters())
+    step = dk["make_moe_lm_train_step"](
+        model, dk["get_optimizer"]("adamw", TRAIN_LR,
+                                   mu_dtype=torch.bfloat16))
+    _reset_peak(torch)
+    zero_training_counts(fa, pp)
+    losses, times = [], []
+    for _ in range(P13_STEPS):
+        sync(torch)
+        t0 = time.perf_counter()
+        losses.append(step(tokens).item())
+        times.append(time.perf_counter() - t0)
+    launches = {n: getattr(fa, n).launches for n in CAUSAL_NAMES}
+    peak = _peak_mb(torch)
+    del step
+    _free(torch)
+    dropped, aux = moe_routing(torch, np, model, tokens)
+    del model
+    _free(torch)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"13b: MoE losses not finite: {losses}")
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"13b: MoE losses do not fall on the fixed "
+                             f"batch: {losses}")
+    want = L * P13_STEPS if fa.preferred(T, D // H, torch.bfloat16,
+                                         DEV) else 0
+    if launches != {n: want for n in CAUSAL_NAMES}:
+        raise AssertionError(f"13b: the MoE step launched {launches}, not "
+                             f"{want} (layers x steps) each")
+    ms = float(np.mean(times[1:]) * 1e3)
+    return {"config": f"d{D}/h{H}/L{L}/v{V}/T{T}/b{B}-bf16-moe"
+                      f"{MOE['moe_experts']}-top{MOE['moe_top_k']}-cf1.25-"
+                      f"ep1-adamw-mubf16",
+            "params": n_params, "losses": losses, "ms_per_step": ms,
+            "first_step_ms": times[0] * 1e3,
+            "tok_per_s": B * T / (ms / 1e3), "peak_device_mb": peak,
+            "dropped_share_per_layer": dropped, "aux_loss": aux,
+            "launches": launches}
+
+
+def p13_phase(torch, np, here, yard, cards=None, python=None):
+    """Phase 13: two ranks (``chip_smoke.py --phase13-worker``, one card
+    each over NCCL with two cards or more, else both on one card over
+    gloo; gloo CPU ranks when ``DEV`` is the CPU) run 13a (pp=2), 13b at
+    ep=2 and 13c (sp=2), each after its f32 witness. ``yard`` holds phase
+    6's and 6b's losses. A rank that fails stops the phase (its error
+    quoted); a rank still running at the deadline is named as stalled.
+    ``python`` is the command prefix that starts a worker."""
+    if cards is None:
+        cards = torch.cuda.device_count() if DEV == "cuda" else 1
+    backend = "nccl" if DEV == "cuda" and cards >= 2 else "gloo"
+    out = tempfile.mkdtemp(prefix="dk_phase13_")
+    cfg = {"out": out, "port": _free_port(), "device": DEV,
+           "backend": backend, "cards": min(cards, P13) if DEV == "cuda"
+           else 0, "train": TRAIN, "train_b": TRAIN_B, "train_w": TRAIN_W,
+           "lr": TRAIN_LR, "steps": P13_STEPS, "micro": PP_MICRO,
+           "moe": MOE, "moe_steps": MOE_EP_STEPS, "witness": P13_WITNESS,
+           "exact": EXACT, "pair_per_layer": pair_per_layer(P13),
+           "losses6": yard["losses6"], "losses6b": yard["losses6b"]}
+    ranks, wall = run_ranks("13", cfg, P13, P13_TIMEOUT_S, here, python)
+    return p13_check(np, ranks, cfg, wall)
+
+
+def _launch_check(what, r, got, want, shapes=None, shape=None):
+    if got != want:
+        raise AssertionError(f"{what}: rank {r} launched {got}, not {want}")
+    if shape is not None and any(want.values()) and shapes != [shape]:
+        raise AssertionError(f"{what}: rank {r} ran the causal kernels at "
+                             f"{shapes}, not {shape}")
+
+
+def p13_check(np, ranks, cfg, wall):
+    """The cross-rank checks of phase 13 and its summary line."""
+    tc = cfg["train"]
+    L, T, B, W = (tc["num_layers"], tc["max_len"], cfg["train_b"],
+                  cfg["steps"])
+    H, D = tc["num_heads"], tc["d_model"]
+    label = {"backend": ranks[0]["backend"], "cards": cfg["cards"],
+             "processes": P13}
+    if cfg["cards"] == 1:
+        label["note"] = ("both ranks share one card over gloo: not a "
+                         "parallel speed")
+    # 13a
+    pa = [r["pp"] for r in ranks]
+    for r, a in enumerate(pa):
+        gap = float(np.abs(np.asarray(a["losses"])
+                           - np.asarray(cfg["losses6"][:W])).max())
+        if not np.isfinite(a["losses"]).all() or not gap <= TRAIN_LOSS_TOL:
+            raise AssertionError(f"13a: rank {r}'s pp losses {a['losses']} "
+                                 f"are {gap} off phase 6's "
+                                 f"{cfg['losses6'][:W]}")
+        if a["held_blocks"] != list(range(r * L // P13, (r + 1) * L // P13)):
+            raise AssertionError(f"13a: rank {r} holds blocks "
+                                 f"{a['held_blocks']}, not its stage's")
+        n = (L // P13) * cfg["micro"] * W if a["kernel_selected"] else 0
+        _launch_check("13a", r, a["launches"],
+                      {k: n for k in CAUSAL_NAMES}, a["shapes"],
+                      [B // cfg["micro"], T, H, D // H])
+    if len({a["rest_digest"] for a in pa}) != 1:
+        raise AssertionError("13a: the replicated embedding, final norm "
+                             "and head differ across the stages")
+    M = cfg["micro"]
+    a = {**label, "config": f"d{D}/h{H}/L{L}/v{tc['vocab_size']}/T{T}/"
+         f"b{B}-bf16-adamw-mubf16-pp{P13}-M{M}",
+         "witness": ranks[0]["pp_witness"], "losses": pa[0]["losses"],
+         "phase6_losses": cfg["losses6"][:W],
+         "max_loss_gap_vs_phase6": float(np.abs(
+             np.asarray(pa[0]["losses"])
+             - np.asarray(cfg["losses6"][:W])).max()),
+         "rest_bit_identical_across_stages": True,
+         "ms_per_step": [x["ms_per_step"] for x in pa],
+         "tok_per_s": [B * T / (x["ms_per_step"] / 1e3) for x in pa],
+         "peak_device_mb": [x["peak_mb"] for x in pa],
+         "blocks_held_per_rank": [x["held_blocks"] for x in pa],
+         "bubble": (P13 - 1) / (M + P13 - 1),
+         "launches_per_rank": [x["launches"] for x in pa],
+         "kernel_shape": [B // M, T, H, D // H]}
+    # 13b at ep=2
+    eb = [r["ep"] for r in ranks]
+    for r, e in enumerate(eb):
+        if not np.isfinite(e["losses"]).all():
+            raise AssertionError(f"13b: rank {r}'s ep=2 losses not finite: "
+                                 f"{e['losses']}")
+    if len({e["replicated_digest"] for e in eb}) != 1:
+        raise AssertionError("13b: the replicated parameters differ across "
+                             "the ep ranks")
+    if eb[0]["losses"] != eb[1]["losses"]:
+        raise AssertionError("13b: the ep ranks report different losses")
+    b = {**label, "config": f"d{D}/h{H}/L{L}/v{tc['vocab_size']}/T{T}/b{B}"
+         f"-bf16-moe{cfg['moe']['moe_experts']}-top"
+         f"{cfg['moe']['moe_top_k']}-cf1.25-ep{P13}-adamw-mubf16",
+         "witness": ranks[0]["ep_witness"], "losses": eb[0]["losses"],
+         "replicated_bit_identical": True,
+         "ms_per_step": [x["ms_per_step"] for x in eb],
+         "tok_per_s": [B * T / (x["ms_per_step"] / 1e3) for x in eb],
+         "peak_device_mb": [x["peak_mb"] for x in eb],
+         "launches_per_rank": [x["launches"] for x in eb]}
+    # 13c
+    sc = [r["sp"] for r in ranks]
+    for r, c in enumerate(sc):
+        gap = float(np.abs(np.asarray(c["losses"])
+                           - np.asarray(cfg["losses6b"][:W])).max())
+        if not np.isfinite(c["losses"]).all() or not gap <= TRAIN_LOSS_TOL:
+            raise AssertionError(f"13c: rank {r}'s sp=2 losses "
+                                 f"{c['losses']} are {gap} off phase 6b's "
+                                 f"{cfg['losses6b'][:W]}")
+        # the ring runs the pair kernels only, never B1's
+        want = {n: 0 for n in c["launches"]}
+        want.update({n: (k * L * W if c["kernel_selected"] else 0)
+                     for n, k in cfg["pair_per_layer"].items()})
+        _launch_check("13c", r, c["launches"], want)
+    if len({c["digest"] for c in sc}) != 1:
+        raise AssertionError("13c: the sp=2 replicas differ")
+    c = {**label, "config": f"d{D}/h{H}/L{L}/v{tc['vocab_size']}/T{T}/b{B}"
+         f"-bf16-ring-sp{P13}-zigzag-pair{T // P13 // 2}-adamw-mubf16-"
+         f"fusedce", "witness": ranks[0]["sp_witness"],
+         "losses": sc[0]["losses"], "phase6b_losses": cfg["losses6b"][:W],
+         "max_loss_gap_vs_phase6b": float(np.abs(
+             np.asarray(sc[0]["losses"])
+             - np.asarray(cfg["losses6b"][:W])).max()),
+         "replicas_bit_identical": True,
+         "ms_per_step": [x["ms_per_step"] for x in sc],
+         "tok_per_s": [B * T / (x["ms_per_step"] / 1e3) for x in sc],
+         "peak_device_mb": [x["peak_mb"] for x in sc],
+         "allreduces_per_step": sc[0]["allreduces_per_step"],
+         "per_leaf_allreduces_per_step": sc[0]["n_params"],
+         "launches_per_rank": [x["launches"] for x in sc],
+         "pair_per_layer": cfg["pair_per_layer"]}
+    return {"phase": "13", "13a": a, "13b_ep2": b, "13c": c, "wall_s": wall}
+
+
+def _p13_tokens(np, cfg):
+    """Phase 6's batches (``train_tokens``), on the host."""
+    tc = cfg["train"]
+    return np.random.default_rng(11).integers(
+        0, tc["vocab_size"], size=(cfg["train_w"], cfg["train_b"],
+                                   tc["max_len"]))
+
+
+def _gap(np, a, b):
+    return max(float(np.abs(a[k] - b[k]).max()) for k in b)
+
+
+def _plain(dk, model, mesh=None):
+    if mesh is None:
+        return dk["rules"].flatten(dk["bridge"].params_to_jax(model))
+    with mesh:
+        return dk["rules"].flatten(dk["bridge"].params_to_jax(model))
+
+
+def p13_witnesses(torch, np, dk, cfg):
+    """The f32 witnesses of phase 13 at phase 4's widths, one SGD step
+    each: pp=2 and sp=2 against the unsharded step, ep=2 against dp=2 x
+    ep=1 on the same rows with the same capacity per source."""
+    w, E = cfg["witness"], cfg["exact"]
+    f32 = dict(dtype=torch.float32, device=DEV, seed=3)
+    sgd = dk["get_optimizer"]("sgd", w["lr"])
+    M, B, T = w["M"], w["B"], w["T"]
+    tokens = np.random.default_rng(14).integers(0, E["vocab_size"],
+                                                size=(M, B, T))
+    out = {}
+    # pp=2 against the unsharded step on all M x B rows
+    one = dk["get_model"]("transformer_lm", **f32, **E)
+    want = dk["make_lm_train_step"](one, sgd, fused_ce=False)(
+        tokens.reshape(M * B, T)).item()
+    mesh = dk["make_mesh"]({"dp": 1, "pp": P13, "tp": 1})
+    pp_model = dk["get_model"]("transformer_lm", **f32, **E)
+    got = dk["make_pp_lm_train_step"](pp_model, sgd, mesh)(tokens).item()
+    dk["sync_blocks"](pp_model, mesh)
+    res = {"loss": got, "unsharded_loss": want, "loss_gap": abs(got - want),
+           "param_gap": _gap(np, _plain(dk, pp_model), _plain(dk, one)),
+           "tol": w["pp_tol"]}
+    if not (res["loss_gap"] <= w["pp_tol"] and res["param_gap"]
+            <= w["pp_tol"]):
+        raise AssertionError(f"13a: the f32 witness is off the unsharded "
+                             f"step: {res}")
+    out["pp"] = res
+    # ep=2 against dp=2 x ep=1: the same rows, the same capacity a source
+    rows = tokens.reshape(M * B, T)
+    moe = dict(f32, **E, **cfg["moe"])
+    dp_mesh = dk["make_mesh"]({"dp": P13, "ep": 1})
+    dp_model = dk["get_model"]("moe_lm", **moe)
+    want = dk["make_moe_lm_train_step"](dp_model, sgd, dp_mesh)(rows).item()
+    ep_mesh = dk["make_mesh"]({"dp": 1, "ep": P13})
+    with ep_mesh:
+        ep_model = dk["get_model"]("moe_lm", ep_size=P13, **moe)
+    got = dk["make_moe_lm_train_step"](ep_model, sgd, ep_mesh)(rows).item()
+    res = {"loss": got, "dp2_ep1_loss": want, "loss_gap": abs(got - want),
+           "param_gap": _gap(np, _plain(dk, ep_model, ep_mesh),
+                             _plain(dk, dp_model)), "tol": w["ep_tol"]}
+    if not (res["loss_gap"] <= w["ep_tol"] and res["param_gap"]
+            <= w["ep_tol"]):
+        raise AssertionError(f"13b: the f32 witness is off dp=2 x ep=1: "
+                             f"{res}")
+    res.update(_remat_gaps(np, dk, "moe_lm", dict(moe, ep_size=P13),
+                           ep_mesh, rows, got, ep_model,
+                           dk["make_moe_lm_train_step"]))
+    if not (res["remat_loss_gap"] <= w["ep_tol"] and res["remat_param_gap"]
+            <= w["ep_tol"]):
+        raise AssertionError(f"13b: the ep=2 step under remat='block' is "
+                             f"off the stored-activation step: {res}")
+    out["ep"] = res
+    # sp=2 against sp=1
+    ring = dict(f32, attention="ring", **E)
+    one = dk["get_model"]("transformer_lm", **f32, **E)
+    want = dk["make_lm_train_step"](one, sgd)(rows).item()
+    sp_mesh = dk["make_mesh"]({"dp": 1, "sp": P13})
+    sp_model = dk["get_model"]("transformer_lm", **ring)
+    got = dk["make_lm_train_step"](sp_model, sgd, mesh=sp_mesh)(rows).item()
+    res = {"loss": got, "sp1_loss": want, "loss_gap": abs(got - want),
+           "param_gap": _gap(np, _plain(dk, sp_model), _plain(dk, one)),
+           "tol": w["sp_tol"]}
+    if not (res["loss_gap"] <= w["sp_tol"] and res["param_gap"]
+            <= w["sp_tol"]):
+        raise AssertionError(f"13c: the f32 witness is off sp=1: {res}")
+    res.update(_remat_gaps(np, dk, "transformer_lm", ring, sp_mesh, rows,
+                           got, sp_model,
+                           lambda m, o, mesh: dk["make_lm_train_step"](
+                               m, o, mesh=mesh)))
+    if not (res["remat_loss_gap"] <= w["sp_tol"] and res["remat_param_gap"]
+            <= w["sp_tol"]):
+        raise AssertionError(f"13c: the sp=2 step under remat='block' is "
+                             f"off the stored-activation step: {res}")
+    out["sp"] = res
+    return out
+
+
+def _remat_gaps(np, dk, name, kw, mesh, rows, loss, trained, make_step):
+    """One SGD step of a ``remat='block'`` twin (built from the same
+    seed inside ``mesh``) against the stored-activation step's ``loss``
+    and ``trained`` model: its blocks are recomputed in the backward, on
+    a card in autograd's device thread, where no mesh is bound but the
+    one the recompute rebinds."""
+    with mesh:
+        model = dk["get_model"](name, remat="block", **kw)
+    step = make_step(model, dk["get_optimizer"]("sgd", P13_WITNESS["lr"]),
+                     mesh)
+    got = step(rows).item()
+    return {"remat_loss_gap": abs(got - loss),
+            "remat_param_gap": _gap(np, _plain(dk, model, mesh),
+                                    _plain(dk, trained, mesh))}
+
+
+def _timed_steps(torch, step, batches):
+    """Run ``step`` on each batch, each timed to a synchronize: (losses,
+    seconds)."""
+    losses, times = [], []
+    for t in batches:
+        sync(torch)
+        t0 = time.perf_counter()
+        losses.append(step(t).item())
+        times.append(time.perf_counter() - t0)
+    return losses, times
+
+
+def _run_stats(torch, np, fa, times):
+    return {"ms_per_step": float(np.mean(times[1:] or times) * 1e3),
+            "first_step_ms": times[0] * 1e3, "peak_mb": _peak_mb(torch),
+            "launches": {n: getattr(fa, n).launches for n in CAUSAL_NAMES}}
+
+
+def pp_train(torch, np, dk, fa, cfg):
+    """13a: phase 6's flagship, weights and first batches at pp=2, M
+    microbatches of B/M rows, AdamW."""
+    tc, B, M, W = cfg["train"], cfg["train_b"], cfg["micro"], cfg["steps"]
+    T, H = tc["max_len"], tc["num_heads"]
+    hd = tc["d_model"] // H
+    tokens = torch.as_tensor(_p13_tokens(np, cfg)[:W].reshape(
+        W, M, B // M, T), device=DEV)
+    mesh = dk["make_mesh"]({"dp": 1, "pp": P13, "tp": 1})
+    model = dk["get_model"]("transformer_lm", dtype=torch.bfloat16,
+                            device=DEV, seed=0, **tc)
+    step = dk["make_pp_lm_train_step"](model, dk["get_optimizer"](
+        "adamw", cfg["lr"], mu_dtype=torch.bfloat16), mesh)
+    shapes = set()
+    plain = fa.pallas_causal_attention
+
+    def seen(q, k, v, block=None):
+        shapes.add(tuple(q.shape))
+        return plain(q, k, v, block)
+
+    fa.pallas_causal_attention = seen
+    _reset_peak(torch)
+    zero_training_counts(fa, dk["pp"])
+    try:
+        losses, times = _timed_steps(torch, step, tokens)
+    finally:
+        fa.pallas_causal_attention = plain
+    out = {"losses": losses, **_run_stats(torch, np, fa, times),
+           # the blocks whose storage this rank keeps while it trains
+           "held_blocks": [i for i, b in enumerate(model.blocks)
+                           if all(p.numel() for p in b.parameters())],
+           "shapes": sorted(list(s) for s in shapes),
+           "kernel_selected": bool(fa.preferred(T, hd, torch.bfloat16,
+                                                DEV)),
+           "rest_digest": _digest(torch, [model.embed.embedding,
+                                          model.ln_f.scale, model.ln_f.bias,
+                                          model.head.kernel,
+                                          model.head.bias])}
+    del step, model
+    _free(torch)
+    return out
+
+
+def ep_train(torch, np, dk, fa, cfg):
+    """13b at ep=2: the MoE twin of phase 6's flagship, phase 6's first
+    batches (the global batch sharded over the two ranks)."""
+    tc, W = cfg["train"], cfg["moe_steps"]
+    tokens = torch.as_tensor(_p13_tokens(np, cfg)[:W], device=DEV)
+    mesh = dk["make_mesh"]({"dp": 1, "ep": P13})
+    with mesh:
+        model = dk["get_model"]("moe_lm", dtype=torch.bfloat16, device=DEV,
+                                seed=0, ep_size=P13, **tc, **cfg["moe"])
+    step = dk["make_moe_lm_train_step"](model, dk["get_optimizer"](
+        "adamw", cfg["lr"], mu_dtype=torch.bfloat16), mesh)
+    _reset_peak(torch)
+    zero_training_counts(fa, dk["pp"])
+    losses, times = _timed_steps(torch, step, tokens)
+    rep = [p for n, p in model.named_parameters()
+           if dk["ep_dim"](n) is None]
+    out = {"losses": losses, **_run_stats(torch, np, fa, times),
+           "replicated_digest": _digest(torch, rep)}
+    del step, model
+    _free(torch)
+    return out
+
+
+def sp_train(torch, np, dk, fa, cfg):
+    """13c: phase 6b's ring step at sp=2 (each rank two T/4 zigzag
+    chunks) through the bucketed gradient reduce."""
+    tc, W = cfg["train"], cfg["steps"]
+    T, H = tc["max_len"], tc["num_heads"]
+    tokens = torch.as_tensor(_p13_tokens(np, cfg)[:W], device=DEV)
+    mesh = dk["make_mesh"]({"dp": 1, "sp": P13})
+    model = dk["get_model"]("transformer_lm", dtype=torch.bfloat16,
+                            device=DEV, seed=0, attention="ring", **tc)
+    step = dk["make_lm_train_step"](model, dk["get_optimizer"](
+        "adamw", cfg["lr"], mu_dtype=torch.bfloat16), mesh=mesh)
+    _reset_peak(torch)
+    zero_training_counts(fa, dk["pp"])
+    calls = dk["reduce_grads"].calls
+    losses, times = _timed_steps(torch, step, tokens)
+    out = {"losses": losses, **_run_stats(torch, np, fa, times),
+           "launches": training_counts(fa, dk["pp"]),
+           "allreduces_per_step": (dk["reduce_grads"].calls - calls) / W,
+           "n_params": len(list(model.parameters())),
+           "kernel_selected": dk["pair_kernel_block"](
+               T // P13 // 2, tc["d_model"] // H, torch.bfloat16, DEV)
+           is not None,
+           "digest": _digest(torch, list(model.parameters()))}
+    del step, model
+    _free(torch)
+    return out
+
+
+def p13_worker(cfg_path: str, rank: int) -> int:
+    """One rank of phase 13 (``chip_smoke.py --phase13-worker <cfg>
+    <rank>``): join the two-rank world, run the three f32 witnesses, then
+    13a, 13b at ep=2 and 13c, and write this rank's results."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    global DEV
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from distkeras_torch import bridge
+    from distkeras_torch.kernels import build
+    from distkeras_torch.models import get_model
+    from distkeras_torch.ops import pallas_attention as fa
+    from distkeras_torch.ops import pallas_pair as pp
+    from distkeras_torch.ops import rules
+    from distkeras_torch.ops.ring_attention import _pair_kernel_block
+    from distkeras_torch.parallel.collectives import reduce_grads
+    from distkeras_torch.parallel.mesh import make_mesh
+    from distkeras_torch.parallel.pipeline import (make_pp_lm_train_step,
+                                                   sync_blocks)
+    from distkeras_torch.parallel.spmd import (ep_dim, make_lm_train_step,
+                                               make_moe_lm_train_step)
+    from distkeras_torch.utils.losses import get_optimizer
+
+    cfg = json.load(open(cfg_path))
+    DEV = cfg["device"]
+    if DEV == "cuda":
+        # one card a rank over NCCL; both on card 0 over gloo
+        torch.cuda.set_device(rank if cfg["backend"] == "nccl" else 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.load()
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // P13))
+    dist.init_process_group(cfg["backend"],
+                            init_method=f"tcp://127.0.0.1:{cfg['port']}",
+                            rank=rank, world_size=P13,
+                            timeout=datetime.timedelta(seconds=300))
+    dk = {"get_model": get_model, "bridge": bridge, "rules": rules,
+          "make_mesh": make_mesh, "make_lm_train_step": make_lm_train_step,
+          "make_pp_lm_train_step": make_pp_lm_train_step,
+          "make_moe_lm_train_step": make_moe_lm_train_step,
+          "sync_blocks": sync_blocks, "get_optimizer": get_optimizer,
+          "ep_dim": ep_dim, "pp": pp, "reduce_grads": reduce_grads,
+          "pair_kernel_block": _pair_kernel_block}
+    try:
+        res = {"rank": rank, "backend": dist.get_backend()}
+        wit = p13_witnesses(torch, np, dk, cfg)
+        res["pp_witness"], res["ep_witness"], res["sp_witness"] = (
+            wit["pp"], wit["ep"], wit["sp"])
+        res["pp"] = pp_train(torch, np, dk, fa, cfg)
+        res["ep"] = ep_train(torch, np, dk, fa, cfg)
+        res["sp"] = sp_train(torch, np, dk, fa, cfg)
+        with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def p13_kernel_shapes(torch, F, fa, pp):
+    """The training kernels at phase 13's shapes, as phases 5 and 5b
+    measure them: the causal kernels at one pp microbatch, the pair
+    kernels at one sp=2 rank's chunk."""
+    t0 = time.perf_counter()
+    causal = causal_cases(torch, F, fa, CAUSAL_PP)
+    pair = pair_cases(torch, F, pp, PAIR_SP2)
+    return {"causal_attention_pp_microbatch": causal,
+            "pair_attention_sp2_chunk": pair, "tol": CAUSAL_TOL,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase13(torch, np, F, dk, fa, pp, here, training, ring):
+    """Phase 13 after phases 6 and 6b (its yardsticks): 13b's one-process
+    MoE flagship, the two-rank phase, the kernels at its shapes."""
+    _free(torch)
+    t0 = time.perf_counter()
+    moe = moe_phase(torch, np, dk, fa, pp)
+    moe["seconds"] = time.perf_counter() - t0
+    _emit({"moe_phase": moe})
+    _free(torch)
+    ranks = p13_phase(torch, np, here, {"losses6": training["losses"],
+                                        "losses6b": ring["losses"]})
+    _emit(ranks)
+    shapes = p13_kernel_shapes(torch, F, fa, pp)
+    _emit({"phase13_kernel_phase": shapes})
+    return moe, ranks, shapes
+
+
+def main(phase12_only: bool = False, phase13_only: bool = False) -> int:
     """The smoke (every phase), or with ``phase12_only`` phase 12 alone
     after phase 3, its yardstick (``chip_smoke.py --phase12``: the
-    tensor-parallel ranks over NCCL on a host of several cards)."""
+    tensor-parallel ranks over NCCL on a host of several cards), or with
+    ``phase13_only`` phase 13 alone after phases 6 and 6b, its yardsticks
+    (``chip_smoke.py --phase13``: over NCCL on several cards)."""
     try:
         import numpy as np
         import torch
@@ -3463,7 +4076,8 @@ def main(phase12_only: bool = False) -> int:
         from distkeras_torch.ops import splash_prefill as sp
         from distkeras_torch.ops.ring_attention import _pair_kernel_block
         from distkeras_torch.parallel.mesh import make_mesh
-        from distkeras_torch.parallel.spmd import make_lm_train_step
+        from distkeras_torch.parallel.spmd import (make_lm_train_step,
+                                                   make_moe_lm_train_step)
         from distkeras_torch.serving import ServingEngine
         from distkeras_torch.trainers import LMTrainer
         from distkeras_torch.utils.losses import get_loss, get_optimizer
@@ -3486,6 +4100,7 @@ def main(phase12_only: bool = False) -> int:
           "generate": generate, "ServingEngine": ServingEngine,
           "serving_requests": serving_requests,
           "make_lm_train_step": make_lm_train_step,
+          "make_moe_lm_train_step": make_moe_lm_train_step,
           "get_optimizer": get_optimizer, "lm_step_flops": lm_step_flops,
           "peak_flops": peak_flops, "LMTrainer": LMTrainer,
           "PartitionedDataset": PartitionedDataset, "make_mesh": make_mesh,
@@ -3525,6 +4140,17 @@ def main(phase12_only: bool = False) -> int:
         "backward_build": bwd_facts,
         "device": torch.cuda.get_device_name(0),
     }})
+    if phase13_only:
+        training = training_phase(torch, np, dk, fa, pp)
+        _emit({"training_phase": training})
+        ring = ring_training_phase(torch, np, dk, fa, pp, training)
+        _emit({"ring_training_phase": ring})
+        phase13(torch, np, F, dk, fa, pp, here, training, ring)
+        print(smi, flush=True)
+        _emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
     if phase12_only:
         t0 = time.perf_counter()
         serving, _, _, chunked = serving_phase(torch, np, dk, pa, sp)
@@ -3668,6 +4294,9 @@ def main(phase12_only: bool = False) -> int:
         "launches": {k: serving[k]["launches"] for k in ("paged", "slot")}})
     _emit(tp)
 
+    moe, p13, p13_shapes = phase13(torch, np, F, dk, fa, pp, here,
+                                   training, ring)
+
     main_paged = next(c for c in paged if c["T"] == 64 and c["pool"] == "int8")
     main_splash = next(c for c in splash if c["dtype"] == "bf16")
     timed = ("T", "H", "Hk", "hd", "pool", "dtype", "starts", "ms",
@@ -3711,8 +4340,10 @@ def main(phase12_only: bool = False) -> int:
             "source": "distkeras_torch/csrc/causal_attention.cu",
             "replaces": f"distkeras_tpu/ops/pallas_attention.py:{line}",
             "launches": training["launches"][name],
-            "max_abs_err": max(c[k] for c in causal + causal_tp
-                               for k in err_keys),
+            "max_abs_err": max(
+                c[k] for c in causal + causal_tp
+                + p13_shapes["causal_attention_pp_microbatch"]
+                for k in err_keys),
             "ms": main_causal[f"{kern}_ms"],
             "plain_ms": main_causal[f"{kern}_plain_ms"],
             "bound_ms": main_causal[f"{kern}_bound_ms"],
@@ -3732,6 +4363,21 @@ def main(phase12_only: bool = False) -> int:
             rows[-1]["tp2_shard"]["bwd_ms"] = causal_tp[0]["bwd_ms"]
             rows[-1]["tp2_shard"]["bwd_library_ms"] = causal_tp[0][
                 "bwd_library_ms"]
+        # phase 13: one pp microbatch, each pp rank's launches, and the
+        # MoE flagship's launches
+        mb = p13_shapes["causal_attention_pp_microbatch"][0]
+        rows[-1]["pp_microbatch"] = {k: mb[f"{kern}_{k}"] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")} | {
+            "shape": [CAUSAL_PP["B"], CAUSAL_PP["T"][0], CAUSAL["H"],
+                      CAUSAL["hd"]],
+            "library_ms": mb["fwd_library_ms"] if kern == "fwd" else None}
+        if kern != "fwd":
+            rows[-1]["pp_microbatch"]["bwd_ms"] = mb["bwd_ms"]
+            rows[-1]["pp_microbatch"]["bwd_library_ms"] = mb[
+                "bwd_library_ms"]
+        rows[-1]["pp_launches_per_rank"] = [
+            n[name] for n in p13["13a"]["launches_per_rank"]]
+        rows[-1]["moe_launches"] = moe["launches"][name]
         if name in fwd_facts:
             rows[-1]["build"] = fwd_facts[name]
         if name in bwd_facts:
@@ -3755,9 +4401,9 @@ def main(phase12_only: bool = False) -> int:
                 "source": "distkeras_torch/csrc/pair_attention.cu",
                 "replaces": f"distkeras_tpu/ops/pallas_pair.py:{line}",
                 "launches": ring["launches"][name],
-                "max_abs_err": max(c[k] for c in pair
-                                   if c["variant"] == variant
-                                   for k in err_keys),
+                "max_abs_err": max(
+                    c[k] for c in pair + p13_shapes["pair_attention_sp2_chunk"]
+                    if c["variant"] == variant for k in err_keys),
                 "ms": main[f"{kern}_ms"],
                 "plain_ms": main[f"{kern}_plain_ms"],
                 "bound_ms": main[f"{kern}_bound_ms"],
@@ -3773,6 +4419,20 @@ def main(phase12_only: bool = False) -> int:
                 rows[-1]["bwd_ms"] = main["bwd_ms"]
                 rows[-1]["bwd_library_ms"] = main["bwd_library_ms"]
                 rows[-1]["sdpa_backend"] = main["sdpa_backend"]
+            # phase 13c: one sp=2 rank's chunk, and each rank's launches
+            ch = next(c for c in p13_shapes["pair_attention_sp2_chunk"]
+                      if c["variant"] == variant)
+            rows[-1]["sp2_chunk"] = {k: ch[f"{kern}_{k}"] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")} | {
+                "shape": [PAIR["B"], PAIR_SP2["C"][0], PAIR["H"],
+                          PAIR["hd"]],
+                "library_ms": ch[lib] if lib else None}
+            if kern != "fwd":
+                rows[-1]["sp2_chunk"]["bwd_ms"] = ch["bwd_ms"]
+                rows[-1]["sp2_chunk"]["bwd_library_ms"] = ch[
+                    "bwd_library_ms"]
+            rows[-1]["sp2_launches_per_rank"] = [
+                n[name] for n in p13["13c"]["launches_per_rank"]]
     print(smi, flush=True)
     _emit({"kernels": rows})
     _emit({"ok": True, "device": {"platform": "gpu",
@@ -3786,4 +4446,7 @@ if __name__ == "__main__":
         sys.exit(job_worker(sys.argv[2]))
     if len(sys.argv) == 4 and sys.argv[1] == "--phase12-worker":
         sys.exit(tp_worker(sys.argv[2], int(sys.argv[3])))
-    sys.exit(main(phase12_only=sys.argv[1:] == ["--phase12"]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--phase13-worker":
+        sys.exit(p13_worker(sys.argv[2], int(sys.argv[3])))
+    sys.exit(main(phase12_only=sys.argv[1:] == ["--phase12"],
+                  phase13_only=sys.argv[1:] == ["--phase13"]))

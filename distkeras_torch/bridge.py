@@ -19,7 +19,10 @@ Neither imports jax.
 A tensor-parallel model (``tp_size > 1``) bridges the FULL (unsharded)
 tree: :func:`params_from_jax` loads this rank's slice of each sharded
 leaf, :func:`params_to_jax` gathers them over the tp group (collective:
-every tp rank calls it, inside ``with mesh:``).
+every tp rank calls it, inside ``with mesh:``). An expert-parallel MoE
+model (``ep_size > 1``) the same way over ep: each ``moe/{w1,b1,w2,b2}``
+bank is sliced along its leading expert axis (the ``moe/router`` is
+whole on every rank).
 """
 
 from __future__ import annotations
@@ -64,11 +67,13 @@ def params_from_jax(tree: dict, model) -> None:
     """Load a flax ``{"params": ...}`` tree of numpy arrays into ``model``
     in place. Every leaf must match a port parameter by name and shape,
     and every port parameter must be covered — a partial load raises."""
-    from distkeras_torch.parallel.spmd import shard_tensor, tp_dim
+    from distkeras_torch.parallel.spmd import (ep_dim, shard_tensor,
+                                               tp_dim)
 
     params = tree["params"] if "params" in tree else tree
     own = dict(model.named_parameters())
     tp, rank = getattr(model, "tp_size", 1), getattr(model, "tp_rank", 0)
+    ep, ep_rank = getattr(model, "ep_size", 1), getattr(model, "ep_rank", 0)
     seen = set()
     for path, leaf in _flatten(params):
         name = _port_name(path)
@@ -79,6 +84,9 @@ def params_from_jax(tree: dict, model) -> None:
         if tp > 1 and tp_dim(name) is not None:
             arr = shard_tensor(torch.from_numpy(np.ascontiguousarray(arr)),
                                tp_dim(name), rank, tp).numpy()
+        if ep > 1 and ep_dim(name) is not None:
+            arr = shard_tensor(torch.from_numpy(np.ascontiguousarray(arr)),
+                               ep_dim(name), ep_rank, ep).numpy()
         dst = own[name]
         if tuple(arr.shape) != tuple(dst.shape):
             raise ValueError(f"{'/'.join(path)}: flax shape "
@@ -94,10 +102,10 @@ def params_from_jax(tree: dict, model) -> None:
 @torch.no_grad()
 def params_to_jax(model) -> Dict[str, dict]:
     """The inverse of :func:`params_from_jax`: ``{"params": nested dict
-    of float32 numpy arrays}`` in the flax tree layout (a tp model's
-    gathered: the full tree)."""
+    of float32 numpy arrays}`` in the flax tree layout (a tp or ep
+    model's gathered: the full tree)."""
     params = model.named_parameters()
-    if getattr(model, "tp_size", 1) > 1:
+    if getattr(model, "tp_size", 1) > 1 or getattr(model, "ep_size", 1) > 1:
         from distkeras_torch.parallel.spmd import gather_state
 
         params = gather_state(model).items()

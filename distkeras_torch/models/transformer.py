@@ -66,12 +66,20 @@ bound by ``with mesh:`` when the model is built (and its ``tp_axis``
 group when it runs); a ``tp_size=n`` model built from a seed holds
 exactly the slices of the ``tp_size=1`` model built from that seed.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): :class:`MoeLM` and ``moe_experts`` (A10).
+Mixture of experts (``moe_experts > 0``, :class:`MoeLM`): each block's
+dense MLP becomes a top-``moe_top_k`` routed bank of experts
+(:class:`~distkeras_torch.ops.moe.SwitchMoE`, parameters under ``moe``),
+sharded over the bound mesh's ``ep_axis`` when ``ep_size > 1`` (an ep
+model is built and run inside ``with mesh:``, like a tp model, and holds
+exactly the expert slices of the ``ep_size=1`` model from the same
+seed). ``model(tokens, return_aux=True)`` returns ``(out, auxes)``, one
+Switch load-balancing loss per MoE layer in the graph (empty for a dense
+model), which the MoE step adds to its objective.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional
 
@@ -83,6 +91,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from distkeras_torch.models.registry import register_model
+from distkeras_torch.ops.moe import SwitchMoE
 from distkeras_torch.ops import paged_attention as _pa
 from distkeras_torch.ops import pallas_attention as _fa
 from distkeras_torch.ops import splash_prefill as _sp
@@ -137,19 +146,30 @@ def _ring_shard(cfg):
     return mesh.group(cfg.seq_axis), mesh.index(cfg.seq_axis)
 
 
-def _tp_mesh(tp_axis: str, tp_size: int):
-    """The bound mesh a ``tp_size > 1`` model is built and run in: its
-    ``tp_axis`` must be of size ``tp_size``."""
+def _sharding_mesh(axis: str, size: int, what: str, step: str):
+    """The bound mesh a model sharded ``size`` ways over ``axis`` (its
+    heads under tp, its experts under ep) is built and run in: that axis
+    must be of size ``size``."""
     mesh = current_mesh()
-    if (mesh is None or tp_axis not in mesh.axis_names
-            or mesh.axis_size(tp_axis) != tp_size):
+    if (mesh is None or axis not in mesh.axis_names
+            or mesh.axis_size(axis) != size):
         raise ValueError(
-            f"tp_size={tp_size} shards heads over the '{tp_axis}' axis of "
-            f"a bound mesh of that size: build and call the model inside "
-            f"`with make_mesh({{..., '{tp_axis}': {tp_size}}}):` (got "
-            f"{mesh!r}), or train it through make_lm_train_step(mesh=..., "
-            f"tp_axis='{tp_axis}')")
+            f"{what}={size} shards over the '{axis}' axis of a bound mesh "
+            f"of that size: build and call the model inside `with "
+            f"make_mesh({{..., '{axis}': {size}}}):` (got {mesh!r}), or "
+            f"train it through {step}")
     return mesh
+
+
+def _tp_mesh(tp_axis: str, tp_size: int):
+    return _sharding_mesh(tp_axis, tp_size, "tp_size",
+                          f"make_lm_train_step(mesh=..., "
+                          f"tp_axis='{tp_axis}')")
+
+
+def _ep_mesh(ep_axis: str, ep_size: int):
+    return _sharding_mesh(ep_axis, ep_size, "ep_size",
+                          "make_moe_lm_train_step(mesh=...)")
 
 
 def _tp_group(tp_axis: str, tp_size: int):
@@ -157,6 +177,22 @@ def _tp_group(tp_axis: str, tp_size: int):
     if tp_size == 1:
         return None
     return _tp_mesh(tp_axis, tp_size).group(tp_axis)
+
+
+def remat_block(block, x, cfg):
+    """flax ``nn.remat(Block)``: ``block(x, cfg)`` keeping only its input;
+    its internals are recomputed in the backward. The recompute runs
+    wherever autograd runs the backward: outside the step's ``with
+    mesh:``, and on a card in autograd's own device thread, whose bound
+    meshes are empty. So it rebinds the mesh bound at the forward, from
+    which the block reads its tp, ep and sp groups."""
+    mesh = current_mesh()
+
+    def contexts():
+        return (contextlib.nullcontext(),
+                mesh if mesh is not None else contextlib.nullcontext())
+
+    return checkpoint(block, x, cfg, use_reentrant=False, context_fn=contexts)
 
 
 def sinusoidal_positions(max_len: int, dim: int) -> np.ndarray:
@@ -582,23 +618,34 @@ class CausalSelfAttention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm block: attention and the dense GELU(tanh) MLP."""
+    """Pre-norm block: attention and the dense GELU(tanh) MLP, or with
+    ``moe_experts > 0`` a Switch-MoE MLP (``moe``). ``forward`` returns
+    ``(x, aux)``: the MoE layer's aux loss, None for a dense block."""
 
     def __init__(self, d_model: int, num_heads: int,
                  num_kv_heads: Optional[int], mlp_ratio: int, dtype, device,
                  gen, tp_size: int = 1, tp_axis: str = "tp",
-                 tp_rank: int = 0):
+                 tp_rank: int = 0, moe_experts: int = 0, ep_size: int = 1,
+                 ep_axis: str = "ep", ep_rank: int = 0, moe_top_k: int = 1):
         super().__init__()
         tp = dict(tp_size=tp_size, tp_axis=tp_axis, tp_rank=tp_rank)
         self.tp_size, self.tp_axis = tp_size, tp_axis
+        self.ep_size, self.ep_axis = ep_size, ep_axis
         self.LayerNorm_0 = LayerNorm(d_model, dtype, device)
         self.CausalSelfAttention_0 = CausalSelfAttention(
             d_model, num_heads, num_kv_heads, dtype, device, gen, **tp)
         self.LayerNorm_1 = LayerNorm(d_model, dtype, device)
-        self.mlp_up = TPDenseGeneral((d_model,), (d_model * mlp_ratio,),
-                                     dtype, device, gen, mode="col", **tp)
-        self.mlp_down = TPDenseGeneral((d_model * mlp_ratio,), (d_model,),
-                                       dtype, device, gen, mode="row", **tp)
+        if moe_experts > 0:
+            self.moe = SwitchMoE(d_model, moe_experts, d_model * mlp_ratio,
+                                 dtype, device, gen, ep_size=ep_size,
+                                 ep_rank=ep_rank, top_k=moe_top_k)
+        else:
+            self.mlp_up = TPDenseGeneral((d_model,), (d_model * mlp_ratio,),
+                                         dtype, device, gen, mode="col",
+                                         **tp)
+            self.mlp_down = TPDenseGeneral((d_model * mlp_ratio,),
+                                           (d_model,), dtype, device, gen,
+                                           mode="row", **tp)
 
     def forward(self, x, cfg, cache=None, layer=None, cur=None,
                 block_tables=None, seq_lens=None, valid_lens=None):
@@ -607,18 +654,24 @@ class Block(nn.Module):
                                            block_tables, seq_lens,
                                            valid_lens)
         h = self.LayerNorm_1(x)
+        if hasattr(self, "moe"):
+            group = (_ep_mesh(self.ep_axis, self.ep_size).group(self.ep_axis)
+                     if self.ep_size > 1 else None)
+            h, aux = self.moe(h, group)
+            return x + h, aux
         h = self.mlp_up(copy_to_tp(h, _tp_group(self.tp_axis,
                                                 self.tp_size)))
         h = F.gelu(h, approximate="tanh")  # flax nn.gelu's default
         h = self.mlp_down(h)
-        return x + h
+        return x + h, None
 
 
 # configuration fields of TransformerLM (constructor keywords besides
 # device/seed); clone() copies them and shares the parameters
 _CONFIG_FIELDS = (
     "vocab_size", "d_model", "num_heads", "num_layers", "max_len", "dtype",
-    "attention", "tp_size", "moe_experts", "remat", "decode", "pos_emb",
+    "attention", "tp_size", "moe_experts", "ep_size", "ep_axis",
+    "moe_top_k", "remat", "decode", "pos_emb",
     "num_kv_heads", "cache_dtype", "slot_cursor", "paged",
     "page_block_size", "num_pages", "paged_kernel", "prefill_kernel",
     "features_only", "seq_axis", "tp_axis",
@@ -638,7 +691,8 @@ class TransformerLM(nn.Module):
     A ``tp_size > 1`` model is built inside ``with mesh:`` (its rank is
     ``tp_rank``, this process's coordinate on the mesh's ``tp_axis``)
     and runs inside a bound mesh of the same tp size; :meth:`shard`
-    makes one from a ``tp_size=1`` model's weights.
+    makes one from a ``tp_size=1`` model's weights. An ``ep_size > 1``
+    MoE model likewise (its rank ``ep_rank`` on ``ep_axis``).
     """
 
     _DENSE_MAX_T = 512
@@ -647,7 +701,9 @@ class TransformerLM(nn.Module):
                  num_heads: int = 4, num_layers: int = 4,
                  max_len: int = 2048, dtype=torch.bfloat16,
                  attention: str = "standard", tp_size: int = 1,
-                 moe_experts: int = 0, remat: str = "none",
+                 moe_experts: int = 0, ep_size: int = 1,
+                 ep_axis: str = "ep", moe_top_k: int = 1,
+                 remat: str = "none",
                  decode: bool = False, pos_emb: str = "sinusoidal",
                  num_kv_heads: Optional[int] = None,
                  cache_dtype: str = "model", slot_cursor: bool = False,
@@ -665,9 +721,13 @@ class TransformerLM(nn.Module):
         self._validate()
         self.tp_rank = (_tp_mesh(tp_axis, tp_size).index(tp_axis)
                         if tp_size > 1 else 0)
+        self.ep_rank = (_ep_mesh(ep_axis, ep_size).index(ep_axis)
+                        if ep_size > 1 else 0)
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        tp = dict(tp_size=tp_size, tp_axis=tp_axis, tp_rank=self.tp_rank)
+        tp = dict(tp_size=tp_size, tp_axis=tp_axis, tp_rank=self.tp_rank,
+                  moe_experts=moe_experts, ep_size=ep_size, ep_axis=ep_axis,
+                  ep_rank=self.ep_rank, moe_top_k=moe_top_k)
         self.embed = Embed(vocab_size, d_model, dtype, dev, gen)
         self.blocks = nn.ModuleList(
             Block(d_model, num_heads, num_kv_heads, 4, dtype, dev, gen, **tp)
@@ -682,10 +742,19 @@ class TransformerLM(nn.Module):
                 f"Unknown remat policy '{self.remat}'. Known: none, block")
         if self.tp_size < 1:
             raise ValueError(f"tp_size must be >= 1; got {self.tp_size}")
-        if self.moe_experts:
-            raise NotImplementedError(
-                "moe_experts > 0 (Switch-MoE MLPs) is not ported yet "
-                "(ROADMAP A10)")
+        if self.moe_experts < 0 or self.ep_size < 1:
+            raise ValueError(f"moe_experts={self.moe_experts} and ep_size="
+                             f"{self.ep_size} must be >= 0 and >= 1")
+        if self.moe_experts and self.moe_experts % self.ep_size:
+            raise ValueError(f"num_experts={self.moe_experts} not divisible "
+                             f"by ep_size={self.ep_size}")
+        if self.ep_size > 1 and not self.moe_experts:
+            raise ValueError(f"ep_size={self.ep_size} shards MoE experts: "
+                             f"set moe_experts > 0")
+        if self.moe_experts and self.tp_size > 1:
+            raise ValueError(
+                "moe_experts with tp_size > 1 is not supported: the MoE "
+                "step shards (dp, ep) only, as the reference's does")
         if self.pos_emb not in ("sinusoidal", "rope"):
             raise ValueError(
                 f"Unknown pos_emb '{self.pos_emb}'. Known: sinusoidal, rope")
@@ -758,15 +827,16 @@ class TransformerLM(nn.Module):
         unknown = set(overrides) - set(_CONFIG_FIELDS)
         if unknown:
             raise TypeError(f"clone() got unknown fields {sorted(unknown)}")
-        twin = TransformerLM.__new__(TransformerLM)
+        twin = type(self).__new__(type(self))
         nn.Module.__init__(twin)
         cfg = self.config()
         cfg.update(overrides)
         for name in _CONFIG_FIELDS:
             setattr(twin, name, cfg[name])
-        twin.tp_rank = self.tp_rank
+        twin.tp_rank, twin.ep_rank = self.tp_rank, self.ep_rank
         for fixed in ("vocab_size", "d_model", "num_heads", "num_layers",
-                      "num_kv_heads", "dtype", "tp_size", "tp_axis"):
+                      "num_kv_heads", "dtype", "tp_size", "tp_axis",
+                      "moe_experts", "ep_size", "ep_axis", "moe_top_k"):
             if cfg[fixed] != getattr(self, fixed):
                 raise ValueError(f"clone() cannot change '{fixed}': the "
                                  f"parameters are shared")
@@ -789,9 +859,9 @@ class TransformerLM(nn.Module):
                              f"has tp_size={self.tp_size}")
         n = mesh.axis_size(tp_axis)
         with mesh:
-            twin = TransformerLM(**dict(self.config(), tp_size=n,
-                                        tp_axis=tp_axis),
-                                 device=self.device)
+            twin = type(self)(**dict(self.config(), tp_size=n,
+                                     tp_axis=tp_axis),
+                              device=self.device)
         twin.load_state_dict(shard_state(self.state_dict(), twin.tp_rank,
                                          n))
         return twin
@@ -828,7 +898,11 @@ class TransformerLM(nn.Module):
         return KVCache(layers, index, batch, self.max_len, self.paged)
 
     def forward(self, tokens, cache: Optional[KVCache] = None,
-                block_tables=None, seq_lens=None, valid_lens=None):
+                block_tables=None, seq_lens=None, valid_lens=None,
+                return_aux: bool = False):
+        """Logits (or ``ln_f`` features) of ``tokens [B, T]``; with
+        ``return_aux``, ``(out, auxes)``: the aux loss of each MoE layer,
+        in layer order."""
         B, T = tokens.shape
         if (self.tp_size > 1 and _tp_mesh(self.tp_axis, self.tp_size).index(
                 self.tp_axis) != self.tp_rank):
@@ -836,6 +910,12 @@ class TransformerLM(nn.Module):
                 f"this tp model holds rank {self.tp_rank}'s slices but runs "
                 f"at coordinate {current_mesh().index(self.tp_axis)} of the "
                 f"bound mesh's '{self.tp_axis}' axis")
+        if (self.ep_size > 1 and _ep_mesh(self.ep_axis, self.ep_size).index(
+                self.ep_axis) != self.ep_rank):
+            raise ValueError(
+                f"this ep model holds rank {self.ep_rank}'s experts but runs "
+                f"at coordinate {current_mesh().index(self.ep_axis)} of the "
+                f"bound mesh's '{self.ep_axis}' axis")
         if valid_lens is not None and not (self.slot_cursor or self.paged):
             raise ValueError(
                 "valid_lens (chunked mixed prefill/decode) needs per-row "
@@ -871,21 +951,21 @@ class TransformerLM(nn.Module):
             x = x + taken.to(self.dtype)
         remat = (self.remat == "block" and not self.decode
                  and torch.is_grad_enabled())
+        auxes = []
         for i, block in enumerate(self.blocks):
             if remat:
-                # flax nn.remat(Block): only the block's input is kept;
-                # its internals are recomputed in the backward
-                x = checkpoint(block, x, self, use_reentrant=False)
-                continue
-            layer = cache.layers[i] if cache is not None else None
-            x = block(x, self, cache, layer, cur, block_tables, seq_lens,
-                      valid_lens)
+                x, aux = remat_block(block, x, self)
+            else:
+                layer = cache.layers[i] if cache is not None else None
+                x, aux = block(x, self, cache, layer, cur, block_tables,
+                               seq_lens, valid_lens)
+            if aux is not None:
+                auxes.append(aux)
         if self.decode and not self.paged:
             cache.index += T if valid_lens is None else valid_lens
         x = self.ln_f(x)
-        if self.features_only:
-            return x
-        return self.head(x)
+        out = x if self.features_only else self.head(x)
+        return (out, auxes) if return_aux else out
 
     # read by CausalSelfAttention through ``cfg``
     @property
@@ -895,12 +975,15 @@ class TransformerLM(nn.Module):
 
 @register_model("moe_lm")
 class MoeLM(TransformerLM):
-    """TransformerLM with Switch-MoE MLPs — not ported yet."""
+    """TransformerLM with Switch-MoE MLPs (expert parallelism over
+    ``ep``): the same decoder, each block's dense MLP a top-``moe_top_k``
+    routed bank of ``moe_experts`` experts (default 8). Train with
+    :func:`distkeras_torch.parallel.spmd.make_moe_lm_train_step` over a
+    (dp, ep) mesh — the batch sharded over dp x ep jointly, the experts
+    over ep."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "MoeLM (Switch-MoE, expert parallelism) is not ported yet "
-            "(ROADMAP A10)")
+    def __init__(self, *args, moe_experts: int = 8, **kwargs):
+        super().__init__(*args, moe_experts=moe_experts, **kwargs)
 
 
 # -- decoding ---------------------------------------------------------------

@@ -1,4 +1,5 @@
 """Parallelism of the port: named process meshes (:mod:`.mesh`), the
-collectives over them (:mod:`.collectives`) and the LM training step
-over dp x sp (:mod:`.spmd`); tensor, pipeline and expert parallelism are
-not ported yet (ROADMAP A10)."""
+collectives over them (:mod:`.collectives`: permutes, all-to-all, the
+tp conjugates, the bucketed gradient reduce), the LM training steps
+over dp x sp x tp and the MoE step over dp x ep (:mod:`.spmd`), and the
+GPipe pipeline step over dp x pp x tp (:mod:`.pipeline`)."""

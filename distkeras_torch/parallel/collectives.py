@@ -15,6 +15,20 @@ by giving each communication step ONE call (several tensors ride it as
 streams or stacked), so that the backward's calls form a chain of data
 dependencies.
 
+Routes. NCCL moves CUDA tensors and gloo CPU tensors directly; gloo
+cannot send CUDA tensors point to point nor exchange them all to all,
+so on a gloo group (two ranks sharing one card) :func:`ppermute_many`
+and :func:`all_to_all` stage them through host memory: one copy to the
+host, gloo's CPU collective, one copy back. The route is chosen from the
+group's backend and the tensor's device (:func:`staged`), never by
+catching an error.
+
+:func:`all_to_all` is ``lax.all_to_all(split_axis=0, concat_axis=0)``
+over the leading axis, differentiable (its backward is the same
+exchange). :func:`reduce_grads` sums the gradients of a parameter list
+over a group in flat per-dtype buckets (one ``all_reduce`` a bucket),
+the port's form of the reference's one ``psum`` over the gradient tree.
+
 Tensor parallelism (Megatron's conjugate pair, the port's form of the
 transposes ``shard_map``'s autodiff inserts for the reference):
 :func:`copy_to_tp` goes before a column-parallel layer (identity forward,
@@ -47,7 +61,17 @@ def group_rank(group) -> int:
     return 0 if group is None else dist.get_rank(group)
 
 
+def staged(group, x: torch.Tensor) -> bool:
+    """Whether a point-to-point or all-to-all exchange of ``x`` over
+    ``group`` goes through host memory: a CUDA tensor on a gloo group."""
+    return x.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
+
+
 def _permute(xs, perms, group):
+    if xs and staged(group, xs[0]):
+        dev = xs[0].device
+        outs = _permute(tuple(x.cpu() for x in xs), perms, group)
+        return tuple(o.to(dev) for o in outs)
     me = group_rank(group)
     ops, outs = [], []
     for tag, (x, perm) in enumerate(zip(xs, perms)):
@@ -114,6 +138,84 @@ def ppermute_many(xs: Sequence[torch.Tensor], perms: Sequence[Perm],
 def ppermute(x: torch.Tensor, perm: Perm, group=None) -> torch.Tensor:
     """``lax.ppermute`` of one tensor (see :func:`ppermute_many`)."""
     return ppermute_many((x,), (perm,), group)[0]
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    if staged(group, x):
+        return _exchange(x.cpu(), group).to(x.device)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.all_to_all(x, split_axis=0, concat_axis=0)``: ``x``'s leading
+    axis (the group's size) indexes destination ranks; the result's
+    indexes source ranks — block ``j`` of rank ``i``'s input becomes
+    block ``i`` of rank ``j``'s output. Differentiable: the backward is
+    the same exchange of the cotangents. ``x`` itself in a group of
+    one."""
+    n = group_size(group)
+    if x.shape[0] != n:
+        raise ValueError(f"all_to_all splits a leading axis of the group's "
+                         f"size {n}; got shape {tuple(x.shape)}")
+    if n == 1:
+        return x
+    return _AllToAll.apply(x, group)
+
+
+# the most bytes one all_reduce of reduce_grads carries
+GRAD_BUCKET_BYTES = 256 << 20
+
+
+@torch.no_grad()
+def reduce_grads(params, group=None) -> int:
+    """Sum the gradients of ``params`` over ``group`` in place: flat
+    buckets of one dtype, each at most :data:`GRAD_BUCKET_BYTES` (a
+    gradient larger than that rides alone), one ``all_reduce`` a bucket, the sums copied back into
+    each ``.grad``. A parameter without a gradient gets zeros first, so
+    every rank reduces the same buckets. Returns the number of
+    all-reduces (also added to ``reduce_grads.calls``); nothing happens
+    in a group of one."""
+    if group_size(group) == 1:
+        return 0
+    buckets, open_ = [], {}
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        g = p.grad
+        nbytes = g.numel() * g.element_size()
+        cur = open_.get(g.dtype)
+        if cur is None or cur[1] + nbytes > GRAD_BUCKET_BYTES:
+            cur = open_[g.dtype] = [[], 0]
+            buckets.append(cur)
+        cur[0].append(g)
+        cur[1] += nbytes
+    for grads, _ in buckets:
+        if len(grads) == 1:
+            dist.all_reduce(grads[0], group=group)
+            continue
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(
+            flat.split([g.numel() for g in grads]), grads)])
+    reduce_grads.calls += len(buckets)
+    return len(buckets)
+
+
+reduce_grads.calls = 0
 
 
 def psum(x: torch.Tensor, group=None) -> torch.Tensor:

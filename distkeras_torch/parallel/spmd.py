@@ -20,6 +20,18 @@ ones identical across tp ranks — so no reduction, broadcast or loss sum
 ever spans tp. :func:`shard_state` and :func:`gather_state` move a
 state between the plain (``tp_size=1``) layout and a rank's shard, as
 checkpoints and the weight bridge need.
+
+Expert parallelism (:func:`make_moe_lm_train_step`): a :class:`MoeLM`
+whose expert banks are sharded over ``ep`` (each rank holds ``E/ep``
+experts, leading axis) trains on a (dp, ep) mesh, the batch sharded over
+dp x ep jointly; the replicated parameters' gradients are summed over
+dp x ep and the experts' over dp only.
+
+Every step sums its gradients with
+:func:`~distkeras_torch.parallel.collectives.reduce_grads`: one
+``all_reduce`` a flat per-dtype bucket of at most
+``GRAD_BUCKET_BYTES``, the port's form of the reference's one ``psum``
+over the gradient tree.
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ import torch.nn.functional as F
 
 from distkeras_torch.ops.fused_ce import lm_head_loss
 from distkeras_torch.parallel.collectives import (all_gather_tp, ppermute,
-                                                  psum)
+                                                  psum, reduce_grads)
 from distkeras_torch.parallel.mesh import current_mesh, local_mesh
 
 # the sharded dimension of each tensor-parallel parameter, by the names
@@ -49,6 +61,11 @@ _TP_DIMS = {
 }
 
 
+# the expert banks of a SwitchMoE, sharded over ep along their leading
+# (expert) axis; its router is replicated
+_EP_LEAVES = ("w1", "b1", "w2", "b2")
+
+
 def tp_dim(name: str) -> Optional[int]:
     """The dimension of port parameter ``name`` (``blocks.0.mlp_up.kernel``
     or its flax path ``Block_0/mlp_up/kernel``) sharded over tp, or None
@@ -58,26 +75,51 @@ def tp_dim(name: str) -> Optional[int]:
     return _TP_DIMS.get(tuple(parts[-2:])) if len(parts) >= 2 else None
 
 
+def ep_dim(name: str) -> Optional[int]:
+    """0 for an expert bank (``blocks.0.moe.w1`` or ``Block_0/moe/w1``:
+    sharded over ep along its leading expert axis), else None."""
+    parts = name.replace("/", ".").split(".")
+    return (0 if len(parts) >= 2 and parts[-2] == "moe"
+            and parts[-1] in _EP_LEAVES else None)
+
+
+def _sharded(model):
+    """``[(dim_fn, size, rank, axis)]``: the axes ``model``'s parameters
+    are sharded over (tp, ep), those of size > 1."""
+    out = []
+    if getattr(model, "tp_size", 1) > 1:
+        out.append((tp_dim, model.tp_size, model.tp_rank, model.tp_axis))
+    if getattr(model, "ep_size", 1) > 1:
+        out.append((ep_dim, model.ep_size, model.ep_rank, model.ep_axis))
+    return out
+
+
 def _names(params):
     if isinstance(params, torch.nn.Module):
         return [(n, p) for n, p in params.named_parameters()]
     return list(params.items())
 
 
-def lm_param_specs(params, tp_axis: Optional[str] = None) -> Dict[str, tuple]:
+def lm_param_specs(params, tp_axis: Optional[str] = None,
+                   ep_axis: Optional[str] = None) -> Dict[str, tuple]:
     """Partition specs of a :class:`TransformerLM`'s parameters (a module,
-    or a mapping of port names to tensors) under tensor parallelism:
-    ``{name: spec}`` where a spec names, per dimension, the mesh axis it
-    is sharded over or None — ``qkv`` / ``q_proj`` / ``kv_proj`` /
-    ``mlp_up`` column-sharded, ``out`` / ``mlp_down`` row-sharded over
-    ``tp_axis``, everything else replicated (``()``, the reference's
-    ``P()``). Built by parameter name, so it holds for the full-size
-    (``tp_size=1``) parameters."""
+    or a mapping of port names to tensors) under tensor and expert
+    parallelism: ``{name: spec}`` where a spec names, per dimension, the
+    mesh axis it is sharded over or None — ``qkv`` / ``q_proj`` /
+    ``kv_proj`` / ``mlp_up`` column-sharded, ``out`` / ``mlp_down``
+    row-sharded over ``tp_axis``, the SwitchMoE expert banks (``w1``,
+    ``b1``, ``w2``, ``b2``) leading-axis-sharded over ``ep_axis`` (the
+    router replicated), everything else replicated (``()``, the
+    reference's ``P()``). Built by parameter name, so it holds for the
+    full-size (``tp_size=1``, ``ep_size=1``) parameters."""
     out = {}
     for name, leaf in _names(params):
         dim = tp_dim(name) if tp_axis is not None else None
+        axis = tp_axis
+        if dim is None and ep_axis is not None:
+            dim, axis = ep_dim(name), ep_axis
         out[name] = (() if dim is None else tuple(
-            tp_axis if i == dim else None for i in range(leaf.dim())))
+            axis if i == dim else None for i in range(leaf.dim())))
     return out
 
 
@@ -107,44 +149,65 @@ def shard_tensor(x: torch.Tensor, dim: Optional[int], tp_rank: int,
     return x.narrow(dim, tp_rank * (n // tp_size), n // tp_size).contiguous()
 
 
-def shard_state(full: dict, tp_rank: int, tp_size: int) -> dict:
-    """A plain (``tp_size=1``) state dict -> rank ``tp_rank``'s shard of
-    it: each tensor-parallel parameter's contiguous slice, the others as
-    they are."""
-    return {name: shard_tensor(t, tp_dim(name), tp_rank, tp_size)
+def shard_state(full: dict, tp_rank: int, tp_size: int, ep_rank: int = 0,
+                ep_size: int = 1) -> dict:
+    """A plain (``tp_size=1``, ``ep_size=1``) state dict -> the shard of
+    rank ``tp_rank`` of tp and ``ep_rank`` of ep: each tensor-parallel
+    parameter's contiguous slice, each expert bank's slice of experts,
+    the others as they are."""
+    return {name: shard_tensor(shard_tensor(t, tp_dim(name), tp_rank,
+                                            tp_size),
+                               ep_dim(name), ep_rank, ep_size)
             for name, t in full.items()}
 
 
-def _tp_group_of(model, mesh):
+def _groups_of(model, mesh):
+    """``[(dim_fn, group)]`` of the axes a sharded model's parameters are
+    split over, from ``mesh`` (the bound mesh by default)."""
     mesh = mesh if mesh is not None else current_mesh()
-    if model.tp_size == 1:
-        return None
-    if (mesh is None or model.tp_axis not in mesh.axis_names
-            or mesh.axis_size(model.tp_axis) != model.tp_size):
-        raise ValueError(
-            f"gathering a tp_size={model.tp_size} model needs its mesh (one "
-            f"with a '{model.tp_axis}' axis of that size): pass mesh= or "
-            f"bind it with `with mesh:`")
-    return mesh.group(model.tp_axis)
+    out = []
+    for dim_fn, size, _, axis in _sharded(model):
+        if (mesh is None or axis not in mesh.axis_names
+                or mesh.axis_size(axis) != size):
+            raise ValueError(
+                f"gathering a model sharded {size} ways over '{axis}' needs "
+                f"its mesh (one with a '{axis}' axis of that size): pass "
+                f"mesh= or bind it with `with mesh:`")
+        out.append((dim_fn, mesh.group(axis)))
+    return out
+
+
+def _gather_dim(name, groups):
+    """``(dim, group)`` a parameter named ``name`` is gathered along, or
+    None when it is whole on every rank."""
+    for dim_fn, group in groups:
+        if dim_fn(name) is not None:
+            return dim_fn(name), group
+    return None
 
 
 @torch.no_grad()
 def gather_state(model, mesh=None) -> dict:
-    """The plain (``tp_size=1``) state dict of a tensor-parallel model:
-    every sharded parameter gathered over ``mesh``'s tp group (the bound
-    mesh by default), the replicated ones as they are. Collective: every
-    tp rank calls it."""
-    group = _tp_group_of(model, mesh)
-    return {name: (all_gather_tp(p.detach(), group, tp_dim(name))
-                   if tp_dim(name) is not None else p.detach())
-            for name, p in model.named_parameters()}
+    """The plain (``tp_size=1``, ``ep_size=1``) state dict of a sharded
+    model: every tp-sharded parameter gathered over ``mesh``'s tp group
+    and every expert bank over its ep group (the bound mesh by default),
+    the replicated ones as they are. Collective: every rank of those
+    groups calls it."""
+    groups = _groups_of(model, mesh)
+    out = {}
+    for name, p in model.named_parameters():
+        at = _gather_dim(name, groups)
+        out[name] = (all_gather_tp(p.detach(), at[1], at[0]) if at
+                     else p.detach())
+    return out
 
 
-def _opt_param_dims(optimizer, model):
-    """Per optimizer-state index, the tp dimension of its parameter."""
-    dims = {id(p): tp_dim(n) for n, p in model.named_parameters()}
+def _opt_params(optimizer, model):
+    """Per optimizer-state index: its parameter and that parameter's
+    name in ``model``."""
+    names = {id(p): n for n, p in model.named_parameters()}
     flat = [p for g in optimizer.param_groups for p in g["params"]]
-    return [dims.get(id(p)) for p in flat], flat
+    return [(p, names.get(id(p), "")) for p in flat]
 
 
 @torch.no_grad()
@@ -152,16 +215,18 @@ def gather_opt_state(optimizer, model, mesh=None) -> dict:
     """The optimizer's ``state_dict`` in the plain layout, copied to the
     host: each per-parameter state tensor of a sharded parameter (AdamW's
     moments, a momentum trace; shaped like the parameter) gathered over
-    tp, in its stored dtype. Collective: every tp rank calls it."""
-    group = _tp_group_of(model, mesh)
+    tp or ep, in its stored dtype. Collective: every rank of those groups
+    calls it."""
+    groups = _groups_of(model, mesh)
     sd = optimizer.state_dict()
-    dims, flat = _opt_param_dims(optimizer, model)
+    params = _opt_params(optimizer, model)
     state = {}
     for i, st in sd["state"].items():
-        dim, p = dims[i], flat[i]
-        state[i] = {k: ((all_gather_tp(v, group, dim) if dim is not None
-                         and group is not None and v.shape == p.shape
-                         else v).detach().to("cpu", copy=True)
+        p, name = params[i]
+        at = _gather_dim(name, groups)
+        state[i] = {k: ((all_gather_tp(v, at[1], at[0]) if at
+                         and v.shape == p.shape else v
+                         ).detach().to("cpu", copy=True)
                         if isinstance(v, torch.Tensor) else v)
                     for k, v in st.items()}
     return {"state": state, "param_groups": sd["param_groups"]}
@@ -169,15 +234,21 @@ def gather_opt_state(optimizer, model, mesh=None) -> dict:
 
 def shard_opt_state(state_dict: dict, optimizer, model) -> dict:
     """A plain-layout optimizer ``state_dict`` -> this rank's shard of it
-    for ``optimizer`` over the tp ``model``'s parameters (the inverse of
-    :func:`gather_opt_state`)."""
-    dims, flat = _opt_param_dims(optimizer, model)
+    for ``optimizer`` over the sharded ``model``'s parameters (the
+    inverse of :func:`gather_opt_state`)."""
+    params = _opt_params(optimizer, model)
+    shardings = _sharded(model)
     state = {}
     for i, st in state_dict["state"].items():
         i = int(i)
-        dim, p = dims[i], flat[i]
-        state[i] = {k: (shard_tensor(v, dim, model.tp_rank, model.tp_size)
-                        if isinstance(v, torch.Tensor) and v.dim()
+        p, name = params[i]
+
+        def cut(v):
+            for dim_fn, size, rank, _ in shardings:
+                v = shard_tensor(v, dim_fn(name), rank, size)
+            return v
+
+        state[i] = {k: (cut(v) if isinstance(v, torch.Tensor) and v.dim()
                         and v.dim() == p.dim() else v)
                     for k, v in st.items()}
     return {"state": state, "param_groups": state_dict["param_groups"]}
@@ -242,6 +313,9 @@ def make_lm_train_step(model, optimizer, mesh=None, window: bool = False,
     on it, ``with mesh:``). The ranks of one dp x sp coordinate get the
     same rows; every collective of the step spans dp x sp, the model's
     own span tp.
+
+    The gradients are summed over dp x sp in flat buckets
+    (:func:`~distkeras_torch.parallel.collectives.reduce_grads`).
     """
     if mesh is None:
         if getattr(model, "attention", None) == "ring":
@@ -291,11 +365,7 @@ def make_lm_train_step(model, optimizer, mesh=None, window: bool = False,
     if not isinstance(optimizer, torch.optim.Optimizer):
         optimizer = optimizer(model.parameters())
     params = list(model.parameters())
-    if all_group is not None:
-        with torch.no_grad():
-            for p in params:
-                dist.broadcast(p, dist.get_global_rank(all_group, 0),
-                               group=all_group)
+    broadcast_params(params, all_group)
     feat_model = model.clone(features_only=True) if fused_ce else None
     head = {"kernel": model.head.kernel, "bias": model.head.bias}
     dev = model.device
@@ -330,32 +400,148 @@ def make_lm_train_step(model, optimizer, mesh=None, window: bool = False,
         # tp rank's is already whole: summing it over tp would scale it)
         local_obj = local_sum / psum(count.detach(), all_group)
         local_obj.backward()
-        if all_group is not None:
-            for p in params:
-                if p.grad is not None:
-                    dist.all_reduce(p.grad, group=all_group)
+        reduce_grads(params, all_group)
         optimizer.step()
         return psum(local_obj.detach(), all_group)
 
-    def as_tokens(tokens):
-        if isinstance(tokens, torch.Tensor):
-            return tokens.to(device=dev, dtype=torch.long)
-        return torch.as_tensor(np.asarray(tokens), dtype=torch.long,
-                               device=dev)
+    return stepper(batch_update, dev, "B, T", window)
 
-    if window:
-        def step(tokens):
-            tokens = as_tokens(tokens)
-            if tokens.dim() != 3:
-                raise ValueError(f"window step takes [W, B, T] tokens; got "
-                                 f"{tuple(tokens.shape)}")
+
+def stepper(batch_update, dev, dims: str, window: bool):
+    """``step(tokens)`` of a training step: ``batch_update`` on one batch
+    of token ids (tensor or numpy) shaped ``[<dims>]``, or with
+    ``window`` on each of ``[W, <dims>]``, its losses stacked on the
+    device (no host sync inside the window)."""
+    shape = f"[W, {dims}]" if window else f"[{dims}]"
+    rank = dims.count(",") + 1 + int(window)
+
+    def step(tokens):
+        if isinstance(tokens, torch.Tensor):
+            tokens = tokens.to(device=dev, dtype=torch.long)
+        else:
+            tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
+                                     device=dev)
+        if tokens.dim() != rank:
+            raise ValueError(f"the step takes {shape} tokens; got "
+                             f"{tuple(tokens.shape)}")
+        if window:
             return torch.stack([batch_update(t) for t in tokens])
-    else:
-        def step(tokens):
-            tokens = as_tokens(tokens)
-            if tokens.dim() != 2:
-                raise ValueError(f"step takes [B, T] tokens; got "
-                                 f"{tuple(tokens.shape)}")
-            return batch_update(tokens)
+        return batch_update(tokens)
 
     return step
+
+
+@torch.no_grad()
+def broadcast_params(params, group) -> None:
+    """Every rank of ``group`` takes the group's first rank's values of
+    ``params`` (nothing in a group of one)."""
+    if group is None:
+        return
+    src = dist.get_global_rank(group, 0)
+    for p in params:
+        dist.broadcast(p, src, group=group)
+
+
+def make_moe_lm_train_step(model, optimizer, mesh=None, dp_axis: str = "dp",
+                           ep_axis: str = "ep", aux_weight: float = 0.01,
+                           window: bool = False, local_batch: bool = False):
+    """The MoE language-model step over a (dp, ep) mesh — the port of
+    the reference's ``make_moe_lm_train_step``.
+
+    ``model`` is a :class:`~distkeras_torch.models.transformer.MoeLM` (or
+    a ``TransformerLM`` with ``moe_experts``) whose ``ep_size`` equals the
+    mesh's ``ep_axis`` size, built inside ``with mesh:`` when it is > 1
+    (each rank holds its ``E/ep`` experts); ``tp_size`` must be 1. The
+    batch is sharded over dp and ep jointly (row block ``dp_index * ep +
+    ep_index`` of the global batch each rank is handed, the reference's
+    ``P((dp, ep))``), so every rank carries its own tokens and its slice
+    of the expert banks; tokens cross ranks inside the model through the
+    two all-to-all exchanges of each MoE layer.
+
+    The objective of each rank is its local mean next-token
+    cross-entropy (full logits ``[:, :-1]`` against ``[:, 1:]``) plus
+    ``aux_weight`` x the mean Switch aux over its layers. Gradient
+    reductions: the replicated parameters summed over dp x ep, the
+    expert banks over dp only (this rank's ep coordinate: summing them
+    over ep would add different experts together), then every gradient
+    scaled by ``1 / (dp * ep)`` — the gradient of the mean objective.
+    The loss returned is the mean of the local cross-entropies.
+
+    ``optimizer`` is a factory from
+    :func:`distkeras_torch.utils.losses.get_optimizer` or an optimizer
+    over ``model.parameters()``. ``mesh=None`` is the mesh of one
+    position. Returns ``step(tokens) -> loss`` (``[B, T]``, the global
+    batch, the same on every rank; ``local_batch=True``: this rank's dp
+    coordinate's ``[B/dp, T]`` rows); ``window=True`` takes ``[W, B, T]``
+    and returns the ``[W]`` losses on the device.
+    """
+    if mesh is None:
+        mesh = local_mesh({dp_axis: 1, ep_axis: 1})
+    if not getattr(model, "moe_experts", 0):
+        raise ValueError("the MoE step takes a model with moe_experts > 0 "
+                         "(get_model('moe_lm', ...))")
+    if ep_axis not in mesh.axis_names:
+        raise ValueError(f"mesh {mesh.axis_names} has no '{ep_axis}' axis")
+    ep = mesh.axis_size(ep_axis)
+    if model.ep_size != ep:
+        raise ValueError(f"model.ep_size={model.ep_size} != mesh {ep_axis} "
+                         f"size {ep}")
+    if getattr(model, "tp_size", 1) != 1:
+        raise ValueError("the MoE step shards ep only; build the model "
+                         "with tp_size=1 (tp x ep composition is not "
+                         "supported here)")
+    spare = {a: n for a, n in mesh.shape.items()
+             if a not in (dp_axis, ep_axis) and n > 1}
+    if spare:
+        raise ValueError(f"the MoE step shards over {dp_axis} and "
+                         f"{ep_axis}; mesh axes {spare} are not used")
+    if ep > 1 and model.ep_rank != mesh.index(ep_axis):
+        raise ValueError(
+            f"the model holds rank {model.ep_rank}'s experts; this process "
+            f"is at coordinate {mesh.index(ep_axis)} of '{ep_axis}'")
+    has_dp = dp_axis in mesh.axis_names
+    dp = mesh.axis_size(dp_axis) if has_dp else 1
+    my_dp = mesh.index(dp_axis) if has_dp else 0
+    my_ep = mesh.index(ep_axis)
+    n_shards = dp * ep
+    all_group = mesh.group(*((dp_axis, ep_axis) if has_dp else (ep_axis,)))
+    dp_group = mesh.group(dp_axis) if has_dp else None
+    if not isinstance(optimizer, torch.optim.Optimizer):
+        optimizer = optimizer(model.parameters())
+    named = list(model.named_parameters())
+    experts = [p for n, p in named if ep_dim(n) is not None]
+    replicated = [p for n, p in named if ep_dim(n) is None]
+    broadcast_params(replicated, all_group)
+    broadcast_params(experts, dp_group)
+    dev = model.device
+
+    def shard(tokens):
+        B = tokens.shape[0]
+        rows = ep if local_batch else n_shards
+        if B % rows:
+            raise ValueError(f"batch of {B} rows does not split over "
+                             f"{'ep' if local_batch else 'dp x ep'}={rows}")
+        b = B // rows
+        j = my_ep if local_batch else my_dp * ep + my_ep
+        return tokens[j * b:(j + 1) * b]
+
+    def batch_update(tokens):
+        tokens = shard(tokens)
+        optimizer.zero_grad(set_to_none=True)
+        with mesh:
+            logits, auxes = model(tokens, return_aux=True)
+        V = logits.shape[-1]
+        ce = F.cross_entropy(logits[:, :-1].reshape(-1, V),
+                             tokens[:, 1:].reshape(-1))
+        aux = sum(auxes) / max(len(auxes), 1)
+        (ce + aux_weight * aux).backward()
+        reduce_grads(replicated, all_group)
+        reduce_grads(experts, dp_group)
+        if n_shards > 1:
+            with torch.no_grad():
+                torch._foreach_mul_([p.grad for _, p in named
+                                     if p.grad is not None], 1.0 / n_shards)
+        optimizer.step()
+        return psum(ce.detach(), all_group) / n_shards
+
+    return stepper(batch_update, dev, "B, T", window)

@@ -44,9 +44,9 @@ everywhere a PartitionedDataset does: ``DataParallelTrainer``,
 others load it. ``LMTrainer(checkpointer=)`` saves its parameters and
 optimizer state every epoch and resumes from them.
 
-Not ported yet, and raising with their ROADMAP item: ``LMTrainer``'s
-``tp``, ``pp`` and ``ep`` axes and pipeline ``microbatches`` (A10); an
-MoE model (A10) raises where it is built.
+``LMTrainer`` trains over dp x sp x tp, over dp x pp x tp (the GPipe
+step, ``microbatches``) and, for an MoE model with ``ep_size > 1``,
+over dp x ep.
 """
 
 from __future__ import annotations
@@ -579,7 +579,18 @@ class LMTrainer(Trainer):
     after every epoch, and a new trainer over the same directory resumes
     after the last saved epoch: the same trajectory as a run that never
     stopped. Both are saved in the plain layout (a tp model's gathered),
-    so a checkpoint resumes at any tp degree."""
+    so a checkpoint resumes at any tp degree.
+
+    Pipeline parallelism: ``axes={"pp": n, "dp": m[, "tp": k]}`` lays the
+    world out ``{"dp", "pp", "tp"}`` (dp major, tp fastest) and trains
+    the GPipe step (:mod:`distkeras_torch.parallel.pipeline`): each step
+    takes ``batch_size`` rows as ``microbatches`` microbatches (default
+    ``4 * pp``; ``batch_size`` must divide by it), each rank its stage's
+    blocks. Expert parallelism: an MoE model with ``ep_size > 1`` needs
+    ``axes={"dp": m, "ep": n}`` and trains the (dp, ep) MoE step
+    (:func:`~distkeras_torch.parallel.spmd.make_moe_lm_train_step`).
+    sp is refused with either, and tp with ep. Both checkpoint in the
+    plain layout too: a pp or ep checkpoint resumes on any mesh."""
 
     # optimizer steps per window (one device-side loop, losses kept on
     # the device)
@@ -589,19 +600,18 @@ class LMTrainer(Trainer):
                  tokens_col: str = "tokens",
                  microbatches: Optional[int] = None, **kwargs):
         super().__init__(model, *args, **kwargs)
-        if microbatches is not None:
-            raise NotImplementedError(
-                "microbatches (pipeline-parallel training) is not ported "
-                "yet (ROADMAP A10)")
-        extra = {k: v for k, v in (axes or {}).items()
-                 if k not in ("dp", "sp", "tp") and v != 1}
-        if extra:
-            raise NotImplementedError(
-                f"LMTrainer axes {extra}: pipeline and expert parallelism "
-                f"are not ported yet (ROADMAP A10); the mesh takes 'dp', "
-                f"'sp' and 'tp'")
+        # e.g. {"dp": 4, "sp": 2}, {"dp": 2, "sp": 2, "tp": 2},
+        # {"pp": 2, "dp": 4} (GPipe over the layer stack) or {"dp": 2,
+        # "ep": 4} (an MoE model's experts)
         self.axes = axes
         self.tokens_col = tokens_col
+        # pipeline (pp) only: microbatches per optimizer step (GPipe M);
+        # default 4*pp keeps the bubble (pp-1)/(M+pp-1) under ~20%
+        self.microbatches = microbatches
+        if microbatches is not None and (axes or {}).get("pp", 1) <= 1:
+            raise ValueError(
+                "microbatches only applies to pipeline training — set "
+                "axes={'pp': ..., 'dp': ...} (or drop microbatches)")
 
     def _coerce_dataset(self, dataset):
         return dataset  # _maybe_materialize decides: load or stream
@@ -689,11 +699,33 @@ class LMTrainer(Trainer):
             return self.model
         return self.model.clone(attention="standard")
 
-    def _mesh(self, T: int):
-        from distkeras_torch.parallel.mesh import make_mesh
+    def _optimizer(self, params):
+        opt = get_optimizer(self.worker_optimizer, self.learning_rate)
+        return opt if isinstance(opt, torch.optim.Optimizer) else opt(params)
 
-        axes = dict(self.axes) if self.axes else {"dp": self._world()}
+    # Each path returns ``(mesh, optimizer, shard, step, plain_state,
+    # reshape)``: ``shard`` maps a plain-layout optimizer state onto the
+    # optimizer (None: it is already that layout), ``plain_state()`` gives
+    # the (params, optimizer state) a checkpoint stores, ``reshape`` turns
+    # a window of ``[W, rows, T]`` batches into the step's feed.
+    # ``local`` says each dp coordinate streams its own rows.
+
+    def _lm_plan(self, axes: dict, T: int, local: bool):
+        """The dp x sp (x tp) path (the reference's ``make_lm_train_step``
+        branch)."""
+        from distkeras_torch import bridge
+        from distkeras_torch.parallel.mesh import make_mesh
+        from distkeras_torch.parallel.spmd import (gather_opt_state,
+                                                   make_lm_train_step,
+                                                   shard_opt_state)
+
         dp, sp, tp = axes.get("dp", 1), axes.get("sp", 1), axes.get("tp", 1)
+        extra = {k: v for k, v in axes.items()
+                 if k not in ("dp", "sp", "tp") and v != 1}
+        if extra:
+            raise ValueError(f"LMTrainer axes {extra}: the mesh takes 'dp', "
+                             f"'sp' and 'tp' (with 'pp': pipeline; 'ep': an "
+                             f"MoE model with ep_size > 1)")
         if self.model.tp_size != tp:
             raise ValueError(f"model.tp_size={self.model.tp_size} != mesh "
                              f"tp size {tp}")
@@ -706,34 +738,131 @@ class LMTrainer(Trainer):
         if self.batch_size % dp:
             raise ValueError(f"batch_size={self.batch_size} not divisible "
                              f"by dp={dp}")
-        return make_mesh({"dp": dp, "sp": sp, "tp": tp} if tp > 1
+        mesh = make_mesh({"dp": dp, "sp": sp, "tp": tp} if tp > 1
                          else {"dp": dp, "sp": sp})
+        optimizer = self._optimizer(self.model.parameters())
+        step = make_lm_train_step(self.model, optimizer, mesh=mesh,
+                                  window=True,
+                                  tp_axis="tp" if tp > 1 else None,
+                                  local_batch=local)
 
-    def _restore(self, optimizer) -> int:
-        """Load the latest checkpoint's parameters and optimizer state into
-        the model and ``optimizer``; returns the epoch it resumes at."""
+        def plain_state():
+            with mesh:
+                return (bridge.params_to_jax(self.model),
+                        gather_opt_state(optimizer, self.model, mesh))
+
+        shard = ((lambda sd: shard_opt_state(sd, optimizer, self.model))
+                 if tp > 1 else None)
+        return mesh, optimizer, shard, step, plain_state, lambda b: b
+
+    def _moe_plan(self, axes: dict, T: int, local: bool):
+        """The (dp, ep) path of an MoE model with ``ep_size > 1``."""
+        from distkeras_torch import bridge
+        from distkeras_torch.parallel.mesh import make_mesh
+        from distkeras_torch.parallel.spmd import (gather_opt_state,
+                                                   make_moe_lm_train_step,
+                                                   shard_opt_state)
+
+        if "ep" not in axes:
+            raise ValueError("MoE model (ep_size > 1) needs an 'ep' mesh "
+                             "axis, e.g. axes={'dp': 2, 'ep': 4}")
+        for bad in ("sp", "tp"):
+            if axes.pop(bad, 1) > 1:
+                raise ValueError(f"MoE training shards (dp, ep) only; drop "
+                                 f"{bad}")
+        axes.setdefault("dp", 1)
+        if self.batch_size % (axes["dp"] * axes["ep"]):
+            raise ValueError(f"batch_size={self.batch_size} not divisible "
+                             f"by dp x ep={axes['dp'] * axes['ep']}")
+        mesh = make_mesh(axes)
+        optimizer = self._optimizer(self.model.parameters())
+        step = make_moe_lm_train_step(self.model, optimizer, mesh=mesh,
+                                      window=True, local_batch=local)
+
+        def plain_state():
+            with mesh:
+                return (bridge.params_to_jax(self.model),
+                        gather_opt_state(optimizer, self.model, mesh))
+
+        return (mesh, optimizer,
+                lambda sd: shard_opt_state(sd, optimizer, self.model),
+                step, plain_state, lambda b: b)
+
+    def _pp_plan(self, axes: dict, T: int, local: bool):
+        """The GPipe path: ``axes={"pp": n, "dp": m[, "tp": k]}``."""
+        from distkeras_torch import bridge
+        from distkeras_torch.parallel.mesh import make_mesh
+        from distkeras_torch.parallel.pipeline import (check_pp_model,
+                                                       gather_pp_opt_state,
+                                                       make_pp_lm_train_step,
+                                                       release_blocks,
+                                                       shard_pp_opt_state,
+                                                       sync_blocks)
+
+        pp, tp = axes.pop("pp"), axes.pop("tp", 1)
+        for bad in ("sp", "ep"):
+            if axes.pop(bad, 1) > 1:
+                raise ValueError(f"pipeline training shards (pp, dp, tp) "
+                                 f"only; drop '{bad}'")
+        dp = axes.pop("dp", 1)
+        if axes:
+            raise ValueError(f"unknown mesh axes with pp: {sorted(axes)}")
+        check_pp_model(self.model, pp, tp)
+        M = self.microbatches or 4 * pp
+        B = self.batch_size
+        if B % M:
+            raise ValueError(f"batch_size={B} not divisible by "
+                             f"microbatches={M}")
+        if (B // M) % dp:
+            raise ValueError(f"microbatch of {B // M} rows (batch_size/"
+                             f"{M}) not divisible by dp={dp}")
+        # dp major, tp innermost: the per-matmul all-reduces ride the
+        # nearest ranks, the per-tick permute the next ring out
+        mesh = make_mesh({"dp": dp, "pp": pp, "tp": tp})
+        step = make_pp_lm_train_step(
+            self.model, get_optimizer(self.worker_optimizer,
+                                      self.learning_rate), mesh,
+            tp_axis="tp" if tp > 1 else None, window=True,
+            local_batch=local)
+        stage, optimizer = step.stage, step.optimizer
+
+        def plain_state():
+            # the model is whole only while its state is read
+            with mesh:
+                sync_blocks(self.model, mesh)
+                out = (bridge.params_to_jax(self.model),
+                       gather_pp_opt_state(optimizer, stage, self.model,
+                                           mesh))
+            release_blocks(self.model, stage.layers)
+            return out
+
+        def as_micro(b):  # [W, rows, T] -> [W, M, rows / M, T]
+            return b.reshape(b.shape[0], M, b.shape[1] // M, b.shape[2])
+
+        return (mesh, optimizer,
+                lambda sd: shard_pp_opt_state(sd, optimizer, stage,
+                                              self.model),
+                step, plain_state, as_micro)
+
+    def _restore_params(self):
+        """Load the latest checkpoint's parameters into the model, before
+        a plan shards the optimizer or frees blocks; returns ``(the epoch
+        it resumes at, its plain-layout optimizer state or None)``."""
         from distkeras_torch import bridge
 
         if self.checkpointer is None:
-            return 0
+            return 0, None
         step, state = self.checkpointer.restore()
         if state is None:
-            return 0
+            return 0, None
         bridge.params_from_jax(state["params"], self.model)
-        if state["opt_state"]:
-            opt_state = state["opt_state"]
-            if self.model.tp_size > 1:
-                from distkeras_torch.parallel.spmd import shard_opt_state
-
-                opt_state = shard_opt_state(opt_state, optimizer, self.model)
-            optimizer.load_state_dict(opt_state)
-        return int(state["extra"].get("epoch", step))
+        return (int(state["extra"].get("epoch", step)),
+                state["opt_state"] or None)
 
     def _train(self, dataset, shuffle: bool = False) -> Model:
         from distkeras_torch import bridge
         from distkeras_torch.parallel.mesh import replica_groups
-        from distkeras_torch.parallel.spmd import (gather_opt_state,
-                                                   make_lm_train_step)
+        from distkeras_torch.parallel.pipeline import sync_blocks
 
         dataset, sharded = self._maybe_materialize(dataset)
         if sharded:
@@ -753,25 +882,25 @@ class LMTrainer(Trainer):
                 f"dataset of {n_rows} rows is smaller than batch_size={B}")
         if self.params is not None:
             bridge.params_from_jax(self.params, self.model)
-        optimizer = get_optimizer(self.worker_optimizer, self.learning_rate)
-        if not isinstance(optimizer, torch.optim.Optimizer):
-            optimizer = optimizer(self.model.parameters())
-        start = self._restore(optimizer)
-        mesh = self._mesh(T)
-        tp = self.model.tp_size
-        first = all(c == 0 for c in mesh.coords.values())
+        axes = dict(self.axes) if self.axes else {"dp": self._world()}
+        pp = axes.get("pp", 1) > 1
+        plan = (self._pp_plan if pp else self._moe_plan
+                if getattr(self.model, "ep_size", 1) > 1 else self._lm_plan)
+        # every rank loads the same checkpoint, so the replicas the step
+        # broadcasts at its start stay equal
+        start, opt_state = self._restore_params()
+        # several processes stream: each replica group (dp coordinate)
+        # reads its own stride of shards
+        local = sharded and self._world() > 1
+        mesh, optimizer, shard, step, plain_state, reshape = plan(axes, T,
+                                                                  local)
+        if opt_state is not None:
+            optimizer.load_state_dict(opt_state if shard is None
+                                      else shard(opt_state))
         groups = replica_groups(mesh, "dp") if self._world() > 1 else None
-        step = make_lm_train_step(self.model, optimizer, mesh=mesh,
-                                  window=True,
-                                  tp_axis="tp" if tp > 1 else None,
-                                  local_batch=groups is not None and sharded)
-
-        def plain_state():
-            # the plain layout (a tp model's gathered: every rank calls it)
-            with mesh:
-                return (bridge.params_to_jax(self.model),
-                        gather_opt_state(optimizer, self.model, mesh)
-                        if tp > 1 else opt_state_to_host(optimizer))
+        first = all(c == 0 for c in mesh.coords.values())
+        # ranks that must join the collective gathers of a checkpoint
+        collective_save = mesh.group() is not None
         W = self.STREAM_GROUP
         dev = self.model.device
         if sharded:
@@ -784,17 +913,20 @@ class LMTrainer(Trainer):
                                              my_shards, cap):
                     window.append(tb)
                     if len(window) == W:
-                        yield torch.stack(window)
+                        yield reshape(torch.stack(window))
                         window = []
                 if window:
-                    yield torch.stack(window)
+                    yield reshape(torch.stack(window))
         else:
             n = (n_rows // B) * B
             batches = tokens[:n].reshape(-1, B, T).astype(np.int64)
             # stage everything on the device once when it fits the budget
             if batches.nbytes <= self.stage_limit_bytes:
                 batches = torch.as_tensor(batches, device=dev)
-            windows = [batches[i:i + W] for i in range(0, len(batches), W)]
+            else:
+                batches = torch.from_numpy(batches)
+            windows = [reshape(batches[i:i + W])
+                       for i in range(0, len(batches), W)]
 
             def feed(epoch):
                 return windows
@@ -822,7 +954,7 @@ class LMTrainer(Trainer):
                     if self.metrics_writer is not None:
                         self.metrics_writer.log(
                             step=len(history), samples=B * T, **row)
-            if self.checkpointer is not None and (first or tp > 1):
+            if self.checkpointer is not None and (first or collective_save):
                 params, opt_state = plain_state()
                 if first:
                     self.checkpointer.maybe_save(
@@ -830,6 +962,8 @@ class LMTrainer(Trainer):
                         extra={"epoch": epoch + 1},
                         force=epoch + 1 == self.num_epoch)
         with mesh:
+            if pp:
+                sync_blocks(self.model, mesh)
             self.params = bridge.params_to_jax(self.model)
         self.history = history
         self.executor_histories = [history]

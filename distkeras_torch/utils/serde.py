@@ -40,8 +40,7 @@ _CHUNKED = "__msgpack_chunked_array__"
 _PORT_ONLY = ("in_features", "input_shape")
 # keywords of the reference's modules that the port's do not take, with
 # the only value the port can honor (anything else raises on load)
-_REFERENCE_ONLY = {"tp_axis": "tp", "ep_size": 1, "ep_axis": "ep",
-                   "moe_top_k": 1}
+_REFERENCE_ONLY = {"tp_axis": "tp"}
 
 
 def _msgpack():
@@ -269,7 +268,16 @@ def deserialize_model(blob: dict, device=None):
     kwargs.update(port)
     cls = _REGISTRY.get(name)
     if cls is not None:
-        accepted = inspect.signature(cls.__init__).parameters
+        # the keywords of the class's __init__ and, where it forwards
+        # **kwargs (MoeLM), of its bases'
+        accepted = set()
+        for klass in cls.__mro__:
+            if "__init__" not in vars(klass):
+                continue
+            sig = inspect.signature(klass.__init__).parameters
+            accepted |= set(sig)
+            if not any(p.kind == p.VAR_KEYWORD for p in sig.values()):
+                break
         for k in [k for k in kwargs if k not in accepted]:
             if k not in _REFERENCE_ONLY or kwargs[k] != _REFERENCE_ONLY[k]:
                 raise ValueError(

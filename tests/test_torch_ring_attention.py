@@ -14,7 +14,9 @@
   (logits and parameter gradients, global positions on every shard);
   three ``make_lm_train_step`` steps and an ``LMTrainer`` epoch on a
   dp=2 x sp=2 mesh give the losses and parameters of the unsharded
-  port step.
+  port step; the step's gradients summed in flat buckets (one
+  all-reduce a bucket) follow the per-parameter reduce within 1e-6,
+  bit-identical across the ranks.
 
 All in f32. Tolerances: 2e-5 on attention values, 1e-4 on gradients and
 trained parameters (the ring sums in another order than the dense or
@@ -168,6 +170,12 @@ def test_mesh_and_collectives_of_one():
     assert col.psum(x) is x
     with pytest.raises(ValueError, match="partial permutation"):
         col.ppermute(x, [(0, 1)])
+    # the exchange and the gradient reduce of a group of one do nothing
+    assert col.all_to_all(x[None]).data_ptr() == x.data_ptr()
+    with pytest.raises(ValueError, match="leading axis"):
+        col.all_to_all(x)
+    p = torch.nn.Parameter(x.clone())
+    assert col.reduce_grads([p]) == 0 and p.grad is None
     ring = get_model("transformer_lm", attention="ring", **TINY)
     toks = torch.zeros((1, 8), dtype=torch.long)
     with pytest.raises(ValueError, match="bound mesh"):
@@ -296,10 +304,23 @@ def _params(model):
 def _train_worker(rank, out, batches, rows):
     mesh = make_mesh({"dp": 2, "sp": 2})
     ring = get_model("transformer_lm", attention="ring", seed=5, **TINY)
+    calls = col.reduce_grads.calls
     step = make_lm_train_step(ring, get_optimizer("sgd", 0.1), mesh=mesh,
                               window=True)
     saved = {"losses": step(batches).numpy()}
+    saved["allreduces"] = np.asarray(col.reduce_grads.calls - calls)
     saved.update({f"step/{n}": a for n, a in _params(ring).items()})
+    # the per-parameter reduce (one all-reduce a gradient), as before the
+    # bucketed one: buckets of one byte hold one gradient each
+    leaf = get_model("transformer_lm", attention="ring", seed=5, **TINY)
+    step = make_lm_train_step(leaf, get_optimizer("sgd", 0.1), mesh=mesh,
+                              window=True)
+    bucket, col.GRAD_BUCKET_BYTES = col.GRAD_BUCKET_BYTES, 1
+    try:
+        saved["per_leaf_losses"] = step(batches).numpy()
+    finally:
+        col.GRAD_BUCKET_BYTES = bucket
+    saved.update({f"per_leaf/{n}": a for n, a in _params(leaf).items()})
     model = get_model("transformer_lm", attention="ring", seed=6, **TINY)
     trainer = LMTrainer(model, worker_optimizer="sgd", learning_rate=0.1,
                         batch_size=4, axes={"dp": 2, "sp": 2})
@@ -310,11 +331,22 @@ def _train_worker(rank, out, batches, rows):
     np.savez(os.path.join(out, f"rank{rank}.npz"), **saved)
 
 
-def test_dp2_sp2_step_and_trainer_match_unsharded(tmp_path):
+def _train_data():
     rng = np.random.default_rng(4)
     batches = rng.integers(0, TINY["vocab_size"], size=(3, 4, 32))
     rows = rng.integers(0, TINY["vocab_size"], size=(12, 32))
-    ranks = _spawn(tmp_path, _train_worker, batches, rows)
+    return batches, rows
+
+
+@pytest.fixture(scope="module")
+def train_ranks(tmp_path_factory):
+    return _spawn(tmp_path_factory.mktemp("train"), _train_worker,
+                  *_train_data())
+
+
+def test_dp2_sp2_step_and_trainer_match_unsharded(train_ranks):
+    batches, rows = _train_data()
+    ranks = train_ranks
 
     std = get_model("transformer_lm", seed=5, **TINY)
     want = make_lm_train_step(std, get_optimizer("sgd", 0.1),
@@ -333,3 +365,24 @@ def test_dp2_sp2_step_and_trainer_match_unsharded(tmp_path):
                 np.testing.assert_allclose(d[f"{prefix}/{n}"], a, rtol=1e-4,
                                            atol=1e-4,
                                            err_msg=f"{prefix} {n}")
+
+
+def test_dp2_sp2_bucketed_reduce_matches_the_per_leaf_reduce(train_ranks):
+    """The step's gradients summed in flat buckets (one all-reduce a
+    bucket: one here, every gradient f32 and the model small) give the
+    per-parameter reduce's trajectory within 1e-6, every replica bit for
+    bit the same."""
+    n_params = len(list(get_model("transformer_lm", **TINY).parameters()))
+    for d in train_ranks:
+        assert int(d["allreduces"]) == 3  # one bucket a step, 3 steps
+        np.testing.assert_allclose(d["losses"], d["per_leaf_losses"],
+                                   rtol=0, atol=1e-6)
+        for n in _params(get_model("transformer_lm", **TINY)):
+            np.testing.assert_allclose(d[f"step/{n}"], d[f"per_leaf/{n}"],
+                                       rtol=0, atol=1e-6, err_msg=n)
+    assert n_params > 3
+    for d in train_ranks[1:]:
+        np.testing.assert_array_equal(d["losses"], train_ranks[0]["losses"])
+        for n in _params(get_model("transformer_lm", **TINY)):
+            np.testing.assert_array_equal(d[f"step/{n}"],
+                                          train_ranks[0][f"step/{n}"])

@@ -5,7 +5,7 @@ CPU.
 - Serde: a blob written by the reference (``Model.serialize``) loads
   into the port and, written again by the port, back into the reference
   with every parameter bit-exact; the same the other way round — for the
-  MLP, both CNNs and the TransformerLM. Trees of every leaf kind the
+  MLP, both CNNs, the TransformerLM and the MoeLM. Trees of every leaf kind the
   codec knows round-trip, and a template restores their structure.
 - The wire: a JAX ``RemoteParameterServer`` commits to and pulls from a
   port ``ParameterServerService`` over loopback, and a port client from a
@@ -40,6 +40,8 @@ CASES = {
     "cifar_cnn": (dict(widths=(8, 16, 32)), {}, (1, 32, 32, 3)),
     "transformer_lm": (dict(vocab_size=32, d_model=16, num_heads=2,
                             num_layers=1, max_len=8), {}, (1, 8)),
+    "moe_lm": (dict(vocab_size=32, d_model=16, num_heads=2, num_layers=1,
+                    max_len=8, moe_experts=2), {}, (1, 8)),
 }
 
 
@@ -64,7 +66,7 @@ def test_blob_round_trips_between_the_packages(name, writer):
     kw, port_kw, shape = CASES[name]
     if writer == "jax":
         jm = jax_get_model(name, dtype=jnp.float32, **kw)
-        x = (jnp.zeros(shape, jnp.int32) if name == "transformer_lm"
+        x = (jnp.zeros(shape, jnp.int32) if name.endswith("_lm")
              else jnp.zeros(shape, jnp.float32))
         params = jax.tree.map(np.asarray, jax.jit(jm.init)(
             jax.random.PRNGKey(0), x))

@@ -379,8 +379,14 @@ def test_lm_trainer_deferred_features_raise(what, tmp_path):
     kw = dict(TINY, dtype=torch.float32, device="cpu")
     ds = PartitionedDataset.from_arrays({"tokens": _tokens(0, (4, 16))})
     if what == "moe":
-        with pytest.raises(NotImplementedError, match="A10"):
-            get_model("transformer_lm", moe_experts=4, **kw)
+        # ported now: an MoE model builds, runs and trains through the
+        # LMTrainer (ep_size=1: the dp path, as the reference's)
+        moe = get_model("transformer_lm", moe_experts=4, **kw)
+        assert moe(torch.zeros((1, 4), dtype=torch.long)).shape == (1, 4, 61)
+        trainer = LMTrainer(moe, batch_size=2)
+        trainer.train(ds)
+        assert len(trainer.history) == 2
+        assert np.isfinite([h["loss"] for h in trainer.history]).all()
         return
     model = get_model("transformer_lm", **kw)
     if what == "sharded":
@@ -426,11 +432,16 @@ def test_lm_trainer_deferred_features_raise(what, tmp_path):
         assert len(trainer.history) == 2
         assert len(list(trace_dir.glob("trace-*.json"))) == 1
         return
-    # tp axes are ported (tests/test_torch_tp.py); pipeline ones are not
-    item, args = {"axes": ("A10", dict(axes={"dp": 1, "pp": 2})),
-                  "microbatches": ("A10", dict(microbatches=4))}[what]
-    with pytest.raises(NotImplementedError, match=item):
-        LMTrainer(model, batch_size=2, **args).train(ds)
+    # ported now (tests/test_torch_pipeline.py): pp needs a world of
+    # dp x pp processes, and microbatches apply to pp only, as in the
+    # reference
+    if what == "axes":
+        with pytest.raises(ValueError, match="need 2 processes"):
+            LMTrainer(model, batch_size=2, axes={"dp": 1, "pp": 2},
+                      microbatches=2).train(ds)
+        return
+    with pytest.raises(ValueError, match="microbatches only applies"):
+        LMTrainer(model, batch_size=2, microbatches=4)
 
 
 def test_model_wrapper_predicts_generates_and_replaces_params():

@@ -226,15 +226,24 @@ def test_explicit_attention_modes_match_jax(mode):
 @pytest.mark.parametrize("what", ["moe_lm", "remat", "tp",
                                   "ring", "blocked", "pallas", "long_t"])
 def test_deferred_features_raise(what):
-    """Features still deferred raise naming their ROADMAP item; remat,
-    the blocked and pallas modes and T > 512 (deferred before the
-    training slice) now run, and so does the ring inside a mesh
-    (deferred before the sequence-parallel slice); tp_size > 1 needs a
-    bound mesh (deferred before the tensor-parallel slice)."""
+    """Features once deferred: remat, the blocked and pallas modes and
+    T > 512 (deferred before the training slice) now run, and so does
+    the ring inside a mesh (deferred before the sequence-parallel
+    slice); tp_size > 1 needs a bound mesh (deferred before the
+    tensor-parallel slice), and so does ep_size > 1; a ``moe_lm`` builds
+    and runs, returning one aux loss a layer (deferred before the
+    pipeline and expert-parallel slice)."""
     kw = dict(BASE, dtype=torch.float32, device="cpu")
     if what == "moe_lm":
-        with pytest.raises(NotImplementedError, match="A10"):
-            get_model("moe_lm", **kw)
+        m = get_model("moe_lm", **dict(kw, moe_experts=4))
+        toks = torch.zeros((2, 4), dtype=torch.long)
+        logits, auxes = m(toks, return_aux=True)
+        assert logits.shape == (2, 4, 97) and len(auxes) == BASE[
+            "num_layers"]
+        assert all(torch.isfinite(a) for a in auxes)
+        torch.testing.assert_close(m(toks), logits)
+        with pytest.raises(ValueError, match="bound mesh"):
+            get_model("moe_lm", ep_size=2, **dict(kw, moe_experts=4))
     elif what == "remat":
         m = get_model("transformer_lm", remat="block", **kw)
         assert m(torch.zeros((1, 4), dtype=torch.long)).shape == (1, 4, 97)
@@ -262,3 +271,43 @@ def test_deferred_features_raise(what):
     else:
         m = get_model("transformer_lm", attention=what, **kw)
         assert m(torch.zeros((1, 4), dtype=torch.long)).shape == (1, 4, 97)
+
+
+def test_remat_recompute_rebinds_the_forward_mesh():
+    """A block's recompute under ``remat='block'`` reads its groups from
+    the mesh bound at the forward, even where the backward runs outside
+    ``with mesh:`` or in another thread (autograd's device thread on a
+    card binds no mesh): the gradients equal the stored-activation
+    ones. The ring model reads its sp group from the bound mesh."""
+    import threading
+
+    from distkeras_torch.parallel.mesh import make_mesh
+
+    kw = dict(BASE, dtype=torch.float32, device="cpu", attention="ring")
+    m = get_model("transformer_lm", remat="block", **kw)
+    plain = m.clone(remat="none")
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, 97, size=(2, 16)))
+    mesh = make_mesh({"dp": 1, "sp": 1})
+    with mesh:
+        want_loss = plain(toks).square().mean()
+    want_loss.backward()
+    want = {n: p.grad.clone() for n, p in m.named_parameters()}
+    m.zero_grad(set_to_none=True)
+    with mesh:
+        loss = m(toks).square().mean()
+    errors = []
+
+    def backward():
+        try:
+            loss.backward()
+        except BaseException as e:  # reported on the test's thread
+            errors.append(e)
+
+    t = threading.Thread(target=backward)
+    t.start()
+    t.join()
+    assert not errors, errors
+    for n, p in m.named_parameters():
+        torch.testing.assert_close(p.grad, want[n], rtol=1e-6, atol=1e-7,
+                                   msg=n)
