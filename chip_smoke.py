@@ -7,7 +7,9 @@ CUDA is unavailable or when the port's package is not beside it.
 ``python3 chip_smoke.py --phase12`` runs phase 12 alone after phase 3
 (its yardstick), ``python3 chip_smoke.py --phase13`` phase 13 alone
 after phases 6 and 6b (its yardsticks): on a host of two cards or more
-their ranks run over NCCL.
+their ranks run over NCCL. ``python3 chip_smoke.py --phase14`` runs
+phase 14 alone after phase 3 (its yardstick). Phase 14 runs right after
+phase 4 in the whole smoke.
 
 Phases (any failure exits non-zero):
 
@@ -280,9 +282,40 @@ Phases (any failure exits non-zero):
    the pp microbatch [1, 2048, 8, 256] and the pair kernels at the sp=2
    chunk [8, 512, 8, 256], timed as phases 5 and 5b time theirs.
 
+14. **One server.** (14a) Phase 3's flagship and 16-request mix behind
+   ``LMServer(engine, slo=SloMonitor(default_serving_rules()),
+   watchdog_timeout_s=30)`` on loopback, paged then slot (each after a
+   two-request warm-up through its own server): 4 ``ServingClient``
+   connections, one thread a request that submits and reads its stream
+   frame by frame, stamping each frame's arrival. Every request ends
+   ``length`` with its full count of in-vocab tokens; the launch counts
+   (zeroed just before each counted run) show the paged kernel in every
+   layer of every tick and splash in every layer of every chunk tick,
+   every route a bf16 split kernel; ``stats``, ``metrics``,
+   ``timeseries``, ``flight``, ``alerts``, ``events`` (after a drain and
+   an undrain) and ``chrome_trace`` answer with content; ``stop()``
+   joins every thread. Prints tok/s over the wire beside phase 3's,
+   client TTFT and inter-token p50/p99, ms a tick and the share of greedy
+   tokens equal to phase 3's streams (informational at bf16: admission
+   over the wire changes which rows share a tick). (14b) Phase 4's f32
+   model with the kernels on, behind pipelined servers on both layouts:
+   greedy streams over TCP equal ``generate()``; a ``push_weights`` of
+   phase 4's swap weights sent once six streams have their first token
+   drops none, moves the version to 2 and lands while at least one is
+   still in flight (its ``finish`` span carries version 2; the count is
+   ``streams_across_push``), and greedy requests admitted after
+   its ack equal an engine built on those weights (sampled ones are
+   counted); ``export_kv`` from a prefill server and ``import_kv`` into
+   a decode server give a stream equal to ``generate()`` served from the
+   migrated prefix; a control call holding the loop for 3x the
+   watchdog's 0.5 s while requests queue writes a postmortem that
+   ``report.report_flight`` renders as a stall. Any exception that ends
+   a server, handler, pump or loop thread fails the phase (collected
+   through ``threading.excepthook``).
+
 Output: JSON lines per phase, the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line (the serving rows carry every timed shape
-in ``shapes``; the three forward rows and the causal and
+in ``shapes`` and phase 14a's launches in ``server_launches``; the three forward rows and the causal and
 pair dq and dk/dv rows also carry their ``build`` facts; the dq and
 dk/dv rows carry ``bwd_ms``, the two as the backward runs them with one
 prep pass, ``bwd_library_ms``, SDPA's backward, and ``sdpa_backend``;
@@ -526,6 +559,13 @@ KERAS_TRAIN = dict(worker_optimizer="sgd", learning_rate=0.01,
                    batch_size=256, num_epoch=1)
 # 11f: the Job's CNN widths (phase 8a's)
 JOB_WIDTHS = (64, 128, 256)
+# phase 14: the server. Four clients; the stall watchdog's timeout at
+# full width (14a: a tick never takes this long) and in 14b's stall
+# check (it holds the loop for 3x it); stop()'s join timeout
+SERVER_CLIENTS = 4
+FLAGSHIP_WATCHDOG_S = 30.0
+WATCHDOG_S = 0.5
+SERVER_STOP_S = 10.0
 
 
 def _fail(msg):
@@ -4046,12 +4086,428 @@ def phase13(torch, np, F, dk, fa, pp, here, training, ring):
     return moe, ranks, shapes
 
 
-def main(phase12_only: bool = False, phase13_only: bool = False) -> int:
+# -- phase 14: the server -------------------------------------------------------
+
+
+class _ThreadErrors:
+    """Collects the exceptions that end any thread (server, handler,
+    pump, loop) while installed as ``threading.excepthook``."""
+
+    def __init__(self):
+        self.seen = []
+
+    def __enter__(self):
+        import threading
+
+        self._prev = threading.excepthook
+        threading.excepthook = lambda a: self.seen.append(
+            f"{a.thread.name if a.thread else '?'}: "
+            f"{a.exc_type.__name__}: {a.exc_value}")
+        return self
+
+    def __exit__(self, *exc):
+        import threading
+
+        threading.excepthook = self._prev
+        return False
+
+
+def _client(dk, srv, **kw):
+    kw.setdefault("timeout", 300.0)
+    kw.setdefault("request_timeout", 300.0)
+    return dk["ServingClient"]("127.0.0.1", srv.port, **kw)
+
+
+def _stop_server(srv):
+    """``stop()`` within ``SERVER_STOP_S``, every thread of the server
+    joined (fails otherwise); returns the seconds it took."""
+    t0 = time.perf_counter()
+    srv.stop(timeout=SERVER_STOP_S)
+    took = time.perf_counter() - t0
+    alive = [t.name for t in srv._threads if t.is_alive()]
+    if alive or took > SERVER_STOP_S:
+        raise AssertionError(f"server phase: stop() left threads {alive} "
+                             f"after {took:.2f} s")
+    return took
+
+
+def _pct(np, xs, q):
+    return float(np.percentile(xs, q)) if xs else None
+
+
+def wire_serve(torch, np, dk, model, requests, **kw):
+    """Serve ``requests`` through an ``LMServer`` on loopback (8 slots,
+    64-token chunks unless ``kw`` says otherwise; an SLO monitor and the
+    stall watchdog at ``FLAGSHIP_WATCHDOG_S`` armed): ``SERVER_CLIENTS``
+    clients, each submitting its share of the requests from one thread
+    per request, which reads the stream frame by frame and stamps each
+    frame's arrival. Every request must end ``length`` with its full count of
+    in-vocab tokens. Returns (summary, streams, engine, server, a
+    client, request ids) with the server still up; the caller stops
+    it."""
+    import threading
+
+    kw.setdefault("slots", 8)
+    kw.setdefault("prefill_chunk", 64)
+    tel = dk["telemetry"]
+    eng = dk["ServingEngine"](model, device=DEV,
+                              registry=tel.MetricRegistry(),
+                              tracer=tel.Tracer(), **kw)
+    slo = tel.SloMonitor(tel.default_serving_rules(),
+                         registry=eng.registry, tracer=eng.tracer)
+    srv = dk["LMServer"](eng, slo=slo,
+                         watchdog_timeout_s=FLAGSHIP_WATCHDOG_S)
+    srv.start()
+    clients = SERVER_CLIENTS
+    cls = [_client(dk, srv) for _ in range(clients)]
+    n = len(requests)
+    out = [None] * n
+    errors = []
+
+    def one(i):
+        p, c = requests[i]
+        try:
+            cl = cls[i % clients]
+            t_sub = time.perf_counter()
+            rid = cl.generate(p, **c)
+            stamps, toks, reason = [], [], None
+            for kind, val in cl.frames(rid):
+                if kind == "tok":
+                    stamps.append(time.perf_counter())
+                    toks.append(val)
+                else:
+                    reason = val
+            out[i] = (toks, reason, t_sub, stamps, rid)
+        except Exception as e:  # reported below, with the request
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    sync(torch)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    for c in cls[1:]:
+        c.close()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"server phase: client errors {errors}")
+    V = model.vocab_size
+    for i, ((_, c), (toks, reason, *_)) in enumerate(zip(requests, out)):
+        if reason != "length" or len(toks) != c["max_new_tokens"] or not all(
+                0 <= t < V for t in toks):
+            raise AssertionError(
+                f"server phase: request {i} ended {reason!r} after "
+                f"{len(toks)} of {c['max_new_tokens']} tokens")
+    ttft = [(o[3][0] - o[2]) * 1e3 for o in out]
+    itl = [(b - a) * 1e3 for o in out for a, b in zip(o[3], o[3][1:])]
+    st = cls[0].stats()
+    summary = {
+        "requests": n, "clients": clients, "ticks": st["ticks"],
+        "chunk_ticks": sum(1 for rec in eng.metrics.records
+                           if rec.get("prefill_tokens", 0) > 0),
+        "tokens": st["tokens_generated"], "wall_s": wall,
+        "tok_per_s": st["tokens_generated"] / wall,
+        "ms_per_tick": wall * 1e3 / max(st["ticks"], 1),
+        "client_ttft_ms": {"p50": _pct(np, ttft, 50),
+                           "p99": _pct(np, ttft, 99)},
+        "client_itl_ms": {"p50": _pct(np, itl, 50),
+                          "p99": _pct(np, itl, 99)},
+        "engine_ttft_ms": st["ttft_ms"],
+        "prefix_hit_tokens": st.get("prefix_hit_tokens"),
+        "stalls": eng.registry.counter("slo_stalls_total").value,
+    }
+    return summary, [o[0] for o in out], eng, srv, cls[0], [o[4] for o in out]
+
+
+def server_ops(np, srv, client, rid):
+    """Every telemetry op of the protocol answers ``ok`` with content:
+    stats, metrics, timeseries (two forced samples), flight, alerts,
+    events (after a drain and an undrain) and chrome_trace (one
+    request's chain). Returns each reply's size."""
+    srv.timeseries.sample()
+    srv.timeseries.sample()
+    client.drain()
+    client.undrain()
+    got = {
+        "stats": len(client.stats()),
+        "metrics": len(client.metrics()),
+        "timeseries": len(client.timeseries()["points"]),
+        "flight": len(client.flight()["ticks"]),
+        "alerts": len(client.alerts()),
+        "events": len(client.events()["events"]),
+        "chrome_trace": len(client.chrome_trace(
+            trace=client.trace_of(rid))["traceEvents"]),
+    }
+    empty = [k for k, v in got.items() if not v]
+    if empty:
+        raise AssertionError(f"server phase: ops {empty} answered empty "
+                             f"({got})")
+    return got
+
+
+def server_flagship(torch, np, dk, pa, sp, phase3, direct):
+    """14a: phase 3's flagship and mix behind an ``LMServer`` on each
+    layout; launch counts zeroed just before each counted run."""
+    model = dk["get_model"]("transformer_lm", dtype=torch.bfloat16,
+                            device=DEV, seed=0, **FLAGSHIP)
+    L = model.num_layers
+    requests = dk["serving_requests"](model.vocab_size, SYSTEM_PREFIX,
+                                      PROMPT_LENS)
+    out, launches = {}, {}
+    for layout, kw in (("paged", dict(paged=True, block_size=16)),
+                       ("slot", dict(paged=False))):
+        # a warm-up through its own server (the allocator, the threads)
+        *_, srv, cl, _ = wire_serve(torch, np, dk, model, requests[:2], **kw)
+        cl.close()
+        _stop_server(srv)
+        _zero_counts(pa, sp)
+        summary, streams, eng, srv, cl, rids = wire_serve(
+            torch, np, dk, model, requests, **kw)
+        used = {"paged_attention": pa.paged_attention.launches,
+                "splash_prefill": sp.splash_prefill_attention.launches}
+        routes = {"paged_attention": dict(pa.paged_attention.routes),
+                  "splash_prefill": dict(sp.splash_prefill_attention.routes)}
+        summary["ops"] = server_ops(np, srv, cl, rids[0])
+        cl.close()
+        summary["stop_s"] = _stop_server(srv)
+        if layout == "paged":
+            key, need = "paged_attention", summary["ticks"] * L
+        else:
+            key, need = "splash_prefill", summary["chunk_ticks"] * L
+        if used[key] < need or used[key] == 0:
+            raise AssertionError(f"server phase ({layout}): {used[key]} "
+                                 f"{key} launches < {need}")
+        if not routes[key] or any("split_kernel" not in r
+                                  for r in routes[key]):
+            raise AssertionError(f"server phase ({layout}): routes "
+                                 f"{routes[key]} are not all the bf16 "
+                                 f"split kernels")
+        summary["launches"] = used
+        summary["routes"] = routes[key]
+        summary["direct_tok_per_s"] = phase3[layout]["tok_per_s"]
+        summary["direct_ms_per_tick"] = phase3[layout]["ms_per_tick"]
+        summary["greedy_match_vs_direct"] = greedy_match(
+            requests, streams, direct[layout])
+        out[layout] = summary
+        launches[key] = used[key]
+        del eng
+    del model
+    _free(torch)
+    return out, launches
+
+
+def _rest_of_stream(head, frames):
+    """(tokens, finish reason) of a stream whose first frame ``head``
+    was already read from ``frames``."""
+    toks = []
+    kind, val = head
+    while kind != "end":
+        toks.append(val)
+        kind, val = next(frames)
+    return toks, val
+
+
+def _wire_streams(np, client, requests):
+    rids = [client.generate(p, **c) for p, c in requests]
+    return [client.result(r) for r in rids]
+
+
+def server_exact(torch, np, dk, pa, sp, workdir):
+    """14b: phase 4's small f32 model behind ``LMServer`` with the
+    kernels on: greedy streams over TCP equal ``generate()`` on both
+    layouts; a ``push_weights`` sent mid-stream drops no stream, bumps
+    the version, and requests admitted after its ack equal an engine
+    built on the new weights; ``export_kv`` -> ``import_kv`` between two
+    servers gives a decode stream equal to ``generate()`` from the
+    migrated cache; a control call that holds the loop for 3x the
+    watchdog's timeout while requests are queued writes a postmortem
+    that ``report.report_flight`` renders; every ``stop()`` joins its
+    threads."""
+    import io
+    import threading
+
+    tel = dk["telemetry"]
+    make = dk["get_model"]
+    model = make("transformer_lm", dtype=torch.float32, device=DEV, seed=3,
+                 **EXACT)
+    new = make("transformer_lm", dtype=torch.float32, device=DEV, seed=8,
+               **EXACT)
+    new_tree = dk["bridge"].params_to_jax(new)
+    requests = exact_requests(np, model.vocab_size)
+    greedy = [(p, c) for p, c in requests if c.get("temperature", 0.0) == 0]
+    refs = [dk["generate"](model, p[None], c["max_new_tokens"])[
+        0, len(p):].tolist() for p, c in greedy]
+
+    def server(m, **kw):
+        kw.setdefault("slots", 8)
+        kw.setdefault("prefill_chunk", 64)
+        eng = dk["ServingEngine"](m, device=DEV,
+                                  registry=tel.MetricRegistry(),
+                                  tracer=tel.Tracer(), **kw)
+        srv = dk["LMServer"](eng).start()
+        return eng, srv, _client(dk, srv)
+
+    res = {}
+    for layout, lkw in (("paged", dict(paged=True, block_size=16)),
+                        ("slot", dict(paged=False))):
+        before = _launches(pa, sp)
+        m = make("transformer_lm", dtype=torch.float32, device=DEV, seed=3,
+                 **EXACT)
+        eng, srv, cl = server(m, pipeline=True, **lkw)
+        got = _wire_streams(np, cl, greedy)
+        _differ(torch, np, model, greedy, [t for t, _ in got], refs,
+                f"{layout} greedy over TCP vs generate()",
+                phase="server phase")
+        # the push goes out once every stream below has its first token
+        # (emitted on version 1); a stream whose finish span carries the
+        # pushed version was in flight when the swap landed
+        rids = [cl.generate(p, **c) for p, c in requests]
+        streams = [cl.frames(r) for r in rids]
+        heads = [next(s) for s in streams]
+        pusher = _client(dk, srv)
+        ack = pusher.push_weights(new_tree, chunk_bytes=1 << 20)
+        pusher.close()
+        mid = [_rest_of_stream(h, s) for h, s in zip(heads, streams)]
+        if any(reason != "length" or len(t) != c["max_new_tokens"]
+               for (t, reason), (_, c) in zip(mid, requests)):
+            raise AssertionError(f"server phase ({layout}): a stream in "
+                                 f"flight across the push ended short "
+                                 f"{[(len(t), r) for t, r in mid]}")
+        if ack["version"] != 2 or eng.weight_version != 2:
+            raise AssertionError(f"server phase ({layout}): push ack "
+                                 f"{ack}, engine at {eng.weight_version}")
+        finish_wv = [[sp["wv"] for sp in cl.trace_dump(trace=cl.trace_of(r))
+                      if sp["span"] == "finish"] for r in rids]
+        across = sum(wv == [2] for wv in finish_wv)
+        if across == 0:
+            raise AssertionError(f"server phase ({layout}): every stream "
+                                 f"ended before the swap landed (finish "
+                                 f"versions {finish_wv}): the push was "
+                                 f"not mid-stream")
+        after = [t for t, _ in _wire_streams(np, cl, requests)]
+        _, fresh, _ = serve(torch, np, dk, new, requests, **lkw)
+        # greedy streams must be equal; sampled ones are counted (the
+        # wire's admission timing sets which rows share a tick)
+        sampled = [c.get("temperature", 0.0) != 0.0 for _, c in requests]
+        _differ(torch, np, new, requests,
+                [None if x else t for x, t in zip(sampled, after)],
+                [None if x else t for x, t in zip(sampled, fresh)],
+                f"{layout} greedy after a wire push vs an engine on the "
+                f"new weights", phase="server phase")
+        cl.close()
+        stop_s = _stop_server(srv)
+        used = _launches(pa, sp)[0 if layout == "paged" else 1] - before[
+            0 if layout == "paged" else 1]
+        if used == 0:
+            raise AssertionError(f"server phase ({layout}) ran without "
+                                 f"its kernel")
+        res[layout] = {"greedy_equal": True, "push": ack,
+                       "streams_across_push": across,
+                       "after_push_greedy_equal": True,
+                       "after_push_sampled_equal": sum(
+                           int(a == f) for x, a, f in zip(sampled, after,
+                                                          fresh) if x),
+                       "sampled": sum(sampled), "kernel_launches": used,
+                       "stop_s": stop_s}
+        del eng, m
+
+    # KV migration between a prefill and a decode server
+    prompt, _ = requests[3]
+    want = dk["generate"](model, prompt[None], 16)[0, len(prompt):].tolist()
+    kw = dict(paged=True, block_size=16)
+    src_eng, src, c1 = server(model, role="prefill", **kw)
+    dst_eng, dst, c2 = server(model, role="decode", **kw)
+    c1.result(c1.generate(prompt, max_new_tokens=1))
+    exp = c1.export_kv(prompt)
+    imp = c2.import_kv(prompt, exp["blocks"])
+    toks, _ = c2.result(c2.generate(prompt, max_new_tokens=16))
+    if toks != want:
+        _differ(torch, np, model, [(prompt, dict(max_new_tokens=16))],
+                [toks], [want], "decode server after import_kv vs "
+                "generate()", phase="server phase")
+    if imp["tokens"] == 0 or dst_eng.prefix_hit_tokens != imp["tokens"]:
+        raise AssertionError(f"server phase: the import ({imp}) did not "
+                             f"serve the prompt's prefix")
+    res["migrate"] = {"exported_tokens": exp["tokens"], **imp,
+                      "stream_equal": True}
+    for c, s in ((c1, src), (c2, dst)):
+        c.close()
+        _stop_server(s)
+
+    # the watchdog: hold the loop while requests queue
+    eng = dk["ServingEngine"](model, device=DEV, slots=8, prefill_chunk=64,
+                              postmortem_dir=workdir,
+                              registry=tel.MetricRegistry(),
+                              tracer=tel.Tracer(), **kw)
+    srv = dk["LMServer"](eng, watchdog_timeout_s=WATCHDOG_S).start()
+    cl = _client(dk, srv)
+    cl.result(cl.generate(greedy[0][0], max_new_tokens=4))  # ticks to dump
+    holding = threading.Event()
+
+    def hold():
+        holding.set()
+        time.sleep(3 * WATCHDOG_S)
+
+    t = threading.Thread(target=eng.call_in_loop, args=(hold, 60.0),
+                         daemon=True)
+    t.start()
+    holding.wait(60.0)
+    rids = [cl.generate(p, **c) for p, c in greedy]
+    t.join(60.0)
+    queued = [cl.result(r) for r in rids]
+    dump = srv._watchdog.last_dump
+    if not dump or not os.path.exists(dump):
+        raise AssertionError("server phase: the watchdog wrote no "
+                             "postmortem while the loop was held")
+    text = io.StringIO()
+    dk["report"].report_flight(dump, out=text)
+    if "reason=stall" not in text.getvalue():
+        raise AssertionError(f"server phase: the postmortem does not "
+                             f"render as a stall: {text.getvalue()[:300]}")
+    if [tk for tk, _ in queued] != refs:
+        raise AssertionError("server phase: requests queued behind the "
+                             "held loop differ from generate()")
+    res["watchdog"] = {"postmortem": os.path.basename(dump),
+                       "stalls": eng.registry.counter(
+                           "slo_stalls_total").value,
+                       "rendered_lines": len(text.getvalue().splitlines())}
+    cl.close()
+    res["watchdog"]["stop_s"] = _stop_server(srv)
+    del model, new
+    _free(torch)
+    return res
+
+
+def server_phase(torch, np, dk, pa, sp, phase3, direct):
+    """Phase 14: 14a then 14b, every thread's exceptions collected (any
+    fails the phase)."""
+    workdir = tempfile.mkdtemp(prefix="dk_phase14_")
+    try:
+        with _ThreadErrors() as errs:
+            flagship, launches = server_flagship(torch, np, dk, pa, sp,
+                                                 phase3, direct)
+            exact = server_exact(torch, np, dk, pa, sp, workdir)
+        if errs.seen:
+            raise AssertionError(f"server phase: threads raised "
+                                 f"{errs.seen}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"14a": flagship, "14b": exact, "thread_errors": 0}, launches
+
+
+
+def main(phase12_only: bool = False, phase13_only: bool = False,
+         phase14_only: bool = False) -> int:
     """The smoke (every phase), or with ``phase12_only`` phase 12 alone
     after phase 3, its yardstick (``chip_smoke.py --phase12``: the
-    tensor-parallel ranks over NCCL on a host of several cards), or with
+    tensor-parallel ranks over NCCL on a host of several cards), with
     ``phase13_only`` phase 13 alone after phases 6 and 6b, its yardsticks
-    (``chip_smoke.py --phase13``: over NCCL on several cards)."""
+    (``chip_smoke.py --phase13``: over NCCL on several cards), or with
+    ``phase14_only`` phase 14 alone after phase 3, its yardstick
+    (``chip_smoke.py --phase14``)."""
     try:
         import numpy as np
         import torch
@@ -4078,7 +4534,9 @@ def main(phase12_only: bool = False, phase13_only: bool = False) -> int:
         from distkeras_torch.parallel.mesh import make_mesh
         from distkeras_torch.parallel.spmd import (make_lm_train_step,
                                                    make_moe_lm_train_step)
-        from distkeras_torch.serving import ServingEngine
+        from distkeras_torch.serving import (LMServer, ServingClient,
+                                             ServingEngine)
+        from distkeras_torch.telemetry import report
         from distkeras_torch.trainers import LMTrainer
         from distkeras_torch.utils.losses import get_loss, get_optimizer
         from distkeras_torch.workers import make_window_step
@@ -4098,7 +4556,8 @@ def main(phase12_only: bool = False, phase13_only: bool = False) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dk = {"telemetry": telemetry, "get_model": get_model, "bridge": bridge,
           "generate": generate, "ServingEngine": ServingEngine,
-          "serving_requests": serving_requests,
+          "LMServer": LMServer, "ServingClient": ServingClient,
+          "report": report, "serving_requests": serving_requests,
           "make_lm_train_step": make_lm_train_step,
           "make_moe_lm_train_step": make_moe_lm_train_step,
           "get_optimizer": get_optimizer, "lm_step_flops": lm_step_flops,
@@ -4151,6 +4610,20 @@ def main(phase12_only: bool = False, phase13_only: bool = False) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})
         return 0
+    if phase14_only:
+        t0 = time.perf_counter()
+        serving, _, _, chunked = serving_phase(torch, np, dk, pa, sp)
+        serving["seconds"] = time.perf_counter() - t0
+        _emit({"serving_phase": serving})
+        t0 = time.perf_counter()
+        server, _ = server_phase(torch, np, dk, pa, sp, serving, chunked)
+        server["seconds"] = time.perf_counter() - t0
+        _emit({"server_phase": server})
+        print(smi, flush=True)
+        _emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
     if phase12_only:
         t0 = time.perf_counter()
         serving, _, _, chunked = serving_phase(torch, np, dk, pa, sp)
@@ -4193,6 +4666,12 @@ def main(phase12_only: bool = False, phase13_only: bool = False) -> int:
     exact = exact_phase(torch, np, dk, pa, sp)
     exact["seconds"] = time.perf_counter() - t0
     _emit({"exact_phase": exact})
+
+    t0 = time.perf_counter()
+    server, server_launches = server_phase(torch, np, dk, pa, sp, serving,
+                                           chunked)
+    server["seconds"] = time.perf_counter() - t0
+    _emit({"server_phase": server})
 
     t0 = time.perf_counter()
     causal = causal_cases(torch, F, fa)
@@ -4316,6 +4795,8 @@ def main(phase12_only: bool = False, phase13_only: bool = False) -> int:
             # the main path's launches by what each ran (launch_route)
             "kernels_run": routes[name],
             "launches": launches[name],
+            # phase 14a: the same mix behind an LMServer on this layout
+            "server_launches": server_launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": case["ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
@@ -4449,4 +4930,5 @@ if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--phase13-worker":
         sys.exit(p13_worker(sys.argv[2], int(sys.argv[3])))
     sys.exit(main(phase12_only=sys.argv[1:] == ["--phase12"],
-                  phase13_only=sys.argv[1:] == ["--phase13"]))
+                  phase13_only=sys.argv[1:] == ["--phase13"],
+                  phase14_only=sys.argv[1:] == ["--phase14"]))

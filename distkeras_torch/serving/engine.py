@@ -86,13 +86,18 @@ tick: the ranks step in lock step, and no plan decision reads a clock
 imported blocks) is unsharded: gathered over tp on the way out, sliced
 on the way in, so a block moves between engines of any tp degree.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-``watchdog`` (A11). The TCP loop thread that marshals control calls
-(``serve_forever``, ``call_in_loop``) is A11;
-:meth:`ServingEngine.update_weights`, :meth:`~ServingEngine.export_blocks`
-and :meth:`~ServingEngine.import_blocks` are called between steps (by
-every rank of a tp engine, in the same order: an export gathers over
-tp).
+The loop thread: :meth:`ServingEngine.serve_forever` steps the engine
+until told to stop (on the engine's card: CUDA's current device is per
+thread), and :meth:`ServingEngine.call_in_loop` marshals a control call
+(:meth:`~ServingEngine.update_weights`,
+:meth:`~ServingEngine.export_blocks`, :meth:`~ServingEngine.import_blocks`,
+:meth:`~ServingEngine.set_role`) from another thread onto it, serviced
+at the top of the next step — before the pipelined loop plans, so a
+tick already in flight completes on the state it was queued with.
+:class:`~distkeras_torch.serving.server.LMServer` runs that thread and
+:meth:`ServingEngine.watchdog` guards it. Without a loop thread those
+calls are made between steps (by every rank of a tp engine, in the same
+order: an export gathers over tp).
 """
 
 from __future__ import annotations
@@ -100,6 +105,7 @@ from __future__ import annotations
 import contextlib
 import sys
 import tempfile
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -128,6 +134,7 @@ from distkeras_torch.serving.weights import validate_like
 from distkeras_torch.telemetry.events import EventJournal
 from distkeras_torch.telemetry.flight import FlightRecorder
 from distkeras_torch.telemetry.runtime import MemoryWatermarks
+from distkeras_torch.telemetry.slo import StallWatchdog
 from distkeras_torch.utils.device import resolve_device
 from distkeras_torch.utils.metrics import MetricsWriter
 
@@ -291,9 +298,16 @@ def _ngram_propose(history: np.ndarray, k: int, max_n: int = 3):
     return np.zeros(k, np.int32), 0
 
 
-def _not_ported(feature: str, item: str):
-    return NotImplementedError(
-        f"{feature} is not ported to the PyTorch engine yet (ROADMAP {item})")
+def _host_tensor(a) -> torch.Tensor:
+    """A block leaf as a CPU tensor: a tensor as is, a numpy array (read
+    off the wire: read-only, bf16 as ``ml_dtypes``) through a copy."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(a.copy())
 
 
 _IDLE_CFG = (0.0, None, None)  # free slots sample greedily into the void
@@ -455,9 +469,10 @@ class ServingEngine:
         raises without one). Must be the model's (and the draft's)
         device.
 
-    Drive it with :meth:`step` or :meth:`drain`; ``submit`` is
-    thread-safe, stepping is single-threaded by design (the TCP front
-    end that steps it from a loop thread is ROADMAP A11).
+    Drive it with :meth:`step` or :meth:`drain`, or from a loop thread
+    with :meth:`serve_forever`; ``submit`` is thread-safe, stepping is
+    single-threaded by design, and other threads reach the engine's
+    state through :meth:`call_in_loop`.
     """
 
     def __init__(self, model, slots: int = 4,
@@ -530,6 +545,9 @@ class ServingEngine:
         self.role = role
         self.multi_step_k = multi_step_k
         self.multi_step_fallbacks: dict = {}
+        # control calls marshalled onto the loop thread (call_in_loop):
+        # the pool, radix index, caches and weights are loop-thread-only
+        self._ctrl: deque = deque()
         self.dispatches = 0
         self.pipeline = pipeline
         self._pending: deque = deque()
@@ -937,6 +955,7 @@ class ServingEngine:
 
     @torch.no_grad()
     def _step(self) -> bool:
+        self._drain_ctrl()
         if self.pipeline:
             return self._pipelined_step()
         n_prefills = self._admit()
@@ -998,6 +1017,54 @@ class ServingEngine:
             self._reconcile(self._pending.popleft())
         return (occupied or self.scheduler.depth() > 0
                 or bool(self._pending))
+
+    def serve_forever(self, stop: threading.Event,
+                      idle_sleep: float = 0.002):
+        """Step until ``stop`` is set, dozing briefly when idle: the
+        engine's loop thread. It runs on the engine's card (CUDA's
+        current device is per thread). A step that raises ends the loop
+        with the error, after :meth:`step` wrote its flight
+        postmortem."""
+        with (torch.cuda.device(self._device)
+              if self._device.type == "cuda" else contextlib.nullcontext()):
+            while not stop.is_set():
+                if not self.step():
+                    stop.wait(idle_sleep)
+
+    def _drain_ctrl(self):
+        """Service queued control calls at the top of each step: the
+        pool, radix index, caches and weights belong to the loop thread,
+        so cross-thread work is marshalled here instead of locked."""
+        while self._ctrl:
+            try:
+                fn, ev, box = self._ctrl.popleft()
+            except IndexError:  # pragma: no cover - single consumer
+                break
+            try:
+                box["val"] = fn()
+            except BaseException as e:
+                box["err"] = e
+            finally:
+                ev.set()
+
+    def call_in_loop(self, fn, timeout: float = 60.0):
+        """Run ``fn()`` on the engine loop thread between ticks and
+        return its result (exceptions propagate): the thread-safe entry
+        point for :meth:`update_weights`, :meth:`export_blocks`,
+        :meth:`import_blocks` and :meth:`set_role` from server handler
+        threads. Needs the loop (:meth:`serve_forever`), or a caller
+        driving :meth:`step`, to be running."""
+        ev = threading.Event()
+        box: dict = {}
+        self._ctrl.append((fn, ev, box))
+        if not ev.wait(timeout):
+            raise TimeoutError(
+                f"engine loop did not service the control call within "
+                f"{timeout}s (is serve_forever running?)"
+            )
+        if "err" in box:
+            raise box["err"]
+        return box.get("val")
 
     def drain(self, timeout: float = 120.0):
         """Step until queue and slots are empty (bench/test helper)."""
@@ -1141,8 +1208,24 @@ class ServingEngine:
                 if h not in self._inflight_restores:
                     self.host.discard(h)
 
-    def watchdog(self, timeout_s: float = 30.0, interval_s=None):
-        raise _not_ported("the stall watchdog (telemetry.slo)", "A11")
+    def watchdog(self, timeout_s: float = 30.0,
+                 interval_s: Optional[float] = None) -> StallWatchdog:
+        """A :class:`~distkeras_torch.telemetry.StallWatchdog` wired to
+        this engine: when the tick counter stops advancing for
+        ``timeout_s`` while work is pending (occupied slots or queued
+        requests), it dumps a flight postmortem — a wedged engine
+        updates no metric, so threshold alerts cannot see it. The
+        caller owns the lifecycle (``.start()`` / ``.stop()``);
+        :class:`~distkeras_torch.serving.server.LMServer` does this when
+        given ``watchdog_timeout_s``."""
+        return StallWatchdog(
+            progress=lambda: self.ticks,
+            busy=lambda: (any(st is not None for st in self._slots)
+                          or self.scheduler.depth() > 0),
+            timeout_s=timeout_s, interval_s=interval_s,
+            flight=self.flight, registry=self.registry,
+            tracer=self.tracer,
+        )
 
     # -- admission ------------------------------------------------------------
 
@@ -1645,7 +1728,7 @@ class ServingEngine:
         def host_leaves(bl):
             out = []
             for a, leaf in zip(bl, leaves):
-                t = torch.as_tensor(a).to(dtype=leaf.dtype, copy=True)
+                t = _host_tensor(a).to(dtype=leaf.dtype, copy=True)
                 out.append(t.pin_memory() if cuda else t)
             return out
 
@@ -1904,13 +1987,16 @@ class ServingEngine:
         """This step's window width: the granted k (> 1) when the engine
         is in all-decode steady state, else 1 with the blocking condition
         counted as a fallback reason — a speculative engine (its plan
-        needs each window's accepted tokens), a host-tier restore queued
-        or holding a row, a prompt chunk to deal, or a budget the
-        scheduler cannot spare for the window."""
+        needs each window's accepted tokens), a staged control call (a
+        weight push or KV export lands between dispatches), a host-tier
+        restore queued or holding a row, a prompt chunk to deal, or a
+        budget the scheduler cannot spare for the window."""
         if self.multi_step_k <= 1:
             return 1
         if self.spec:
             reason = "spec"
+        elif self._ctrl:
+            reason = "control"
         elif (self._restore_queue or self._inflight_restores
               or any(st is not None and st.restoring is not None
                      for st in self._slots)):

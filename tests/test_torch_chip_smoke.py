@@ -539,6 +539,91 @@ def test_phase10_modes_at_narrow_width(monkeypatch):
     assert out["update_weights_pipelined"]["version"] == 2
 
 
+def test_phase14_server_at_narrow_width(monkeypatch):
+    """Phase 14 on the CPU (phase 10's narrow bf16 flagship and cut mix,
+    phase 4's narrow f32 model, the kernels stood in): 14a serves the mix
+    over loopback on both layouts with the launch, route, op and thread
+    checks; 14b holds greedy streams over TCP to generate() through a
+    mid-stream push and a KV migration, and renders the watchdog's
+    postmortem; every stop() joins its threads."""
+    import numpy as np
+    import torch
+
+    from distkeras_torch.serving import LMServer, ServingClient
+    from distkeras_torch.telemetry import report
+
+    pa, sp = _standin_kernels(monkeypatch)
+    _narrow_exact(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "FLAGSHIP", dict(
+        vocab_size=128, d_model=128, num_heads=2, num_kv_heads=1,
+        num_layers=2, max_len=256, pos_emb="rope", cache_dtype="int8"))
+    monkeypatch.setattr(chip_smoke, "SYSTEM_PREFIX", 32)
+    monkeypatch.setattr(chip_smoke, "PROMPT_LENS", (40, 100, 20, 70, 9))
+    dk = _serving_dk()
+    dk.update(LMServer=LMServer, ServingClient=ServingClient, report=report)
+    mix = dk["serving_requests"]
+    dk["serving_requests"] = lambda *a: [
+        (p, dict(c, max_new_tokens=8)) for p, c in mix(*a)]
+    phase3, _, _, direct = chip_smoke.serving_phase(torch, np, dk, pa, sp)
+    out, launches = chip_smoke.server_phase(torch, np, dk, pa, sp, phase3,
+                                            direct)
+    a = out["14a"]
+    assert launches["paged_attention"] >= a["paged"]["ticks"] * 2 > 0
+    assert launches["splash_prefill"] >= a["slot"]["chunk_ticks"] * 2 > 0
+    for lay in ("paged", "slot"):
+        r = a[lay]
+        assert r["tokens"] == 5 * 8 and r["tok_per_s"] > 0
+        assert r["client_ttft_ms"]["p99"] >= r["client_ttft_ms"]["p50"] > 0
+        assert r["client_itl_ms"]["p50"] is not None
+        assert all(r["ops"].values()) and r["stalls"] == 0
+        assert 0.0 <= r["greedy_match_vs_direct"] <= 1.0
+        assert r["direct_tok_per_s"] == phase3[lay]["tok_per_s"]
+    b = out["14b"]
+    for lay in ("paged", "slot"):
+        assert b[lay]["greedy_equal"] and b[lay]["after_push_greedy_equal"]
+        assert b[lay]["push"]["version"] == 2 and b[lay]["kernel_launches"]
+        assert 1 <= b[lay]["streams_across_push"] <= 6
+    assert b["migrate"]["stream_equal"] and b["migrate"]["imported"] > 0
+    assert b["watchdog"]["stalls"] == 1 and b["watchdog"]["rendered_lines"]
+    assert out["thread_errors"] == 0
+
+
+@pytest.mark.parametrize("fault", ["thread_raised", "stale_prefix"])
+def test_phase14_fails_on_an_injected_fault(monkeypatch, tmp_path, fault):
+    """Phase 14 fails when a server thread raised (collected through
+    threading.excepthook) although its streams ended, and when a weight
+    push keeps the prefix cache computed under the old weights (the
+    reference's behaviour, which the port retires)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from distkeras_torch.serving import LMServer, ServingClient, ServingEngine
+    from distkeras_torch.telemetry import report
+
+    pa, sp = _standin_kernels(monkeypatch)
+    dk = _serving_dk()
+    dk.update(LMServer=LMServer, ServingClient=ServingClient, report=report)
+    if fault == "thread_raised":
+        def flagship(*a):
+            t = threading.Thread(target=lambda: 1 / 0, name="handler")
+            t.start()
+            t.join(10)
+            return {}, {}
+
+        monkeypatch.setattr(chip_smoke, "server_flagship", flagship)
+        monkeypatch.setattr(chip_smoke, "server_exact", lambda *a: {})
+        with pytest.raises(AssertionError, match="threads raised"):
+            chip_smoke.server_phase(torch, np, dk, pa, sp, {}, {})
+        return
+    _narrow_exact(monkeypatch)
+    monkeypatch.setattr(ServingEngine, "_retire_prefix_cache",
+                        lambda self: None)
+    with pytest.raises(AssertionError, match="after a wire push"):
+        chip_smoke.server_exact(torch, np, dk, pa, sp, str(tmp_path))
+
+
 def test_tier_sizes_follow_the_serve_bench_rule():
     """The host-tier run's pools by serve_bench.py's rule at its full
     configuration: 4 prefixes of 32 blocks, worst case 50 blocks a slot

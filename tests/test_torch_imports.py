@@ -4,7 +4,8 @@ slices alike) loads no ``jax``, ``flax``, ``optax`` or ``distkeras_tpu``
 module, nor ``keras``, which may load jax (checked in a fresh
 interpreter, since this test process imports both packages),
 and ``chip_smoke.py`` imports none of them either (checked on its
-syntax tree), nor do ``ab_kernels.py`` and ``ab_engine.py``. Importing a module
+syntax tree), nor do ``ab_kernels.py``, ``ab_engine.py`` and
+``ab_server.py``. Importing a module
 builds no kernel and needs no card."""
 
 import ast
@@ -88,7 +89,13 @@ def test_port_modules_import_no_jax():
                  "distkeras_torch.streaming",
                  "distkeras_torch.runtime",
                  "distkeras_torch.job_deployment",
-                 "distkeras_torch.utils.keras_import"):
+                 "distkeras_torch.utils.keras_import",
+                 "distkeras_torch.serving.server",
+                 "distkeras_torch.telemetry.chrome",
+                 "distkeras_torch.telemetry.timeseries",
+                 "distkeras_torch.telemetry.slo",
+                 "distkeras_torch.telemetry.exposition",
+                 "distkeras_torch.telemetry.report"):
         assert must in res["modules"]
 
 
@@ -113,7 +120,8 @@ def test_chip_smoke_imports_no_jax():
     assert not roots & set(FORBIDDEN)
 
 
-@pytest.mark.parametrize("script", ["ab_kernels.py", "ab_engine.py"])
+@pytest.mark.parametrize("script", ["ab_kernels.py", "ab_engine.py",
+                                    "ab_server.py"])
 def test_ab_script_imports_no_jax(script):
     """The parent-against-change timing scripts load the port and
     chip_smoke.py, nothing of the reference package."""
@@ -131,3 +139,20 @@ def test_port_sources_import_no_jax():
             if f.endswith(".py"):
                 roots = _imported_roots(os.path.join(dirpath, f))
                 assert not roots & set(FORBIDDEN), f
+
+
+TELEMETRY_COPIES = ("events", "flight", "registry", "runtime", "trace",
+                    "chrome", "timeseries", "slo", "exposition", "report")
+
+
+@pytest.mark.parametrize("name", TELEMETRY_COPIES)
+def test_stdlib_telemetry_copies_match_reference(name):
+    """The port's stdlib-only telemetry modules are copies of the
+    reference's: each file's text equals the reference's once
+    ``distkeras_tpu`` is replaced by ``distkeras_torch``."""
+    with open(os.path.join(ROOT, "distkeras_tpu", "telemetry",
+                           name + ".py")) as f:
+        ref = f.read().replace("distkeras_tpu", "distkeras_torch")
+    with open(os.path.join(ROOT, "distkeras_torch", "telemetry",
+                           name + ".py")) as f:
+        assert f.read() == ref

@@ -156,14 +156,19 @@ def test_deferred_engine_options_raise(kw, match):
         ServingEngine(pm, **kw)
 
 
-@pytest.mark.parametrize("method,args,item", [
-    ("watchdog", (), "A11"),
-])
-def test_deferred_engine_methods_raise(method, args, item):
+@pytest.mark.parametrize("item", ["A11c"])
+def test_deferred_engine_methods_raise(item):
+    """The engine's loop thread and watchdog are ported
+    (tests/test_torch_server.py); serving a tensor-parallel (mesh=)
+    engine over TCP is not, and LMServer refuses one naming its ROADMAP
+    item."""
+    from distkeras_torch.serving import LMServer
+
     _, _, pm = _pair()
-    eng = ServingEngine(pm, device="cpu", registry=telemetry.MetricRegistry())
+    eng = ServingEngine(pm, mesh=local_mesh({"model": 1}),
+                        registry=telemetry.MetricRegistry())
     with pytest.raises(NotImplementedError, match=item):
-        getattr(eng, method)(*args)
+        LMServer(eng)
 
 
 def test_engine_refuses_a_model_on_another_device():
