@@ -8,8 +8,9 @@ CUDA is unavailable or when the port's package is not beside it.
 (its yardstick), ``python3 chip_smoke.py --phase13`` phase 13 alone
 after phases 6 and 6b (its yardsticks): on a host of two cards or more
 their ranks run over NCCL. ``python3 chip_smoke.py --phase14`` runs
-phase 14 alone after phase 3 (its yardstick). Phase 14 runs right after
-phase 4 in the whole smoke.
+phase 14 alone after phase 3 (its yardstick), ``python3 chip_smoke.py
+--phase15`` phase 15 alone after phase 3 (its yardstick). Phases 14 and
+15 run right after phase 4 in the whole smoke.
 
 Phases (any failure exits non-zero):
 
@@ -312,10 +313,41 @@ Phases (any failure exits non-zero):
    ``report.report_flight`` renders as a stall. Any exception that ends
    a server, handler, pump or loop thread fails the phase (collected
    through ``threading.excepthook``).
+15. **The fleet.** (15a) Phase 3's flagship and mix through
+   ``Router(policy="affine")`` over three paged replicas on the card,
+   each over a model of its own (int8 cache, 8 slots, 64-token chunks;
+   a throwaway warm-up request each), 4 clients as in phase 14: every
+   request ends ``length`` with its full count; the router's routed
+   counts (per replica, equal to what each replica served) and spills
+   account for all 16; the 12 prompts sharing the system prefix land on
+   one replica unless routed as a spill; the paged kernel's launches
+   (zeroed just before) cover every layer of every tick of every
+   replica, all bf16 split routes. Then the same through one ``prefill``
+   replica (monolithic prefill) and two ``decode`` replicas with
+   ``disagg_prompt_tokens=512``: the router's ``kv_migrations`` equals
+   the count of prompts of >= 512 tokens, each a one-token run on the
+   prefill replica. Printed, not gated: fleet tok/s, client TTFT and
+   inter-token p50/p99, ms a tick a replica, beside phase 3's engine
+   and phase 14a's server (when it ran). (15b) Phase 4's f32 model with
+   the kernels on, pipelined paged replicas: greedy streams through the
+   router equal ``generate()`` and seeded sampled ones a solo engine's;
+   (1) with every stream's first token out, the replica holding the most
+   streams is held and stopped: every stream completes equal, ``failed``
+   0, at least one ``replayed``; (2) ``rolling_update`` to phase 4's
+   swap weights with streams in flight: never fewer than n-1 routable,
+   version 2 everywhere, no stream dropped, greedy requests after it
+   equal an engine built on the new weights; (3) a prefill -> decode
+   migration gives streams equal to ``generate()``; (4) an
+   ``Autoscaler`` whose ``spawn`` builds a fresh server on the card
+   scales up under queue pressure and back down, and ``replay()``
+   reproduces its decisions. Replicas never share a model's parameters
+   (checked); any exception in a router, manager, server, pump or loop
+   thread fails the phase.
 
 Output: JSON lines per phase, the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line (the serving rows carry every timed shape
-in ``shapes`` and phase 14a's launches in ``server_launches``; the three forward rows and the causal and
+in ``shapes`` and phase 14a's launches in ``server_launches``, the paged
+row phase 15a's in ``fleet_launches``; the three forward rows and the causal and
 pair dq and dk/dv rows also carry their ``build`` facts; the dq and
 dk/dv rows carry ``bwd_ms``, the two as the backward runs them with one
 prep pass, ``bwd_library_ms``, SDPA's backward, and ``sdpa_backend``;
@@ -566,6 +598,11 @@ SERVER_CLIENTS = 4
 FLAGSHIP_WATCHDOG_S = 30.0
 WATCHDOG_S = 0.5
 SERVER_STOP_S = 10.0
+# phase 15: the fleet. Three replicas, a model each; 15a's disaggregated
+# pass sends prompts of at least this many tokens through the prefill
+# replica
+FLEET_REPLICAS = 3
+FLEET_DISAGG_TOKENS = 512
 
 
 def _fail(msg):
@@ -4135,31 +4172,20 @@ def _pct(np, xs, q):
     return float(np.percentile(xs, q)) if xs else None
 
 
-def wire_serve(torch, np, dk, model, requests, **kw):
-    """Serve ``requests`` through an ``LMServer`` on loopback (8 slots,
-    64-token chunks unless ``kw`` says otherwise; an SLO monitor and the
-    stall watchdog at ``FLAGSHIP_WATCHDOG_S`` armed): ``SERVER_CLIENTS``
-    clients, each submitting its share of the requests from one thread
-    per request, which reads the stream frame by frame and stamps each
-    frame's arrival. Every request must end ``length`` with its full count of
-    in-vocab tokens. Returns (summary, streams, engine, server, a
-    client, request ids) with the server still up; the caller stops
-    it."""
+def drive_clients(torch, np, dk, port, requests, V, phase):
+    """``SERVER_CLIENTS`` clients on ``port`` (a server or a router), each
+    submitting its share of ``requests`` from one thread per request,
+    which reads the stream frame by frame and stamps each frame's
+    arrival. Every request must end ``length`` with its full count of
+    in-vocab tokens. Returns (per request ``(tokens, reason, submit
+    time, frame stamps, rid, trace id)``, wall seconds, the first
+    client, still open; the caller closes it)."""
     import threading
 
-    kw.setdefault("slots", 8)
-    kw.setdefault("prefill_chunk", 64)
-    tel = dk["telemetry"]
-    eng = dk["ServingEngine"](model, device=DEV,
-                              registry=tel.MetricRegistry(),
-                              tracer=tel.Tracer(), **kw)
-    slo = tel.SloMonitor(tel.default_serving_rules(),
-                         registry=eng.registry, tracer=eng.tracer)
-    srv = dk["LMServer"](eng, slo=slo,
-                         watchdog_timeout_s=FLAGSHIP_WATCHDOG_S)
-    srv.start()
     clients = SERVER_CLIENTS
-    cls = [_client(dk, srv) for _ in range(clients)]
+    cls = [dk["ServingClient"]("127.0.0.1", port, timeout=300.0,
+                               request_timeout=300.0)
+           for _ in range(clients)]
     n = len(requests)
     out = [None] * n
     errors = []
@@ -4177,7 +4203,7 @@ def wire_serve(torch, np, dk, model, requests, **kw):
                     toks.append(val)
                 else:
                     reason = val
-            out[i] = (toks, reason, t_sub, stamps, rid)
+            out[i] = (toks, reason, t_sub, stamps, rid, cl.trace_of(rid))
         except Exception as e:  # reported below, with the request
             errors.append(f"request {i}: {type(e).__name__}: {e}")
 
@@ -4193,33 +4219,61 @@ def wire_serve(torch, np, dk, model, requests, **kw):
     for c in cls[1:]:
         c.close()
     if errors or any(t.is_alive() for t in threads):
-        raise AssertionError(f"server phase: client errors {errors}")
-    V = model.vocab_size
+        raise AssertionError(f"{phase}: client errors {errors}")
     for i, ((_, c), (toks, reason, *_)) in enumerate(zip(requests, out)):
         if reason != "length" or len(toks) != c["max_new_tokens"] or not all(
                 0 <= t < V for t in toks):
             raise AssertionError(
-                f"server phase: request {i} ended {reason!r} after "
+                f"{phase}: request {i} ended {reason!r} after "
                 f"{len(toks)} of {c['max_new_tokens']} tokens")
+    return out, wall, cls[0]
+
+
+def client_latency(np, out):
+    """Client TTFT and inter-token p50 / p99 (ms) of ``drive_clients``'s
+    streams."""
     ttft = [(o[3][0] - o[2]) * 1e3 for o in out]
     itl = [(b - a) * 1e3 for o in out for a, b in zip(o[3], o[3][1:])]
-    st = cls[0].stats()
+    return ({"p50": _pct(np, ttft, 50), "p99": _pct(np, ttft, 99)},
+            {"p50": _pct(np, itl, 50), "p99": _pct(np, itl, 99)})
+
+
+def wire_serve(torch, np, dk, model, requests, **kw):
+    """Serve ``requests`` through an ``LMServer`` on loopback (8 slots,
+    64-token chunks unless ``kw`` says otherwise; an SLO monitor and the
+    stall watchdog at ``FLAGSHIP_WATCHDOG_S`` armed), driven by
+    ``drive_clients``. Returns (summary, streams, engine, server, a
+    client, request ids) with the server still up; the caller stops
+    it."""
+    kw.setdefault("slots", 8)
+    kw.setdefault("prefill_chunk", 64)
+    tel = dk["telemetry"]
+    eng = dk["ServingEngine"](model, device=DEV,
+                              registry=tel.MetricRegistry(),
+                              tracer=tel.Tracer(), **kw)
+    slo = tel.SloMonitor(tel.default_serving_rules(),
+                         registry=eng.registry, tracer=eng.tracer)
+    srv = dk["LMServer"](eng, slo=slo,
+                         watchdog_timeout_s=FLAGSHIP_WATCHDOG_S)
+    srv.start()
+    out, wall, cl = drive_clients(torch, np, dk, srv.port, requests,
+                                  model.vocab_size, "server phase")
+    ttft, itl = client_latency(np, out)
+    st = cl.stats()
     summary = {
-        "requests": n, "clients": clients, "ticks": st["ticks"],
+        "requests": len(requests), "clients": SERVER_CLIENTS,
+        "ticks": st["ticks"],
         "chunk_ticks": sum(1 for rec in eng.metrics.records
                            if rec.get("prefill_tokens", 0) > 0),
         "tokens": st["tokens_generated"], "wall_s": wall,
         "tok_per_s": st["tokens_generated"] / wall,
         "ms_per_tick": wall * 1e3 / max(st["ticks"], 1),
-        "client_ttft_ms": {"p50": _pct(np, ttft, 50),
-                           "p99": _pct(np, ttft, 99)},
-        "client_itl_ms": {"p50": _pct(np, itl, 50),
-                          "p99": _pct(np, itl, 99)},
+        "client_ttft_ms": ttft, "client_itl_ms": itl,
         "engine_ttft_ms": st["ttft_ms"],
         "prefix_hit_tokens": st.get("prefix_hit_tokens"),
         "stalls": eng.registry.counter("slo_stalls_total").value,
     }
-    return summary, [o[0] for o in out], eng, srv, cls[0], [o[4] for o in out]
+    return summary, [o[0] for o in out], eng, srv, cl, [o[4] for o in out]
 
 
 def server_ops(np, srv, client, rid):
@@ -4342,13 +4396,8 @@ def server_exact(torch, np, dk, pa, sp, workdir):
         0, len(p):].tolist() for p, c in greedy]
 
     def server(m, **kw):
-        kw.setdefault("slots", 8)
-        kw.setdefault("prefill_chunk", 64)
-        eng = dk["ServingEngine"](m, device=DEV,
-                                  registry=tel.MetricRegistry(),
-                                  tracer=tel.Tracer(), **kw)
-        srv = dk["LMServer"](eng).start()
-        return eng, srv, _client(dk, srv)
+        srv = start_server(dk, m, **kw)
+        return srv.engine, srv, _client(dk, srv)
 
     res = {}
     for layout, lkw in (("paged", dict(paged=True, block_size=16)),
@@ -4498,16 +4547,459 @@ def server_phase(torch, np, dk, pa, sp, phase3, direct):
     return {"14a": flagship, "14b": exact, "thread_errors": 0}, launches
 
 
+def start_server(dk, model, **kw):
+    """A started ``LMServer`` over an engine of ``model`` on the card (8
+    slots, 64-token chunks unless ``kw`` says otherwise)."""
+    kw.setdefault("slots", 8)
+    kw.setdefault("prefill_chunk", 64)
+    tel = dk["telemetry"]
+    eng = dk["ServingEngine"](model, device=DEV,
+                              registry=tel.MetricRegistry(),
+                              tracer=tel.Tracer(), **kw)
+    return dk["LMServer"](eng).start()
+
+
+def fleet_router(dk, servers, **kw):
+    """A started ``Router`` over ``servers`` (named r0, r1, ...), once
+    every replica is probed routable with its role known."""
+    tel = dk["telemetry"]
+    kw = {"block_size": 16, "poll_interval": 0.1,
+          "registry": tel.MetricRegistry(), "tracer": tel.Tracer(), **kw}
+    router = dk["Router"]([("127.0.0.1", s.port, f"r{i}")
+                           for i, s in enumerate(servers)], **kw).start()
+    deadline = time.monotonic() + 60
+    while len(router.manager.routable()) < len(servers):
+        if time.monotonic() > deadline:
+            raise AssertionError("fleet phase: replicas never routable")
+        router.manager.probe_all()
+        time.sleep(0.02)
+    return router
+
+
+def _stop_router(router):
+    t0 = time.perf_counter()
+    router.stop(timeout=SERVER_STOP_S)
+    alive = [t.name for t in router._threads if t.is_alive()]
+    if alive:
+        raise AssertionError(f"fleet phase: the router's stop() left "
+                             f"threads {alive}")
+    return time.perf_counter() - t0
+
+
+def _own_models(models):
+    """Fail if two replicas' models share a parameter: a push to one
+    replica would then swap the others' weights too."""
+    seen = {}
+    for i, m in enumerate(models):
+        for p in m.parameters():
+            j = seen.setdefault(p.data_ptr(), i)
+            if j != i:
+                raise AssertionError(f"fleet phase: replicas {j} and {i} "
+                                     f"share their model's parameters")
+
+
+def _settle(engines, done0, want, timeout=30.0):
+    """Requests completed on each engine since ``done0``, once they sum
+    to ``want`` (an engine counts a request after its last frame is
+    out)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        served = [e.requests_completed - d for e, d in zip(engines, done0)]
+        if sum(served) >= want or time.monotonic() > deadline:
+            return served
+        time.sleep(0.01)
+
+
+def _tick_ms(np, eng, since):
+    """Mean ms of ``eng``'s ticks after tick ``since`` (its flight
+    recorder), None when it ticked none."""
+    ms = [r["tick_ms"] for r in eng.flight.snapshots()
+          if r.get("kind") == "tick" and r.get("tick", 0) > since]
+    return float(np.mean(ms)) if ms else None
+
+
+def _routing(router):
+    """(routed a replica, routed by decision) from the router's
+    counters."""
+    by_rep, by_dec = {}, {}
+    for s in router.registry.get(
+            "router_requests_routed_total").snapshot()["series"]:
+        r, d = s["labels"]["replica"], s["labels"]["decision"]
+        by_rep[r] = by_rep.get(r, 0) + int(s["value"])
+        by_dec[d] = by_dec.get(d, 0) + int(s["value"])
+    return by_rep, by_dec
+
+
+def _route_of(client, tid):
+    """(replica, decision) of the last ``router.route`` span of a
+    request's merged chain."""
+    spans = [s for s in client.trace_dump(trace=tid)
+             if s["span"] == "router.route"]
+    return spans[-1]["replica"], spans[-1]["decision"]
+
+
+def fleet_flagship(torch, np, dk, pa, sp, phase3, direct, server14=None):
+    """15a: phase 3's flagship and mix through ``Router(policy=
+    'affine')`` over three paged replicas (a model each, int8 cache, 8
+    slots, 64-token chunks), 4 clients; then one ``prefill`` replica
+    (monolithic prefill) and two ``decode`` replicas with
+    ``disagg_prompt_tokens=FLEET_DISAGG_TOKENS``. Launch counts zeroed
+    just before each counted run."""
+    models = [dk["get_model"]("transformer_lm", dtype=torch.bfloat16,
+                              device=DEV, seed=0, **FLAGSHIP)
+              for _ in range(FLEET_REPLICAS)]
+    _own_models(models)
+    L, V = models[0].num_layers, models[0].vocab_size
+    requests = dk["serving_requests"](V, SYSTEM_PREFIX, PROMPT_LENS)
+    group = [i for i, (p, _) in enumerate(requests) if len(p) > SYSTEM_PREFIX]
+    longs = [i for i, (p, _) in enumerate(requests)
+             if len(p) >= FLEET_DISAGG_TOKENS]
+    res, launches = {}, {}
+    for name, roles, rkw in (
+            ("uniform", ("mixed",) * FLEET_REPLICAS, {"policy": "affine"}),
+            ("disagg", ("prefill",) + ("decode",) * (FLEET_REPLICAS - 1),
+             {"policy": "affine",
+              "disagg_prompt_tokens": FLEET_DISAGG_TOKENS})):
+        servers = [start_server(dk, m, paged=True, block_size=16, role=r,
+                                **({"prefill_chunk": None}
+                                   if r == "prefill" else {}))
+                   for m, r in zip(models, roles)]
+        # a warm-up request a replica (the allocator, the threads), on a
+        # throwaway prompt
+        wrng = np.random.default_rng(999)
+        for s in servers:
+            c = _client(dk, s)
+            c.result(c.generate(wrng.integers(0, V, size=96).astype(
+                np.int32), max_new_tokens=4))
+            c.close()
+        router = fleet_router(dk, servers, **rkw)
+        engines = [s.engine for s in servers]
+        _settle(engines, [0] * len(engines), len(engines))
+        ticks0 = [e.ticks for e in engines]
+        done0 = [e.requests_completed for e in engines]
+        _zero_counts(pa, sp)
+        out, wall, cl = drive_clients(torch, np, dk, router.port, requests,
+                                      V, f"fleet phase ({name})")
+        st = cl.stats()["router"]
+        served = _settle(engines, done0, len(requests) + int(
+            st["kv_migrations"]))
+        used = pa.paged_attention.launches
+        routes = dict(pa.paged_attention.routes)
+        ticks = [e.ticks - t for e, t in zip(engines, ticks0)]
+        by_rep, by_dec = _routing(router)
+        spilled = int(st["spilled"])
+        place = [_route_of(cl, o[5]) for o in out]
+        cl.close()
+        names = [f"r{i}" for i in range(len(servers))]
+        if sum(by_rep.values()) != len(requests) or any(
+                by_rep.get(n, 0) != k for n, k, r in
+                zip(names, served, roles) if r != "prefill"):
+            raise AssertionError(f"fleet phase ({name}): routed {by_rep} "
+                                 f"(spilled {spilled}) against served "
+                                 f"{served}")
+        if name == "uniform":
+            homes = {place[i][0] for i in group if place[i][1] != "spill"}
+            if len(homes) != 1:
+                raise AssertionError(f"fleet phase: the prefix group went "
+                                     f"to {sorted(homes)} without a spill "
+                                     f"({[place[i] for i in group]})")
+        else:
+            migrations = int(st["kv_migrations"])
+            if migrations != len(longs) or served[0] != migrations:
+                raise AssertionError(
+                    f"fleet phase: {migrations} KV migrations, {served[0]} "
+                    f"prefill runs for {len(longs)} prompts of >= "
+                    f"{FLEET_DISAGG_TOKENS} tokens")
+        if used < sum(ticks) * L or any(t == 0 for t, k in zip(ticks, served)
+                                        if k):
+            raise AssertionError(f"fleet phase ({name}): {used} paged "
+                                 f"launches < ticks {ticks} x {L}")
+        if not routes or any("split_kernel" not in r for r in routes):
+            raise AssertionError(f"fleet phase ({name}): routes {routes} "
+                                 f"are not all the bf16 split kernels")
+        ttft, itl = client_latency(np, out)
+        streams = [o[0] for o in out]
+        tokens = sum(len(t) for t in streams)
+        res[name] = {
+            "replicas": dict(zip(names, roles)), "requests": len(requests),
+            "tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
+            "ticks": ticks, "served": served,
+            # each replica's own ticks (flight recorder: plan + device +
+            # streaming), not the wall over its ticks: a replica idles
+            # part of the run
+            "ms_per_tick": [_tick_ms(np, e, t) for e, t in zip(engines,
+                                                             ticks0)],
+            "client_ttft_ms": ttft, "client_itl_ms": itl,
+            "routed": by_rep, "decisions": by_dec, "spilled": spilled,
+            "prefix_group_replicas": sorted({place[i][0] for i in group}),
+            "kv_migrations": int(st["kv_migrations"]),
+            "launches": used, "routes": routes,
+            "greedy_match_vs_direct": greedy_match(requests, streams,
+                                                   direct["paged"]),
+        }
+        launches[name] = used
+        res[name]["stop_s"] = _stop_router(router) + sum(
+            _stop_server(s) for s in servers)
+        del engines
+    res["direct_tok_per_s"] = phase3["paged"]["tok_per_s"]
+    res["direct_ms_per_tick"] = phase3["paged"]["ms_per_tick"]
+    if server14:
+        res["server_tok_per_s"] = server14["tok_per_s"]
+        res["server_ms_per_tick"] = server14["ms_per_tick"]
+        res["server_client_ttft_ms"] = server14["client_ttft_ms"]
+        res["server_client_itl_ms"] = server14["client_itl_ms"]
+    del models
+    _free(torch)
+    return res, launches
+
+
+def _hold(eng):
+    """Hold ``eng``'s loop at the top of its next step (nothing is
+    emitted meanwhile); returns the Event that releases it."""
+    import threading
+
+    held, release = threading.Event(), threading.Event()
+
+    def hold():
+        held.set()
+        release.wait(120)
+
+    threading.Thread(target=eng.call_in_loop, args=(hold, 120.0),
+                     daemon=True).start()
+    if not held.wait(60):
+        raise AssertionError("fleet phase: the loop was never held")
+    return release
+
+
+def _fleet_refs(torch, np, dk, model, requests, solo):
+    """The streams each request must equal: ``generate()``'s for greedy
+    requests, the solo engine's ``solo`` for seeded sampled ones."""
+    return [dk["generate"](model, p[None], c["max_new_tokens"])[
+        0, len(p):].tolist() if c.get("temperature", 0.0) == 0.0 else s
+        for (p, c), s in zip(requests, solo)]
+
+
+def fleet_exact(torch, np, dk, pa, sp):
+    """15b: phase 4's f32 model with the kernels on, three pipelined
+    paged replicas behind the router: greedy streams equal
+    ``generate()``, seeded sampled ones a solo engine's, through a
+    failover, a rolling update, a disaggregated migration and an
+    ``Autoscaler`` that scales up and down with an exact ``replay()``."""
+    import threading
+
+    tel = dk["telemetry"]
+
+    def make(seed=3):
+        return dk["get_model"]("transformer_lm", dtype=torch.float32,
+                               device=DEV, seed=seed, **EXACT)
+
+    model, new = make(), make(8)
+    new_tree = dk["bridge"].params_to_jax(new)
+    requests = exact_requests(np, model.vocab_size)
+    kw = dict(paged=True, block_size=16)
+    _, solo, _ = serve(torch, np, dk, model, requests, **kw)
+    refs = _fleet_refs(torch, np, dk, model, requests, solo)
+    before = _launches(pa, sp)[0]
+    probe = dict(poll_interval=0.05, down_after=1, backoff_base=0.05)
+    res = {}
+
+    def fleet(n, **ekw):
+        models = [make() for _ in range(n)]
+        _own_models(models)
+        return [start_server(dk, m, **kw, **ekw) for m in models]
+
+    def streams(cl, reqs):
+        rids = [cl.generate(p, **c) for p, c in reqs]
+        frames = [cl.frames(r) for r in rids]
+        return frames, [next(f) for f in frames]
+
+    # (1) failover: every stream has its first token; the replica with
+    # the most streams in flight is held, then stopped
+    servers = fleet(FLEET_REPLICAS, pipeline=True)
+    router = fleet_router(dk, servers, **probe)
+    cl = _client(dk, router)
+    got = _wire_streams(np, cl, requests)
+    _differ(torch, np, model, requests, [t for t, _ in got], refs,
+            "streams through the router vs generate() / a solo engine",
+            phase="fleet phase")
+    frames, heads = streams(cl, requests)
+    by = router.stats()["router"]["inflight_by_replica"]
+    victim = max(by, key=by.get)
+    held = servers[int(victim[1:])]
+    release = _hold(held.engine)
+    time.sleep(0.2)  # frames already sent reach the router
+    on_victim = router.stats()["router"]["inflight_by_replica"][victim]
+    stopper = threading.Thread(target=held.stop, args=(SERVER_STOP_S,),
+                               daemon=True)
+    stopper.start()
+    after = [_rest_of_stream(h, f) for h, f in zip(heads, frames)]
+    release.set()
+    stopper.join(60)
+    _differ(torch, np, model, requests, [t for t, _ in after], refs,
+            f"streams across the failover of {victim}", phase="fleet phase")
+    fam = router.registry.get("router_requests_failed_over_total")
+    kinds = {s["labels"]["kind"]: int(s["value"])
+             for s in fam.snapshot()["series"]}
+    st = cl.stats()["router"]
+    if (st["failed"] != 0 or kinds.get("replayed", 0) < 1
+            or any(r != "length" for _, r in after)):
+        raise AssertionError(f"fleet phase: failover of {victim} "
+                             f"({on_victim} in flight): failed "
+                             f"{st['failed']}, failed over {kinds}, "
+                             f"reasons {[r for _, r in after]}")
+    res["failover"] = {"victim": victim, "in_flight": on_victim,
+                       "failed_over": kinds, "failed": int(st["failed"]),
+                       "streams_equal": True}
+    cl.close()
+    _stop_router(router)
+    for s in servers:
+        s.stop(SERVER_STOP_S)
+
+    # (2) a rolling update with streams in flight
+    servers = fleet(FLEET_REPLICAS, pipeline=True)
+    router = fleet_router(dk, servers, **probe)
+    cl = _client(dk, router)
+    frames, heads = streams(cl, requests)
+    low = [len(servers)]
+    watching = threading.Event()
+
+    def watch():
+        while not watching.is_set():
+            low[0] = min(low[0], len(router.manager.routable()))
+            time.sleep(0.002)
+
+    w = threading.Thread(target=watch, daemon=True)
+    w.start()
+    report = router.rolling_update(new_tree, version=2,
+                                   retry_timeout_s=120.0)
+    watching.set()
+    w.join(10)
+    mid = [_rest_of_stream(h, f) for h, f in zip(heads, frames)]
+    versions = [s.engine.weight_version for s in servers]
+    if (report["failed"] or versions != [2] * len(servers)
+            or low[0] < len(servers) - 1
+            or any(r != "length" or len(t) != c["max_new_tokens"]
+                   for (t, r), (_, c) in zip(mid, requests))):
+        raise AssertionError(f"fleet phase: rolling update {report}, "
+                             f"versions {versions}, at least {low[0]} "
+                             f"routable, streams "
+                             f"{[(len(t), r) for t, r in mid]}")
+    greedy = [(p, c) for p, c in requests if c.get("temperature", 0.0) == 0]
+    after = [t for t, _ in _wire_streams(np, cl, greedy)]
+    _, fresh, _ = serve(torch, np, dk, new, greedy, **kw)
+    _differ(torch, np, new, greedy, after, fresh,
+            "greedy after a rolling update vs an engine on the new weights",
+            phase="fleet phase")
+    res["rolling_update"] = {
+        "version": report["version"], "updated": report["updated"],
+        "swap_ms": report["swap_ms"], "min_routable": low[0],
+        "streams_across": len(mid), "after_greedy_equal": True}
+    cl.close()
+    _stop_router(router)
+    for s in servers:
+        _stop_server(s)
+
+    # (3) a prefill -> decode migration
+    servers = [start_server(dk, make(), role="prefill", prefill_chunk=None,
+                            **kw),
+               start_server(dk, make(), role="decode", **kw)]
+    router = fleet_router(dk, servers, disagg_prompt_tokens=64)
+    cl = _client(dk, router)
+    got = [t for t, _ in _wire_streams(np, cl, greedy)]
+    want = [r for (p, c), r in zip(requests, refs)
+            if c.get("temperature", 0.0) == 0]
+    _differ(torch, np, model, greedy, got, want,
+            "streams served from migrated KV vs generate()",
+            phase="fleet phase")
+    mig = {s["labels"]["outcome"]: int(s["value"]) for s in router.metrics()[
+        "serving_kv_migrations_total"]["series"]}
+    if mig.get("ok", 0) < 1:
+        raise AssertionError(f"fleet phase: no KV migration ({mig})")
+    res["disagg"] = {"migrations": mig, "streams_equal": True}
+    cl.close()
+    _stop_router(router)
+    for s in servers:
+        _stop_server(s)
+
+    # (4) the Autoscaler: one 1-slot replica under queue pressure, a
+    # fresh server spawned on the card, then a drain-and-retire
+    active = start_server(dk, make(), slots=1, **kw)
+    router = fleet_router(dk, [active], **probe)
+    spawned = []
+
+    def spawn():
+        spawned.append(start_server(dk, make(), slots=1, **kw))
+        return ("127.0.0.1", spawned[-1].port, f"r{len(spawned)}")
+
+    retired = []
+    auto = dk["Autoscaler"](router, spawn=spawn, retire=retired.append,
+                            registry=tel.MetricRegistry(),
+                            tracer=tel.Tracer(), min_replicas=1,
+                            max_replicas=2, queue_high=2.0, queue_low=0.5,
+                            up_consecutive=2, down_consecutive=2,
+                            cooldown_s=0.5, rebalance=False)
+    cl = _client(dk, router)
+    rids = [cl.generate(p, **c) for p, c in requests]
+    now, acts = 0.0, []
+    for phase_ in ("scale_up", "scale_down"):
+        for _ in range(40):
+            router.manager.probe_all()
+            a = auto.step(now=now)
+            now += 1.0
+            if a:
+                acts.append(a)
+                break
+            if phase_ == "scale_down":
+                time.sleep(0.05)
+        if phase_ == "scale_up":
+            got = [cl.result(r) for r in rids]
+            _differ(torch, np, model, requests, [t for t, _ in got], refs,
+                    "streams through the autoscaled fleet",
+                    phase="fleet phase")
+    kinds = [a["action"] for a in acts]
+    replay_ok = auto.replay() == auto.decisions()
+    if (kinds != ["scale_up", "scale_down"] or not all(a["ok"] for a in acts)
+            or not replay_ok or not retired
+            or len(router.manager.routable()) != 1):
+        raise AssertionError(f"fleet phase: autoscaler acted {acts}, "
+                             f"replay exact {replay_ok}, retired {retired}")
+    res["autoscaler"] = {"actions": kinds, "replay_exact": True,
+                         "retired": retired, "polls": len(auto.signal_log)}
+    cl.close()
+    _stop_router(router)
+    for s in [active] + spawned:
+        _stop_server(s)
+    res["kernel_launches"] = _launches(pa, sp)[0] - before
+    if res["kernel_launches"] == 0:
+        raise AssertionError("fleet phase (15b) ran without its kernel")
+    del model, new
+    _free(torch)
+    return res
+
+
+def fleet_phase(torch, np, dk, pa, sp, phase3, direct, server14=None):
+    """Phase 15: 15a then 15b, every thread's exceptions collected (any
+    fails the phase)."""
+    with _ThreadErrors() as errs:
+        flagship, launches = fleet_flagship(torch, np, dk, pa, sp, phase3,
+                                            direct, server14)
+        exact = fleet_exact(torch, np, dk, pa, sp)
+    if errs.seen:
+        raise AssertionError(f"fleet phase: threads raised {errs.seen}")
+    return {"15a": flagship, "15b": exact, "thread_errors": 0}, launches
+
+
 
 def main(phase12_only: bool = False, phase13_only: bool = False,
-         phase14_only: bool = False) -> int:
+         phase14_only: bool = False, phase15_only: bool = False) -> int:
     """The smoke (every phase), or with ``phase12_only`` phase 12 alone
     after phase 3, its yardstick (``chip_smoke.py --phase12``: the
     tensor-parallel ranks over NCCL on a host of several cards), with
     ``phase13_only`` phase 13 alone after phases 6 and 6b, its yardsticks
     (``chip_smoke.py --phase13``: over NCCL on several cards), or with
     ``phase14_only`` phase 14 alone after phase 3, its yardstick
-    (``chip_smoke.py --phase14``)."""
+    (``chip_smoke.py --phase14``), or with ``phase15_only`` phase 15
+    alone after phase 3, its yardstick (``chip_smoke.py --phase15``)."""
     try:
         import numpy as np
         import torch
@@ -4534,8 +5026,8 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
         from distkeras_torch.parallel.mesh import make_mesh
         from distkeras_torch.parallel.spmd import (make_lm_train_step,
                                                    make_moe_lm_train_step)
-        from distkeras_torch.serving import (LMServer, ServingClient,
-                                             ServingEngine)
+        from distkeras_torch.serving import (Autoscaler, LMServer, Router,
+                                             ServingClient, ServingEngine)
         from distkeras_torch.telemetry import report
         from distkeras_torch.trainers import LMTrainer
         from distkeras_torch.utils.losses import get_loss, get_optimizer
@@ -4557,7 +5049,7 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
     dk = {"telemetry": telemetry, "get_model": get_model, "bridge": bridge,
           "generate": generate, "ServingEngine": ServingEngine,
           "LMServer": LMServer, "ServingClient": ServingClient,
-          "report": report, "serving_requests": serving_requests,
+          "Router": Router, "Autoscaler": Autoscaler, "report": report, "serving_requests": serving_requests,
           "make_lm_train_step": make_lm_train_step,
           "make_moe_lm_train_step": make_moe_lm_train_step,
           "get_optimizer": get_optimizer, "lm_step_flops": lm_step_flops,
@@ -4624,6 +5116,20 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})
         return 0
+    if phase15_only:
+        t0 = time.perf_counter()
+        serving, _, _, chunked = serving_phase(torch, np, dk, pa, sp)
+        serving["seconds"] = time.perf_counter() - t0
+        _emit({"serving_phase": serving})
+        t0 = time.perf_counter()
+        fleet, _ = fleet_phase(torch, np, dk, pa, sp, serving, chunked)
+        fleet["seconds"] = time.perf_counter() - t0
+        _emit({"fleet_phase": fleet})
+        print(smi, flush=True)
+        _emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
     if phase12_only:
         t0 = time.perf_counter()
         serving, _, _, chunked = serving_phase(torch, np, dk, pa, sp)
@@ -4672,6 +5178,12 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
                                            chunked)
     server["seconds"] = time.perf_counter() - t0
     _emit({"server_phase": server})
+
+    t0 = time.perf_counter()
+    fleet, fleet_launches = fleet_phase(torch, np, dk, pa, sp, serving,
+                                        chunked, server["14a"]["paged"])
+    fleet["seconds"] = time.perf_counter() - t0
+    _emit({"fleet_phase": fleet})
 
     t0 = time.perf_counter()
     causal = causal_cases(torch, F, fa)
@@ -4797,6 +5309,11 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
             "launches": launches[name],
             # phase 14a: the same mix behind an LMServer on this layout
             "server_launches": server_launches[name],
+            # phase 15a: the same mix through the router over three paged
+            # replicas, then the disaggregated fleet (paged row only: no
+            # slot replica runs there)
+            **({"fleet_launches": fleet_launches}
+               if name == "paged_attention" else {}),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": case["ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
@@ -4931,4 +5448,5 @@ if __name__ == "__main__":
         sys.exit(p13_worker(sys.argv[2], int(sys.argv[3])))
     sys.exit(main(phase12_only=sys.argv[1:] == ["--phase12"],
                   phase13_only=sys.argv[1:] == ["--phase13"],
-                  phase14_only=sys.argv[1:] == ["--phase14"]))
+                  phase14_only=sys.argv[1:] == ["--phase14"],
+                  phase15_only=sys.argv[1:] == ["--phase15"]))

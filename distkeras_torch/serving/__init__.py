@@ -4,8 +4,15 @@ prefill, the pipelined loop, multi-step decode, speculative decoding,
 the host-RAM KV tier, live weight swaps, KV export/import, the loop
 thread) with its scheduler, block pools and radix prefix index; the TCP
 front end (:class:`LMServer` / :class:`ServingClient`, the reference's
-wire); and the weight codec and feeders (:mod:`weights`). The router and
-fleet controller are not ported yet (ROADMAP A11b)."""
+wire); the weight codec and feeders (:mod:`weights`); and the
+multi-replica fabric above the single engine: the prefix-affinity
+:class:`Router` (:mod:`router`: load-aware spill, replay-based failover,
+drain, disaggregated prefill -> decode KV migration, rolling weight
+updates with an SLO-guarded rollback), replica health and load
+management with fleet stats/metrics aggregation (:mod:`fleet`), and the
+elastic :class:`Autoscaler` over its pure :class:`DecisionEngine`
+(:mod:`controller`). The three fabric modules are stdlib-only copies of
+the reference's."""
 
 from distkeras_torch.serving.engine import ServingEngine  # noqa: F401
 from distkeras_torch.serving.kvpool import (  # noqa: F401
@@ -31,6 +38,16 @@ from distkeras_torch.serving.server import (  # noqa: F401
     ServingClient,
     ServingConnectionError,
     UnknownOpError,
+)
+from distkeras_torch.serving.fleet import (  # noqa: F401
+    Replica,
+    ReplicaManager,
+    merge_metric_snapshots,
+)
+from distkeras_torch.serving.router import Router  # noqa: F401
+from distkeras_torch.serving.controller import (  # noqa: F401
+    Autoscaler,
+    DecisionEngine,
 )
 from distkeras_torch.serving.weights import (  # noqa: F401
     CheckpointWatcher,
@@ -61,6 +78,12 @@ __all__ = [
     "TokenStream",
     "LMServer",
     "ServingClient",
+    "Replica",
+    "ReplicaManager",
+    "merge_metric_snapshots",
+    "Router",
+    "Autoscaler",
+    "DecisionEngine",
     "WeightPushError",
     "serialize_weights",
     "deserialize_weights",

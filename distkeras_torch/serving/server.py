@@ -949,7 +949,7 @@ class ServingClient:
     def timeseries(self, last: Optional[int] = None) -> dict:
         """The server's metric-history ring: ``{"meta": {...},
         "points": [...]}`` (most recent ``last`` points when given).
-        Against a router (ROADMAP A11b), the
+        Against a router (:mod:`~distkeras_torch.serving.router`), the
         fleet-merged series (each point carries its contributing
         ``sources``). Raises RuntimeError when the collector is
         disabled."""
@@ -961,7 +961,7 @@ class ServingClient:
     def events(self, last: Optional[int] = None) -> dict:
         """The control-plane event journal: ``{"meta": {...},
         "events": [...]}`` oldest-first (most recent ``last`` when
-        given). Against a router (ROADMAP A11b), the
+        given). Against a router (:mod:`~distkeras_torch.serving.router`), the
         merged fleet journal — router-side events (autoscaling,
         replica up/down, rollbacks) interleaved with every replica's
         own (drains, role flips, weight swaps), each tagged with its
@@ -1014,7 +1014,7 @@ class ServingClient:
         boundary; in-flight ticks complete on the old version, and no
         stream is dropped or corrupted by a mid-stream push.
 
-        Against a router (ROADMAP A11b) the same op
+        Against a router (:mod:`~distkeras_torch.serving.router`) the same op
         is a fleet-wide **rolling update** (drain → push → undrain,
         one replica at a time); the ack then arrives after the whole
         fleet converged — pass a generous ``timeout``.

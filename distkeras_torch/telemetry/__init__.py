@@ -7,8 +7,8 @@ stall watchdog (``SloMonitor``, ``StallWatchdog``), metric history
 (``TimeSeriesStore``), the control-plane journal (``EventJournal``),
 Prometheus exposition (``TelemetryServer``) and runtime introspection
 (``MemoryWatermarks``, ``RecompileCounter``). Offline analysis:
-``python -m distkeras_torch.telemetry.report``. The fleet-wide
-aggregation that the router serves is ROADMAP A11b."""
+``python -m distkeras_torch.telemetry.report``. The router
+(:mod:`distkeras_torch.serving.router`) merges these across a fleet."""
 
 from distkeras_torch.telemetry.chrome import (  # noqa: F401
     chrome_trace_events,

@@ -624,6 +624,110 @@ def test_phase14_fails_on_an_injected_fault(monkeypatch, tmp_path, fault):
         chip_smoke.server_exact(torch, np, dk, pa, sp, str(tmp_path))
 
 
+def _fleet_dk():
+    from distkeras_torch.serving import (Autoscaler, LMServer, Router,
+                                         ServingClient)
+
+    dk = _serving_dk()
+    dk.update(LMServer=LMServer, ServingClient=ServingClient, Router=Router,
+              Autoscaler=Autoscaler)
+    return dk
+
+
+def _narrow_fleet(monkeypatch):
+    """Phase 15 at narrow widths: phase 10's narrow bf16 flagship and cut
+    mix (prompts over 32 tokens share the prefix; those of 64 or more go
+    through the prefill replica), phase 4's narrow f32 model."""
+    _narrow_exact(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "FLAGSHIP", dict(
+        vocab_size=128, d_model=128, num_heads=2, num_kv_heads=1,
+        num_layers=2, max_len=256, pos_emb="rope", cache_dtype="int8"))
+    monkeypatch.setattr(chip_smoke, "SYSTEM_PREFIX", 32)
+    monkeypatch.setattr(chip_smoke, "PROMPT_LENS", (40, 100, 20, 70, 9))
+    monkeypatch.setattr(chip_smoke, "FLEET_DISAGG_TOKENS", 64)
+    dk = _fleet_dk()
+    mix = dk["serving_requests"]
+    dk["serving_requests"] = lambda *a: [
+        (p, dict(c, max_new_tokens=8)) for p, c in mix(*a)]
+    return dk
+
+
+def test_phase15_fleet_at_narrow_width(monkeypatch):
+    """Phase 15 on the CPU (the kernels stood in): 15a routes the cut mix
+    through three replicas (every request accounted for by the router,
+    the prefix group on one replica, the paged kernel in every layer of
+    every tick) and through a prefill + two decode replicas (each long
+    prompt migrated); 15b holds every stream to generate() or a solo
+    engine through a failover, a rolling update, a migration and an
+    autoscaler whose replay is exact; no thread raised."""
+    import numpy as np
+    import torch
+
+    pa, sp = _standin_kernels(monkeypatch)
+    dk = _narrow_fleet(monkeypatch)
+    phase3, _, _, direct = chip_smoke.serving_phase(torch, np, dk, pa, sp)
+    out, launches = chip_smoke.fleet_phase(torch, np, dk, pa, sp, phase3,
+                                           direct)
+    a = out["15a"]
+    for name in ("uniform", "disagg"):
+        r = a[name]
+        assert r["tokens"] == 5 * 8 and r["tok_per_s"] > 0
+        assert sum(r["routed"].values()) == 5
+        assert launches[name] == r["launches"] >= sum(r["ticks"]) * 2 > 0
+        assert r["client_ttft_ms"]["p99"] >= r["client_ttft_ms"]["p50"] > 0
+        assert 0.0 <= r["greedy_match_vs_direct"] <= 1.0
+    assert a["uniform"]["kv_migrations"] == 0
+    assert a["disagg"]["kv_migrations"] == 2  # the 100- and 70-token prompts
+    assert a["disagg"]["served"][0] == 2
+    assert a["direct_tok_per_s"] == phase3["paged"]["tok_per_s"]
+    b = out["15b"]
+    assert b["failover"]["streams_equal"]
+    assert b["failover"]["failed_over"]["replayed"] >= 1
+    assert b["failover"]["failed"] == 0
+    assert b["rolling_update"]["version"] == 2
+    assert b["rolling_update"]["min_routable"] >= 2
+    assert b["disagg"]["migrations"]["ok"] >= 1
+    assert b["autoscaler"]["actions"] == ["scale_up", "scale_down"]
+    assert b["autoscaler"]["replay_exact"] and b["kernel_launches"] > 0
+    assert out["thread_errors"] == 0
+
+
+@pytest.mark.parametrize("fault", ["replay_resends_tokens", "shared_model"])
+def test_phase15_fails_on_an_injected_fault(monkeypatch, fault):
+    """Phase 15b fails when the router's failover replay forwards the
+    tokens the client already has, and when the replicas share one model
+    (a rolling update would land on every replica at its first push)."""
+    import numpy as np
+    import torch
+
+    from distkeras_torch.serving import router as router_mod
+
+    pa, sp = _standin_kernels(monkeypatch)
+    dk = _narrow_fleet(monkeypatch)
+    if fault == "replay_resends_tokens":
+        submit = router_mod.Router._submit_routed
+
+        def resend(self, entry, exclude):
+            submit(self, entry, exclude)
+            entry.skip = 0
+
+        monkeypatch.setattr(router_mod.Router, "_submit_routed", resend)
+        match = "failover"
+    else:
+        made, real = {}, dk["get_model"]
+
+        def shared(name, **kw):
+            key = (name, kw.get("seed"), kw.get("dtype"))
+            if key not in made:
+                made[key] = real(name, **kw)
+            return made[key]
+
+        dk["get_model"] = shared
+        match = "share their model"
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.fleet_exact(torch, np, dk, pa, sp)
+
+
 def test_tier_sizes_follow_the_serve_bench_rule():
     """The host-tier run's pools by serve_bench.py's rule at its full
     configuration: 4 prefixes of 32 blocks, worst case 50 blocks a slot

@@ -95,7 +95,11 @@ def test_port_modules_import_no_jax():
                  "distkeras_torch.telemetry.timeseries",
                  "distkeras_torch.telemetry.slo",
                  "distkeras_torch.telemetry.exposition",
-                 "distkeras_torch.telemetry.report"):
+                 "distkeras_torch.telemetry.report",
+                 "distkeras_torch.serving.router",
+                 "distkeras_torch.serving.fleet",
+                 "distkeras_torch.serving.controller",
+                 "distkeras_torch.serve_bench"):
         assert must in res["modules"]
 
 
@@ -156,3 +160,34 @@ def test_stdlib_telemetry_copies_match_reference(name):
     with open(os.path.join(ROOT, "distkeras_torch", "telemetry",
                            name + ".py")) as f:
         assert f.read() == ref
+
+
+FABRIC_COPIES = ("fleet", "router", "controller")
+
+
+@pytest.mark.parametrize("name", FABRIC_COPIES)
+def test_stdlib_fabric_copies_match_reference(name):
+    """The router, the replica manager and the controller are stdlib-only
+    and copied the same way: each file's text equals the reference's
+    once ``distkeras_tpu`` is replaced by ``distkeras_torch``."""
+    with open(os.path.join(ROOT, "distkeras_tpu", "serving",
+                           name + ".py")) as f:
+        ref = f.read().replace("distkeras_tpu", "distkeras_torch")
+    with open(os.path.join(ROOT, "distkeras_torch", "serving",
+                           name + ".py")) as f:
+        assert f.read() == ref
+
+
+def test_serving_and_serve_bench_load_no_jax():
+    """``import distkeras_torch.serving`` and ``import
+    distkeras_torch.serve_bench`` alone load no jax, flax or reference
+    module (a fresh interpreter)."""
+    probe = ("import sys, json; import distkeras_torch.serving, "
+             "distkeras_torch.serve_bench; print(json.dumps(sorted("
+             "k for k in sys.modules if k.split('.')[0] in "
+             "('jax', 'jaxlib', 'flax', 'optax', 'distkeras_tpu'))))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
