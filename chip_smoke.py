@@ -9,8 +9,11 @@ CUDA is unavailable or when the port's package is not beside it.
 after phases 6 and 6b (its yardsticks): on a host of two cards or more
 their ranks run over NCCL. ``python3 chip_smoke.py --phase14`` runs
 phase 14 alone after phase 3 (its yardstick), ``python3 chip_smoke.py
---phase15`` phase 15 alone after phase 3 (its yardstick). Phases 14 and
-15 run right after phase 4 in the whole smoke.
+--phase15`` phase 15 alone after phase 3 (its yardstick), ``python3
+chip_smoke.py --phase16`` phase 16 alone after phase 3 (its yardstick;
+on a host of two cards or more its ranks run over NCCL). Phases 14 and
+15 run right after phase 4 in the whole smoke, phase 16 right after
+phase 12.
 
 Phases (any failure exits non-zero):
 
@@ -343,11 +346,43 @@ Phases (any failure exits non-zero):
    reproduces its decisions. Replicas never share a model's parameters
    (checked); any exception in a router, manager, server, pump or loop
    thread fails the phase.
+16. **A tensor-parallel server.** Two ranks (``--phase16-worker``, as
+   phase 12's: NCCL one card each on two cards or more, else gloo on
+   the one card), each building the same tp=2 engine and
+   ``LMServer``: rank 0 serves the wire, rank 1 follows its lock-step
+   loop; this process plays the clients and tells rank 0 when to
+   ``stop()`` (files in the phase's directory). (16a) Phase 3's bf16
+   flagship (2 KV heads: one a rank; int8 cache; 8 slots; 64-token
+   chunks), paged then slot, after a short warm-up of a tp engine
+   driven directly: phase 3's 16 requests from 4 clients; every
+   request ``length`` with its full count, the follower's kept streams
+   bit-identical to the leader's and its ticks equal, each rank's paged
+   launches >= its ticks x layers (splash: chunk ticks x layers), all
+   bf16 split routes; ``stats``, ``metrics``, ``flight``, ``events``
+   (after a drain and an undrain) and ``chrome_trace`` answer; on the
+   paged layout one push of the flagship's own weights as version 2
+   lands on both ranks (version 2, one swap, every parameter's sum
+   unchanged); ``stop()`` ends both loops. Prints tok/s over the wire
+   beside phase 3's, 12b's and 14a's (where the run has them), client
+   TTFT and inter-token p50/p99, ms a tick, the control record's ms a
+   step, the push's bytes, broadcast and swap ms a rank, and the share
+   of greedy tokens equal to phase 3's. (16b) Phase 4's f32 model on
+   the tp=2 server of each layout against tp=1 servers in this
+   process: phase 4's first greedy and first sampled requests one at
+   a time, equal token for token; on the paged layout again
+   after a push, a reconfigure and a drain (a submit refused while
+   draining), against a server built on the new weights, then through a
+   ``Router(disagg_prompt_tokens=64)`` with the tp=2 server as its
+   prefill replica and a tp=1 decode replica (tp=2 -> tp=1 migrations),
+   and an ``export_kv`` from a tp=1 server imported into the tp=2 one
+   (tp=1 -> tp=2). A rank that fails fails the phase with its own
+   error, which names it.
 
 Output: JSON lines per phase, the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line (the serving rows carry every timed shape
-in ``shapes`` and phase 14a's launches in ``server_launches``, the paged
-row phase 15a's in ``fleet_launches``; the three forward rows and the causal and
+in ``shapes``, phase 14a's launches in ``server_launches`` and phase
+16a's a rank in ``tp_server_launches_per_rank``, the paged row phase
+15a's in ``fleet_launches``; the three forward rows and the causal and
 pair dq and dk/dv rows also carry their ``build`` facts; the dq and
 dk/dv rows carry ``bwd_ms``, the two as the backward runs them with one
 prep pass, ``bwd_library_ms``, SDPA's backward, and ``sdpa_backend``;
@@ -603,6 +638,11 @@ SERVER_STOP_S = 10.0
 # replica
 FLEET_REPLICAS = 3
 FLEET_DISAGG_TOKENS = 512
+# phase 16: the tp=2 server. The longest the parent and the ranks wait
+# for each other's files; 16b's router sends prompts of at least this
+# many tokens through the tp=2 prefill replica (all of phase 4's)
+TP_SERVER_WAIT_S = 600
+TP_SERVER_DISAGG_TOKENS = 64
 
 
 def _fail(msg):
@@ -3179,58 +3219,17 @@ def tp_phase(torch, np, here, phase3, cards=None, python=None):
 
 
 def run_ranks(phase, cfg, world, timeout_s, here, python=None):
-    """Start ``world`` ranks of ``phase`` (``chip_smoke.py
+    """Run ``world`` ranks of ``phase`` (``chip_smoke.py
     --phase<phase>-worker <cfg> <rank>``, each logging to
-    ``cfg['out']``) and wait for them: ``(each rank's JSON result,
-    seconds)``. A rank that fails stops the phase with its log's tail;
-    ranks still running at the deadline are named as stalled; every
-    rank is killed on the way out."""
-    out = cfg["out"]
-    path = os.path.join(out, "cfg.json")
-    with open(path, "w") as fh:
-        json.dump(cfg, fh)
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    cmd = list(python or [sys.executable])
-    logs = [open(os.path.join(out, f"rank{r}.log"), "w")
-            for r in range(world)]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        cmd + [os.path.join(here, "chip_smoke.py"),
-               f"--phase{phase}-worker", path, str(r)], env=env,
-        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    ``cfg['out']``) to their end: ``(each rank's JSON result,
+    seconds)``. A rank that fails stops the phase quoting every failed
+    rank's log; ranks still running at the deadline are named as
+    stalled; every rank is killed on the way out."""
+    from distkeras_torch.parallel import ranks
 
-    def failed(r):
-        tail = open(os.path.join(out, f"rank{r}.log")).read()
-        return AssertionError(f"{phase}: rank {r} failed:\n{tail[-4000:]}")
-
-    try:
-        deadline = time.monotonic() + timeout_s
-        while any(p.poll() is None for p in procs):
-            bad = [r for r, p in enumerate(procs) if p.poll() not in
-                   (None, 0)]
-            if bad:
-                raise failed(bad[0])
-            if time.monotonic() > deadline:
-                stalled = [r for r, p in enumerate(procs)
-                           if p.poll() is None]
-                raise AssertionError(f"{phase}: ranks {stalled} stalled "
-                                     f"past {timeout_s} s")
-            time.sleep(0.2)
-        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-        if bad:
-            raise failed(bad[0])
-        ranks = [json.load(open(os.path.join(out, f"rank{r}.json")))
-                 for r in range(world)]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for fh in logs:
-            fh.close()
-    shutil.rmtree(out, ignore_errors=True)
-    return ranks, time.perf_counter() - t0
+    return ranks.run_ranks(phase, os.path.join(here, "chip_smoke.py"),
+                           f"--phase{phase}-worker", cfg, world, timeout_s,
+                           python)
 
 
 def tp_check(np, ranks, phase3, cfg, wall):
@@ -4990,16 +4989,606 @@ def fleet_phase(torch, np, dk, pa, sp, phase3, direct, server14=None):
 
 
 
+# -- phase 16: a tensor-parallel engine behind LMServer ---------------------
+
+
+def _yard(serving, chunked, tp12b=None, server14a=None):
+    """Phase 16's yardsticks: phase 3's streams and tok/s by layout, and
+    phase 12b's (rank 0's) and 14a's tok/s where the run has them."""
+    def rates(phase, first=False):
+        if phase is None:
+            return None
+        return {lay: {"tok_per_s": (phase[lay]["tok_per_s"][0] if first
+                                    else phase[lay]["tok_per_s"])}
+                for lay in ("paged", "slot")}
+
+    return {"phase3_streams": chunked, "phase3": rates(serving),
+            "12b": rates(tp12b, first=True), "14a": rates(server14a)}
+
+
+def tp_server_phase(torch, np, dk, here, yard, cards=None, python=None):
+    """Phase 16: two tp ranks (``chip_smoke.py --phase16-worker``, one
+    card each over NCCL with two cards or more, else both on one card
+    over gloo; gloo CPU ranks when ``DEV`` is the CPU) each build the
+    same tp=2 engine and ``LMServer``; rank 0 serves the wire, rank 1
+    follows. This process plays the clients (16a, then 16b) and signals
+    each server's end through files; ``yard`` holds phase 3's results
+    and, where the run has them, phase 12b's and 14a's. A rank's own
+    failure (it names the rank) is preferred over what the clients saw
+    of it."""
+    if cards is None:
+        cards = torch.cuda.device_count() if DEV == "cuda" else 1
+    backend = "nccl" if DEV == "cuda" and cards >= 2 else "gloo"
+    cfg = {"out": tempfile.mkdtemp(prefix="dk_phase16_"),
+           "port": _free_port(), "device": DEV, "backend": backend,
+           "cards": min(cards, TP) if DEV == "cuda" else 0,
+           "flagship": FLAGSHIP, "system_prefix": SYSTEM_PREFIX,
+           "prompt_lens": PROMPT_LENS, "exact": EXACT,
+           "watchdog_s": FLAGSHIP_WATCHDOG_S, "stop_s": SERVER_STOP_S,
+           "wait_s": TP_SERVER_WAIT_S, "t0": time.time()}
+    from distkeras_torch.parallel.ranks import Ranks
+
+    run = Ranks("16", os.path.join(here, "chip_smoke.py"),
+                "--phase16-worker", cfg, TP, python)
+    try:
+        with _ThreadErrors() as errs:
+            try:
+                # 16a's push payload, made while the ranks start
+                t0 = time.perf_counter()
+                model = dk["get_model"]("transformer_lm",
+                                        dtype=torch.bfloat16, device=DEV,
+                                        seed=0, **FLAGSHIP)
+                payload = dk["serialize_weights"](
+                    dk["bridge"].params_to_jax(model))
+                del model
+                _free(torch)
+                made_s = time.perf_counter() - t0
+                a = tp_server_flagship(torch, np, dk, run, cfg, yard,
+                                       payload)
+                a["paged"]["push"]["payload_s"] = made_s
+                del payload
+                b = tp_server_exact(torch, np, dk, run, cfg)
+            except BaseException as e:
+                err = run.failure(grace=30.0)
+                if err is not None:
+                    raise err from e
+                raise
+        if errs.seen:
+            raise AssertionError(f"16: threads raised {errs.seen}")
+        ranks = run.wait(TP_SERVER_WAIT_S)
+        wall = run.seconds()
+    finally:
+        run.close()
+    return tp_server_check(np, ranks, cfg, a, b, wall)
+
+
+def _param_sums(eng):
+    """Each served parameter's sum in f64, read once: equal lists mean
+    the same weights (a push of the same tree leaves them unchanged)."""
+    return [float(p.double().sum()) for p in eng._served.parameters()]
+
+
+def tp_server_ops(np, client, rid):
+    """16a's telemetry ops: each answers with content (events after a
+    drain and an undrain)."""
+    client.drain()
+    client.undrain()
+    got = {"stats": len(client.stats()),
+           "metrics": len(client.metrics()),
+           "flight": len(client.flight()["ticks"]),
+           "events": len(client.events()["events"]),
+           "chrome_trace": len(client.chrome_trace(
+               trace=client.trace_of(rid))["traceEvents"]),
+           "alerts": len(client.alerts())}
+    empty = [k for k, v in got.items() if not v and k != "alerts"]
+    if empty:
+        raise AssertionError(f"16a: ops {empty} answered empty ({got})")
+    return got
+
+
+def tp_server_flagship(torch, np, dk, run, cfg, yard, payload):
+    """16a, the clients' side: phase 3's mix from ``SERVER_CLIENTS``
+    clients through the tp=2 server on each layout; on the paged one,
+    then, one push of the flagship's own weights as version 2
+    (``payload``: them, serialized)."""
+    wait = cfg["wait_s"]
+    V = FLAGSHIP["vocab_size"]
+    requests = dk["serving_requests"](V, SYSTEM_PREFIX, PROMPT_LENS)
+    out = {}
+    for layout in ("paged", "slot"):
+        t_wait = time.perf_counter()
+        port = run.await_file(f"16a_{layout}.port", wait)["port"]
+        t_layout = time.perf_counter()
+        got, wall, cl = drive_clients(torch, np, dk, port, requests, V,
+                                      f"16a ({layout})")
+        ttft, itl = client_latency(np, got)
+        st = cl.stats()
+        summary = {
+            "requests": len(requests), "clients": SERVER_CLIENTS,
+            "tokens": st["tokens_generated"], "wall_s": wall,
+            "tok_per_s": st["tokens_generated"] / wall,
+            "ticks": st["ticks"],
+            "ms_per_tick": wall * 1e3 / max(st["ticks"], 1),
+            "client_ttft_ms": ttft, "client_itl_ms": itl,
+            "control_record_ms": st["lockstep"]["record_ms_mean"],
+            "control_records": st["lockstep"]["records"],
+            "greedy_match_vs_phase3": greedy_match(
+                requests, [o[0] for o in got],
+                yard["phase3_streams"][layout]),
+            # the same mix: phase 3's direct engine, 12b's direct tp=2
+            # engine and 14a's one-card server (None where this run did
+            # not have them)
+            "yardstick_tok_per_s": {
+                k: (yard[k][layout]["tok_per_s"] if yard.get(k) else None)
+                for k in ("phase3", "12b", "14a")},
+            "rids": [o[4] for o in got], "streams": [o[0] for o in got]}
+        summary["ops"] = tp_server_ops(np, cl, got[0][4])
+        if layout == "paged":
+            t0 = time.perf_counter()
+            # frames of 12 MiB (the server takes up to 16)
+            ack = cl.push_weights(payload=payload, version=2,
+                                  chunk_bytes=12 << 20)
+            push_s = time.perf_counter() - t0
+            last = cl.stats()["lockstep"]["last_op"]
+            if ack["version"] != 2 or last["op"] != "update_weights":
+                raise AssertionError(f"16a: the push answered {ack}, the "
+                                     f"leader's last op {last}")
+            summary["push"] = {"ack": ack, "wall_s": push_s,
+                               "bytes": last["bytes"],
+                               "broadcast_ms": last["broadcast_ms"],
+                               "swap_ms": last["apply_ms"]}
+        cl.close()
+        run.post(f"16a_{layout}.stop")
+        summary["port_wait_s"] = t_layout - t_wait
+        summary["seconds"] = time.perf_counter() - t_layout
+        out[layout] = summary
+    return out
+
+
+def _beside(here, there):
+    """``here()`` in this thread while ``there()`` runs in another:
+    ``(here's result, there's)``."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["val"] = there()
+        except BaseException as e:  # re-raised below
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    got = here()
+    t.join()
+    if "err" in box:
+        raise box["err"]
+    return got, box["val"]
+
+
+def _seq(client, requests):
+    """``requests`` through ``client`` one at a time (each alone in the
+    engine, whatever the server: the same plan on every server), as
+    ``(tokens, reason)`` and the request ids."""
+    outs, rids = [], []
+    for p, c in requests:
+        rids.append(client.generate(p, **c))
+        outs.append(client.result(rids[-1]))
+    return outs, rids
+
+
+def tp_server_exact(torch, np, dk, run, cfg):
+    """16b, the clients' side: phase 4's f32 model on the tp=2 server
+    against tp=1 servers in this process, each layout — phase 4's first
+    greedy and first sampled requests one at a time, equal token for
+    token; on the paged layout again after a push of new weights, a
+    reconfigure and a drain (against a server built on the new weights),
+    then through a
+    ``Router(disagg_prompt_tokens=...)`` whose prefill replica is the
+    tp=2 server and whose decode replica is a tp=1 one (tp=2 -> tp=1
+    migrations), and through an ``export_kv`` from a tp=1 server into
+    the tp=2 one (tp=1 -> tp=2)."""
+    wait = cfg["wait_s"]
+
+    def make(seed):
+        return dk["get_model"]("transformer_lm", dtype=torch.float32,
+                               device=DEV, seed=seed, **EXACT)
+
+    V = EXACT["vocab_size"]
+    # phase 4's first greedy and first sampled request
+    requests = [exact_requests(np, V)[i] for i in (0, 2)]
+    new_tree = dk["bridge"].params_to_jax(make(8))
+    res = {}
+    for layout in ("paged", "slot"):
+        lkw = dict(paged=layout == "paged", block_size=16)
+        port = run.await_file(f"16b_{layout}.port", wait)["port"]
+        t_layout = time.perf_counter()
+        c2 = dk["ServingClient"]("127.0.0.1", port, timeout=300.0,
+                                 request_timeout=300.0)
+        one = start_server(dk, make(3), **lkw)
+        c1 = _client(dk, one)
+        r = {"rids": []}
+
+        def check(what, reqs, got, want, model):
+            bad = [i for i, (t, reason) in enumerate(got)
+                   if reason != "length"]
+            if bad:
+                raise AssertionError(f"16b ({layout}): {what}: requests "
+                                     f"{bad} did not end 'length'")
+            _differ(torch, np, model, reqs, [t for t, _ in got],
+                    [t for t, _ in want], f"{layout} {what}", phase="16b")
+
+        # each tp=1 reference pass runs beside its tp=2 pass (each server
+        # still sees its requests one at a time)
+        (got, rids), (want, _) = _beside(lambda: _seq(c2, requests),
+                                         lambda: _seq(c1, requests))
+        r["rids"] += rids
+        check("tp=2 server vs tp=1 server", requests, got, want, make(3))
+        servers = [(c1, one)]
+        if layout == "paged":
+            ack = c2.push_weights(new_tree, version=2)
+            role = c2.reconfigure("prefill")
+            c2.drain()
+            try:
+                c2.generate(requests[0][0], max_new_tokens=2)
+                refused = False
+            except dk["DrainingError"]:
+                refused = True
+            c2.undrain()
+            fresh = start_server(dk, make(8), **lkw)
+            cf = _client(dk, fresh)
+            servers.append((cf, fresh))
+            (got, rids), (want, _) = _beside(lambda: _seq(c2, requests),
+                                             lambda: _seq(cf, requests))
+            r["rids"] += rids
+            check("after a push, a reconfigure and a drain vs a server "
+                  "built on the new weights", requests, got, want, make(8))
+            r.update(push=ack, role=role, drain_refused=refused)
+            r["migrate"] = tp_server_migrate(torch, np, dk, requests, want,
+                                             port, c2, cf, lkw, make)
+            r["rids"] += r["migrate"].pop("rids")
+        r["streams_equal"] = True
+        for c, srv in servers:
+            c.close()
+            _stop_server(srv)
+        c2.close()
+        run.post(f"16b_{layout}.stop")
+        r["seconds"] = time.perf_counter() - t_layout
+        res[layout] = r
+    return res
+
+
+def tp_server_migrate(torch, np, dk, requests, want, port, c2, cf, lkw,
+                      make):
+    """16b's migrations: tp=2 -> tp=1 through the router (the tp=2
+    server as the prefill replica, a fresh tp=1 server on the new
+    weights as the decode replica), then tp=1 -> tp=2 by hand."""
+    tel = dk["telemetry"]
+    dec = start_server(dk, make(8), role="decode", **lkw)
+    router = dk["Router"](
+        [("127.0.0.1", port, "tp2"), ("127.0.0.1", dec.port, "tp1")],
+        block_size=16, poll_interval=0.1,
+        disagg_prompt_tokens=TP_SERVER_DISAGG_TOKENS,
+        registry=tel.MetricRegistry(), tracer=tel.Tracer()).start()
+    try:
+        deadline = time.monotonic() + 60
+        while len(router.manager.routable()) < 2:
+            if time.monotonic() > deadline:
+                raise AssertionError("16b: the replicas never routable")
+            router.manager.probe_all()
+            time.sleep(0.02)
+        cr = dk["ServingClient"]("127.0.0.1", router.port, timeout=300.0,
+                                 request_timeout=300.0)
+        got, _ = _seq(cr, requests)
+        _differ(torch, np, make(8), requests, [t for t, _ in got],
+                [t for t, _ in want], "streams decoded from tp=2 KV on a "
+                "tp=1 replica vs a tp=1 server", phase="16b")
+        mig = {x["labels"]["outcome"]: int(x["value"]) for x in cr.metrics()[
+            "serving_kv_migrations_total"]["series"]}
+        # once the decode replica holds the shared prefix, the router
+        # sends it the rest by affinity: at least one migration, none
+        # failed
+        if mig.get("ok", 0) < 1 or set(mig) != {"ok"}:
+            raise AssertionError(f"16b: KV migrations {mig}")
+        cr.close()
+    finally:
+        _stop_router(router)
+        _stop_server(dec)
+    # tp=1 -> tp=2: a prompt the tp=2 server never saw
+    prompt = np.random.default_rng(16).integers(
+        0, EXACT["vocab_size"], size=80).astype(np.int32)
+    cf.result(cf.generate(prompt, max_new_tokens=1))
+    exp = cf.export_kv(prompt)
+    imp = c2.import_kv(prompt, exp["blocks"])
+    before = c2.stats()["prefix_hit_tokens"]
+    rid = c2.generate(prompt, max_new_tokens=16)
+    toks, _ = c2.result(rid)
+    hit = c2.stats()["prefix_hit_tokens"] - before
+    one, _ = cf.result(cf.generate(prompt, max_new_tokens=16))
+    if toks != one or imp["tokens"] == 0 or hit != imp["tokens"]:
+        raise AssertionError(f"16b: tp=1 -> tp=2: import {imp}, hit {hit}, "
+                             f"streams equal {toks == one}")
+    return {"routed": len(requests), "tp2_to_tp1": mig,
+            "tp1_to_tp2": {"imported": imp["tokens"], "hit": hit},
+            "streams_equal": True, "rids": [rid]}
+
+
+def tp_server_check(np, ranks, cfg, a, b, wall):
+    """Phase 16's cross-rank checks and its line: each rank's loops
+    ended with the leader's stop, its ticks, kept streams, launches and
+    pushed weights as the leader's; the rates beside the yardsticks."""
+    L = FLAGSHIP["num_layers"]
+    lead, fol = ranks[0], ranks[1]
+    for part in ("16a", "16b"):
+        for layout in ("paged", "slot"):
+            for r, x in enumerate(ranks):
+                got = x[part][layout]
+                if not got["loop_ended"] or got["loop_error"]:
+                    raise AssertionError(
+                        f"{part} ({layout}): rank {r}'s loop "
+                        f"{'failed: ' + got['loop_error'] if got['loop_error'] else 'did not end'}")
+            if fol[part][layout]["ticks"] != lead[part][layout]["ticks"]:
+                raise AssertionError(
+                    f"{part} ({layout}): rank 1 ticked "
+                    f"{fol[part][layout]['ticks']} times, the leader "
+                    f"{lead[part][layout]['ticks']}")
+    for layout, key, count in (("paged", "paged_attention", "ticks"),
+                               ("slot", "splash_prefill", "chunk_ticks")):
+        s = a[layout]
+        kept = fol["16a"][layout]["streams"]
+        for rid, toks in zip(s.pop("rids"), s.pop("streams")):
+            if kept.get(str(rid)) != toks:
+                raise AssertionError(f"16a ({layout}): rank 1's stream of "
+                                     f"request {rid} differs from the "
+                                     f"leader's")
+        for r, x in enumerate(ranks):
+            got = x["16a"][layout]
+            want = got[count] * L if got["kernel_selected"] else 0
+            n = got["launches"][key]
+            if (n < want or (want == 0) != (n == 0)
+                    or any("split_kernel" not in k for k in got["routes"])):
+                raise AssertionError(
+                    f"16a ({layout}): rank {r} launched {key} {n} times "
+                    f"({got['routes']}); its {got[count]} {count} x {L} "
+                    f"layers predict {want}")
+        s["launches_per_rank"] = [x["16a"][layout]["launches"]
+                                  for x in ranks]
+        s["routes_per_rank"] = [x["16a"][layout]["routes"] for x in ranks]
+        s["tick_ms_per_rank"] = [x["16a"][layout]["tick_ms"] for x in ranks]
+        s["stop_s"] = lead["16a"][layout]["stop_s"]
+        s["streams_bit_identical_across_ranks"] = True
+    for r, x in enumerate(ranks):
+        got = x["16a"]["paged"]
+        if (got["weight_version"] != 2 or got["weight_swaps"] != 1
+                or not got["sums_equal"]):
+            raise AssertionError(f"16a: the push did not land on rank {r} "
+                                 f"(version {got['weight_version']}, "
+                                 f"swaps {got['weight_swaps']}, weights "
+                                 f"unchanged {got['sums_equal']})")
+        last = got["lockstep"]["last_op"]
+        a["paged"]["push"][f"rank{r}"] = {
+            k: last[k] for k in ("broadcast_ms", "apply_ms", "bytes")}
+    for layout in ("paged", "slot"):
+        kept = fol["16b"][layout]["streams"]
+        missing = [rid for rid in b[layout].pop("rids")
+                   if str(rid) not in kept]
+        if missing:
+            raise AssertionError(f"16b ({layout}): rank 1 kept no stream "
+                                 f"of requests {missing}")
+        for r, x in enumerate(ranks):
+            got = x["16b"][layout]
+            if (layout == "paged" and (got["weight_version"] != 2
+                                       or got["role"] != "prefill")
+                    or got["draining"]):
+                raise AssertionError(f"16b ({layout}): rank {r} ended at "
+                                     f"{got}")
+        b[layout]["follower_streams_kept"] = True
+    label = {"backend": lead["backend"], "cards": cfg["cards"],
+             "processes": TP}
+    if cfg["cards"] == 1:
+        label["note"] = ("both ranks share one card over gloo: not a tp "
+                         "speed")
+    # seconds from the ranks' start to each mark, on rank 0
+    return {"phase": "16", **label, "16a": a, "16b": b, "wall_s": wall,
+            "rank_timeline_s": lead["timeline"]}
+
+
+def _tp_server_rank_state(eng, srv, rank):
+    st = eng.stats()
+    out = {"loop_ended": not srv._loop.is_alive(),
+           "loop_error": (f"{type(srv.loop_error).__name__}: "
+                          f"{srv.loop_error}" if srv.loop_error else None),
+           "ticks": eng.ticks, "weight_version": eng.weight_version,
+           "weight_swaps": eng.weight_swaps, "role": eng.role,
+           "draining": eng.draining, "lockstep": st["lockstep"]}
+    if rank:
+        out["streams"] = {str(rid): toks
+                          for rid, toks, _ in eng.lockstep_streams}
+    return out
+
+
+def _tp_server(dk, eng, rank, cfg, name, **kw):
+    """Start this rank's server of step ``name``; the leader posts its
+    port, waits for the parent's stop and stops it; a follower waits
+    for the leader. A loop that failed fails the rank (its error names
+    it). Returns the server and the leader's stop() seconds (None on a
+    follower)."""
+    from distkeras_torch.parallel.ranks import await_posted, post
+
+    srv = dk["LMServer"](eng, **kw).start()
+    stop_s = None
+    if rank:
+        srv.join()
+    else:
+        post(cfg["out"], f"{name}.port", {"port": srv.port})
+        await_posted(cfg["out"], f"{name}.stop", cfg["wait_s"],
+               alive=srv._loop.is_alive)
+        t0 = time.perf_counter()
+        srv.stop(timeout=cfg["stop_s"])
+        stop_s = time.perf_counter() - t0
+    if srv.loop_error is not None:
+        raise AssertionError(f"{name}: rank {rank}'s loop failed") from (
+            srv.loop_error)
+    return srv, stop_s
+
+
+def tp_server_flagship_rank(torch, np, dk, pa, sp, mesh, cfg, rank):
+    """16a on one rank: after a short warm-up on a tp engine driven
+    directly (before the paged layout: the slot layout finds the process
+    warm), the launch counts are zeroed and the counted server serves
+    until the leader's stop; on the paged layout the parameter sums are
+    read before and after (the push brings the same tree)."""
+    tel = dk["telemetry"]
+    model = dk["get_model"]("transformer_lm", dtype=torch.bfloat16,
+                            device=DEV, seed=0, **cfg["flagship"])
+    L, hd = model.num_layers, model.d_model // model.num_heads
+    requests = dk["serving_requests"](model.vocab_size,
+                                      cfg["system_prefix"],
+                                      tuple(cfg["prompt_lens"]))
+    out = {}
+    _mark(cfg, "model")
+    for layout in ("paged", "slot"):
+        kw = dict(paged=layout == "paged", block_size=16, slots=8,
+                  prefill_chunk=64)
+        if layout == "paged":
+            # warm: the first request's prompt (both chunk shapes) and a
+            # decode step
+            p, c = requests[0]
+            serve(torch, np, dk, model, [(p, dict(c, max_new_tokens=2))],
+                  mesh=mesh, **kw)
+            _mark(cfg, "warm")
+        _zero_counts(pa, sp)
+        eng = dk["ServingEngine"](model, mesh=mesh,
+                                  registry=tel.MetricRegistry(),
+                                  tracer=tel.Tracer(), **kw)
+        sums = _param_sums(eng)
+        _mark(cfg, f"engine_{layout}")
+        skw = {} if rank else dict(
+            slo=tel.SloMonitor(tel.default_serving_rules(),
+                               registry=eng.registry, tracer=eng.tracer),
+            watchdog_timeout_s=cfg["watchdog_s"])
+        srv, stop_s = _tp_server(dk, eng, rank, cfg, f"16a_{layout}", **skw)
+        st = _tp_server_rank_state(eng, srv, rank)
+        ticks = [x["tick_ms"] for x in eng.flight.snapshots()
+                 if x.get("kind") == "tick"]
+        st.update(
+            stop_s=stop_s, L=L,
+            chunk_ticks=sum(1 for rec in eng.metrics.records
+                            if rec.get("prefill_tokens", 0) > 0),
+            launches={"paged_attention": pa.paged_attention.launches,
+                      "splash_prefill": sp.splash_prefill_attention
+                      .launches},
+            routes=dict(pa.paged_attention.routes if layout == "paged"
+                        else sp.splash_prefill_attention.routes),
+            kernel_selected=bool(
+                pa.preferred(hd, 16, DEV) if layout == "paged"
+                else sp.preferred(64, hd, model.max_len, DEV)),
+            tick_ms=float(np.mean(ticks)) if ticks else None,
+            sums_equal=_param_sums(eng) == sums)
+        out[layout] = st
+        del eng, srv
+        _free(torch)
+    del model
+    _free(torch)
+    return out
+
+
+def _mark(cfg, name):
+    """Seconds since the parent started the ranks, at ``name``, in this
+    rank's timeline."""
+    cfg.setdefault("timeline", {})[name] = round(time.time() - cfg["t0"],
+                                                 3)
+
+
+def tp_server_exact_rank(torch, np, dk, mesh, cfg, rank):
+    """16b on one rank: phase 4's f32 model on the tp=2 server of each
+    layout, until the leader's stop."""
+    tel = dk["telemetry"]
+    out = {}
+    for layout in ("paged", "slot"):
+        model = dk["get_model"]("transformer_lm", dtype=torch.float32,
+                                device=DEV, seed=3, **cfg["exact"])
+        eng = dk["ServingEngine"](model, mesh=mesh, slots=8,
+                                  prefill_chunk=64, paged=layout == "paged",
+                                  block_size=16,
+                                  registry=tel.MetricRegistry(),
+                                  tracer=tel.Tracer())
+        srv, stop_s = _tp_server(dk, eng, rank, cfg, f"16b_{layout}")
+        out[layout] = dict(_tp_server_rank_state(eng, srv, rank),
+                           stop_s=stop_s)
+        del eng, srv, model
+        _free(torch)
+    return out
+
+
+def tp_server_worker(cfg_path: str, rank: int) -> int:
+    """One rank of phase 16 (``chip_smoke.py --phase16-worker <cfg>
+    <rank>``): join the two-rank world, serve 16a and 16b, write this
+    rank's results."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    global DEV
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from distkeras_torch import telemetry
+    from distkeras_torch.bench import serving_requests
+    from distkeras_torch.kernels import build
+    from distkeras_torch.models import get_model
+    from distkeras_torch.ops import paged_attention as pa
+    from distkeras_torch.ops import splash_prefill as sp
+    from distkeras_torch.parallel.mesh import make_mesh
+    from distkeras_torch.serving import LMServer, ServingEngine
+
+    cfg = json.load(open(cfg_path))
+    _mark(cfg, "imports")
+    DEV = cfg["device"]
+    if DEV == "cuda":
+        torch.cuda.set_device(rank if cfg["backend"] == "nccl" else 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.load()
+    _mark(cfg, "kernels")
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // TP))
+    dist.init_process_group(cfg["backend"],
+                            init_method=f"tcp://127.0.0.1:{cfg['port']}",
+                            rank=rank, world_size=TP,
+                            timeout=datetime.timedelta(seconds=300))
+    dk = {"get_model": get_model, "ServingEngine": ServingEngine,
+          "LMServer": LMServer, "telemetry": telemetry,
+          "serving_requests": serving_requests}
+    try:
+        mesh = make_mesh({"model": TP})
+        _mark(cfg, "world")
+        res = {"rank": rank, "backend": dist.get_backend()}
+        res["16a"] = tp_server_flagship_rank(torch, np, dk, pa, sp, mesh,
+                                             cfg, rank)
+        res["16b"] = tp_server_exact_rank(torch, np, dk, mesh, cfg, rank)
+        _mark(cfg, "done")
+        res["timeline"] = cfg["timeline"]
+        with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main(phase12_only: bool = False, phase13_only: bool = False,
-         phase14_only: bool = False, phase15_only: bool = False) -> int:
+         phase14_only: bool = False, phase15_only: bool = False,
+         phase16_only: bool = False) -> int:
     """The smoke (every phase), or with ``phase12_only`` phase 12 alone
     after phase 3, its yardstick (``chip_smoke.py --phase12``: the
     tensor-parallel ranks over NCCL on a host of several cards), with
     ``phase13_only`` phase 13 alone after phases 6 and 6b, its yardsticks
     (``chip_smoke.py --phase13``: over NCCL on several cards), or with
     ``phase14_only`` phase 14 alone after phase 3, its yardstick
-    (``chip_smoke.py --phase14``), or with ``phase15_only`` phase 15
-    alone after phase 3, its yardstick (``chip_smoke.py --phase15``)."""
+    (``chip_smoke.py --phase14``), with ``phase15_only`` phase 15
+    alone after phase 3, its yardstick (``chip_smoke.py --phase15``), or
+    with ``phase16_only`` phase 16 alone after phase 3, its yardstick
+    (``chip_smoke.py --phase16``: over NCCL on several cards)."""
     try:
         import numpy as np
         import torch
@@ -5026,8 +5615,10 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
         from distkeras_torch.parallel.mesh import make_mesh
         from distkeras_torch.parallel.spmd import (make_lm_train_step,
                                                    make_moe_lm_train_step)
-        from distkeras_torch.serving import (Autoscaler, LMServer, Router,
-                                             ServingClient, ServingEngine)
+        from distkeras_torch.serving import (Autoscaler, DrainingError,
+                                             LMServer, Router,
+                                             ServingClient, ServingEngine,
+                                             serialize_weights)
         from distkeras_torch.telemetry import report
         from distkeras_torch.trainers import LMTrainer
         from distkeras_torch.utils.losses import get_loss, get_optimizer
@@ -5049,7 +5640,10 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
     dk = {"telemetry": telemetry, "get_model": get_model, "bridge": bridge,
           "generate": generate, "ServingEngine": ServingEngine,
           "LMServer": LMServer, "ServingClient": ServingClient,
-          "Router": Router, "Autoscaler": Autoscaler, "report": report, "serving_requests": serving_requests,
+          "Router": Router, "Autoscaler": Autoscaler, "report": report,
+          "serving_requests": serving_requests,
+          "DrainingError": DrainingError,
+          "serialize_weights": serialize_weights,
           "make_lm_train_step": make_lm_train_step,
           "make_moe_lm_train_step": make_moe_lm_train_step,
           "get_optimizer": get_optimizer, "lm_step_flops": lm_step_flops,
@@ -5125,6 +5719,22 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
         fleet, _ = fleet_phase(torch, np, dk, pa, sp, serving, chunked)
         fleet["seconds"] = time.perf_counter() - t0
         _emit({"fleet_phase": fleet})
+        print(smi, flush=True)
+        _emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
+    if phase16_only:
+        t0 = time.perf_counter()
+        serving, _, _, chunked = serving_phase(torch, np, dk, pa, sp)
+        serving["seconds"] = time.perf_counter() - t0
+        _emit({"serving_phase": serving})
+        _free(torch)
+        t0 = time.perf_counter()
+        p16 = tp_server_phase(torch, np, dk, here, _yard(
+            serving, chunked))
+        p16["seconds"] = time.perf_counter() - t0
+        _emit(p16)
         print(smi, flush=True)
         _emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5285,6 +5895,12 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
         "launches": {k: serving[k]["launches"] for k in ("paged", "slot")}})
     _emit(tp)
 
+    t0 = time.perf_counter()
+    p16 = tp_server_phase(torch, np, dk, here, _yard(
+        serving, chunked, tp["12b"], server["14a"]))
+    p16["seconds"] = time.perf_counter() - t0
+    _emit(p16)
+
     moe, p13, p13_shapes = phase13(torch, np, F, dk, fa, pp, here,
                                    training, ring)
 
@@ -5326,6 +5942,9 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
             # phase 12's flagship run, each rank's launches
             "tp2_launches_per_rank": [
                 n[name] for n in tp["12b"][layout]["launches_per_rank"]],
+            # phase 16a: the same mix behind the tp=2 server, each rank's
+            "tp_server_launches_per_rank": [
+                n[name] for n in p16["16a"][layout]["launches_per_rank"]],
         })
     main_causal = causal[0]
     for kern, line, err_keys, lib in (
@@ -5446,7 +6065,10 @@ if __name__ == "__main__":
         sys.exit(tp_worker(sys.argv[2], int(sys.argv[3])))
     if len(sys.argv) == 4 and sys.argv[1] == "--phase13-worker":
         sys.exit(p13_worker(sys.argv[2], int(sys.argv[3])))
+    if len(sys.argv) == 4 and sys.argv[1] == "--phase16-worker":
+        sys.exit(tp_server_worker(sys.argv[2], int(sys.argv[3])))
     sys.exit(main(phase12_only=sys.argv[1:] == ["--phase12"],
                   phase13_only=sys.argv[1:] == ["--phase13"],
                   phase14_only=sys.argv[1:] == ["--phase14"],
-                  phase15_only=sys.argv[1:] == ["--phase15"]))
+                  phase15_only=sys.argv[1:] == ["--phase15"],
+                  phase16_only=sys.argv[1:] == ["--phase16"]))

@@ -40,11 +40,21 @@ a row-parallel one (``all_reduce`` forward, identity backward).
 tp collective is an ``all_reduce``: gloo on CUDA tensors serves only
 ``all_reduce`` and ``broadcast``, and two ranks sharing one card cannot
 run NCCL.
+
+Lock-step control (the tensor-parallel serving loop, over a mesh's
+:meth:`~distkeras_torch.parallel.mesh.Mesh.control_group`: gloo, CPU
+tensors): :func:`broadcast_object` sends one small picklable record from
+a source rank to the group, :func:`broadcast_tensors` a list of tensors
+whose shapes and dtypes every rank already knows (pushed weights,
+migrated KV blocks), packed into flat byte buckets. A rank that never
+joins makes the others' call raise after the group's timeout; a rank
+that died makes it raise at once.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import pickle
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -291,3 +301,104 @@ def all_gather_tp(x: torch.Tensor, group=None, dim: int = 0
     dist.all_reduce(slab.view(-1).view(torch.uint8), op=dist.ReduceOp.SUM,
                     group=group)
     return torch.cat(tuple(slab.unbind(0)), dim=dim)
+
+
+# the step record's first broadcast: an 8-byte length, then up to this
+# many bytes of the pickled record (a longer one sends the rest after)
+RECORD_HEAD_BYTES = 4096
+# the most bytes one broadcast of broadcast_tensors carries
+BCAST_BUCKET_BYTES = 64 << 20
+
+
+def broadcast_object(obj, group, src: int = 0):
+    """``obj`` (picklable) from group rank ``src`` to every rank of
+    ``group``; returns it on every rank (``obj`` is ignored elsewhere).
+    One broadcast of a fixed-size head carries a record of up to
+    :data:`RECORD_HEAD_BYTES`, a second one the rest of a longer one."""
+    me = group_rank(group)
+    head = torch.zeros(8 + RECORD_HEAD_BYTES, dtype=torch.uint8)
+    if me == src:
+        data = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+        head[:8] = torch.tensor([len(data)], dtype=torch.int64).view(
+            torch.uint8)
+        first = data[:RECORD_HEAD_BYTES]
+        head[8:8 + len(first)] = torch.frombuffer(bytearray(first),
+                                                  dtype=torch.uint8)
+    src_g = dist.get_global_rank(group, src)
+    dist.broadcast(head, src_g, group=group)
+    n = int(head[:8].view(torch.int64)[0])
+    if n <= RECORD_HEAD_BYTES:
+        return obj if me == src else pickle.loads(head[8:8 + n].numpy()
+                                                  .tobytes())
+    rest = torch.empty(n - RECORD_HEAD_BYTES, dtype=torch.uint8)
+    if me == src:
+        rest.copy_(torch.frombuffer(bytearray(data[RECORD_HEAD_BYTES:]),
+                                    dtype=torch.uint8))
+    dist.broadcast(rest, src_g, group=group)
+    if me == src:
+        return obj
+    return pickle.loads(head[8:].numpy().tobytes() + rest.numpy().tobytes())
+
+
+def tensor_specs(tensors: Sequence[torch.Tensor]) -> List[tuple]:
+    """``(shape, dtype)`` of each tensor: what :func:`broadcast_tensors`
+    needs on the ranks that receive."""
+    return [(tuple(t.shape), t.dtype) for t in tensors]
+
+
+def _buckets(specs, cap):
+    """Indexes of ``specs`` grouped into runs of at most ``cap`` bytes
+    (a larger tensor rides alone), identically on every rank."""
+    out, cur, size = [], [], 0
+    for i, (shape, dtype) in enumerate(specs):
+        n = _nbytes(shape, dtype)
+        if cur and size + n > cap:
+            out.append(cur)
+            cur, size = [], 0
+        cur.append(i)
+        size += n
+    if cur:
+        out.append(cur)
+    return out
+
+
+def _nbytes(shape, dtype) -> int:
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n * torch.empty((), dtype=dtype).element_size()
+
+
+@torch.no_grad()
+def broadcast_tensors(tensors: Optional[Sequence[torch.Tensor]], specs,
+                      group, src: int = 0) -> List[torch.Tensor]:
+    """CPU tensors from group rank ``src`` (``tensors``; ``None``
+    elsewhere) to every rank of ``group``, whose ``specs`` (``[(shape,
+    dtype)]``, :func:`tensor_specs` of the source's list) every rank
+    already holds. The tensors travel as raw bytes (every dtype, bit for
+    bit) packed into buckets of at most :data:`BCAST_BUCKET_BYTES`, one
+    broadcast each. Returns the tensors on every rank (the source's own,
+    contiguous)."""
+    me = group_rank(group)
+    src_g = dist.get_global_rank(group, src)
+    if me == src:
+        out = [t.detach().cpu().contiguous() for t in tensors]
+        if [(tuple(t.shape), t.dtype) for t in out] != [
+                (tuple(s), d) for s, d in specs]:
+            raise ValueError("broadcast_tensors: the tensors do not match "
+                             "their specs")
+    else:
+        out = [torch.empty(s, dtype=d) for s, d in specs]
+    for idx in _buckets(specs, BCAST_BUCKET_BYTES):
+        views = [out[i].view(-1).view(torch.uint8) for i in idx]
+        if len(views) == 1:
+            dist.broadcast(views[0], src_g, group=group)
+            continue
+        flat = (torch.cat(views) if me == src else
+                torch.empty(sum(v.numel() for v in views),
+                            dtype=torch.uint8))
+        dist.broadcast(flat, src_g, group=group)
+        if me != src:
+            torch._foreach_copy_(views, list(flat.split(
+                [v.numel() for v in views])))
+    return out

@@ -15,10 +15,20 @@ and every collective on them is the identity, so one program covers one
 card and many. Inside ``with mesh:`` the mesh is bound, as names are
 bound inside ``shard_map``: the model's ``attention='ring'`` reads its
 sequence group and shard index from it.
+
+Beside the groups a collective of the model runs on, a mesh hands out a
+**control group** (:meth:`Mesh.control_group`): gloo over CPU tensors
+with a timeout of its own, for the small host-side records and tensors
+that keep several processes in lock step (the tensor-parallel serving
+loop's step records, pushed weights, migrated KV blocks). It never
+carries a model collective, and a model collective never rides it: on
+two ranks sharing one card the tp group is gloo on CUDA tensors, which
+serves only ``all_reduce`` and ``broadcast``.
 """
 
 from __future__ import annotations
 
+import datetime
 import itertools
 import threading
 from typing import Dict, Optional
@@ -28,6 +38,9 @@ import torch.distributed as dist
 
 # the meshes bound by `with mesh:`, innermost last, per thread
 _local = threading.local()
+
+# seconds a control-group collective waits for a peer that never joins
+CONTROL_TIMEOUT_S = 60.0
 
 
 def _bound() -> list:
@@ -48,6 +61,8 @@ class Mesh:
         self.axis_names = tuple(shape)
         self.coords = dict(coords)
         self._groups = dict(groups)
+        # axis -> this rank's control group
+        self._control: Dict[str, object] = {}
 
     def axis_size(self, axis: str) -> int:
         return self.shape[axis]
@@ -69,6 +84,28 @@ class Mesh:
         if int(np.prod([self.shape[a] for a in key], dtype=np.int64)) == 1:
             return None
         return self._groups[key]
+
+    def control_group(self, axis: str):
+        """The gloo group over CPU tensors spanning ``axis`` through this
+        rank, with a timeout of its own (:data:`CONTROL_TIMEOUT_S`): a
+        collective on it that a peer never joins raises after that long,
+        and one whose peer died raises at once. ``None`` where the group
+        is this rank alone. Building it is collective: every rank of the
+        world calls this with the same axis, in the same order relative
+        to its other group constructions (the group is then cached on
+        the mesh)."""
+        if self.group(axis) is None:  # also validates the axis
+            return None
+        if axis not in self._control:
+            timeout = datetime.timedelta(seconds=CONTROL_TIMEOUT_S)
+            sizes = [self.shape[a] for a in self.axis_names]
+            mine = None
+            for ranks in _member_lists(sizes, [self.axis_names.index(axis)]):
+                g = dist.new_group(ranks, timeout=timeout, backend="gloo")
+                if dist.get_rank() in ranks:
+                    mine = g
+            self._control[axis] = mine
+        return self._control[axis]
 
     def __enter__(self):
         _bound().append(self)
@@ -124,7 +161,6 @@ def make_mesh(axes: Dict[str, int]) -> Mesh:
         return local_mesh(axes)
     names = tuple(axes)
     rank = dist.get_rank()
-    grid = np.arange(world).reshape(sizes)
     coords = dict(zip(names, (int(c) for c in np.unravel_index(rank,
                                                                sizes))))
     groups = {}
@@ -132,16 +168,23 @@ def make_mesh(axes: Dict[str, int]) -> Mesh:
     # per setting of the other axes' coordinates
     for r in range(1, len(names) + 1):
         for key in itertools.combinations(names, r):
-            keep = [names.index(a) for a in key]
-            rest = [i for i in range(len(names)) if i not in keep]
-            moved = np.moveaxis(grid, rest, list(range(len(rest))))
-            for members in moved.reshape(-1, int(np.prod(
-                    [sizes[i] for i in keep]))):
-                ranks = [int(m) for m in members]
+            for ranks in _member_lists(sizes, [names.index(a)
+                                               for a in key]):
                 g = dist.new_group(ranks) if len(ranks) > 1 else None
                 if rank in ranks:
                     groups[key] = g
     return Mesh(axes, coords, groups)
+
+
+def _member_lists(sizes, keep):
+    """The world ranks of each group spanning the axes at indexes
+    ``keep`` of a row-major grid of ``sizes``: one list per setting of
+    the other axes' coordinates, in one fixed order."""
+    grid = np.arange(int(np.prod(sizes))).reshape(sizes)
+    rest = [i for i in range(len(sizes)) if i not in keep]
+    moved = np.moveaxis(grid, rest, list(range(len(rest))))
+    return [[int(m) for m in members] for members in moved.reshape(
+        -1, int(np.prod([sizes[i] for i in keep])))]
 
 
 def replica_groups(mesh: Mesh, batch_axis: str = "dp"):

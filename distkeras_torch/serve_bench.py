@@ -1,9 +1,11 @@
-"""Fleet serving benchmarks of the port: the four multi-replica modes of
-the reference's ``benchmarks/serve_bench.py`` over port engines.
+"""Serving benchmarks of the port: the four multi-replica modes of the
+reference's ``benchmarks/serve_bench.py`` and its tensor-parallel
+``--multichip`` mode, over port engines.
 
 Run ``python -m distkeras_torch.serve_bench --router`` (or
-``--fleet-sim``, ``--disagg``, ``--live-update``), with ``--smoke`` for
-the self-asserting variant, ``--replicas N`` for the fleet size, and
+``--fleet-sim``, ``--disagg``, ``--live-update``, ``--multichip``), with
+``--smoke`` for the self-asserting variant, ``--replicas N`` for the
+fleet size, ``--tp-list 1,2`` for ``--multichip``'s tp degrees, and
 ``--device cpu`` to run the plain PyTorch path on the host. Without
 ``--device`` the replicas run on the CUDA cards: replica ``i`` takes
 ``cuda:{i % device_count}`` (one replica per card, as the reference pins
@@ -21,7 +23,13 @@ command raises when there is no card. Each prints one JSON line.
   migration vs N mixed replicas, plus a migration-vs-eviction race
   (:func:`bench_disagg`);
 - ``--live-update``: rolling weight updates mid-flight and an SLO-burn
-  auto-rollback on a bad checkpoint (:func:`bench_live_update`).
+  auto-rollback on a bad checkpoint (:func:`bench_live_update`);
+- ``--multichip``: the same paged engine at each tp degree, its decode
+  tok/s and streams against the mesh-less engine's
+  (:func:`bench_multichip`). A tp > 1 runs as that many spawned ranks
+  (this script, ``--multichip-rank``) under the engine's lock-step loop:
+  gloo on the CPU, NCCL with one card a rank on a host of enough cards,
+  gloo with every rank on the one card otherwise.
 
 Every replica gets a model of its own, loaded from one numpy weight tree
 (a port model passed to two engines shares its parameters, so a push to
@@ -33,8 +41,9 @@ checks (``mark_steady()`` / ``recompiles_since_mark()`` and the
 ``*steady_recompiles`` keys) have no counterpart — they count JAX
 retraces, and the port's engine runs eagerly and traces nothing; the
 reference's respawn into forced virtual host devices (``run_router``
-and its siblings) has none either, since the replicas share the cards
-or the host as they are. ``--smoke`` evaluates every self-check of the
+and its siblings, ``run_multichip``) has none either: the replicas share
+the cards or the host as they are, and ``--multichip`` spawns one
+process a tp rank. ``--smoke`` evaluates every self-check of the
 reference (the same thresholds) and fails listing each one that missed.
 """
 
@@ -1349,6 +1358,202 @@ def bench_live_update(V=256, D=128, H=4, L=2, replicas=3, slots=2,
     return result
 
 
+def _multichip_pass(eng, prompts, max_new, looped=False):
+    """One pass of ``prompts`` through ``eng`` (stepped here, or by its
+    running loop when ``looped``): ``(streams, decode tok/s over the
+    pass, request ids)``."""
+    reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    t0 = time.perf_counter()
+    if not looped:
+        eng.drain(timeout=600)
+    streams = [r.stream.tokens(timeout=600) for r in reqs]
+    dt = time.perf_counter() - t0
+    reasons = [r.stream.finish_reason for r in reqs]
+    if any(x != "length" for x in reasons):
+        raise RuntimeError(f"multichip pass: streams ended {reasons}")
+    return streams, sum(map(len, streams)) / dt, [r.rid for r in reqs]
+
+
+def _multichip_engine(cfg, device, mesh=None):
+    from distkeras_torch import telemetry
+    from distkeras_torch.serving import ServingEngine
+
+    model = _lm(device, seed=0, vocab_size=cfg["V"], d_model=cfg["D"],
+                num_heads=cfg["H"], num_kv_heads=cfg["Hk"],
+                num_layers=cfg["L"], max_len=cfg["max_len"],
+                pos_emb="rope", **_kw(cfg["dtype"]))
+    where = dict(mesh=mesh) if mesh is not None else dict(device=device)
+    return ServingEngine(model, slots=cfg["slots"], paged=True,
+                         block_size=cfg["block_size"],
+                         registry=telemetry.MetricRegistry(),
+                         tracer=telemetry.Tracer(), **where)
+
+
+def _multichip_prompts(cfg):
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg["V"], size=cfg["prompt_len"]).astype(
+        np.int32) for _ in range(cfg["n_requests"])]
+
+
+def multichip_rank(cfg_path: str, rank: int) -> int:
+    """One tp rank of ``--multichip`` (``serve_bench.py --multichip-rank
+    <cfg> <rank>``): join the world, build the same tp engine as every
+    rank, and run its lock-step loop. Rank 0 leads, submitting a warm
+    pass and a measured pass from its main thread, then stops the loop;
+    every other rank follows until the leader stops. Each writes its
+    streams by request id (the leader's measured pass, in submit order,
+    and its tok/s too) to ``<out>/rank<r>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from distkeras_torch.parallel.mesh import make_mesh
+
+    cfg = json.load(open(cfg_path))
+    device = cfg["device"]
+    if device.startswith("cuda"):
+        torch.cuda.set_device(rank if cfg["backend"] == "nccl" else 0)
+        device = f"cuda:{torch.cuda.current_device()}"
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // cfg["tp"]))
+    dist.init_process_group(cfg["backend"],
+                            init_method=f"tcp://127.0.0.1:{cfg['port']}",
+                            rank=rank, world_size=cfg["tp"],
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        eng = _multichip_engine(cfg, device, make_mesh({"model": cfg["tp"]}))
+        out = {"rank": rank, "backend": dist.get_backend()}
+        if rank == 0:
+            stop, err = threading.Event(), []
+
+            def loop():
+                try:
+                    eng.serve_forever(stop)
+                except BaseException as e:  # reported below
+                    err.append(e)
+
+            t = threading.Thread(target=loop, daemon=True)
+            t.start()
+            try:
+                prompts = _multichip_prompts(cfg)
+                by_rid = {}
+                for _ in range(2):  # a warm pass, then the measured one
+                    streams, out["tok_s"], rids = _multichip_pass(
+                        eng, prompts, cfg["max_new"], looped=True)
+                    by_rid.update(zip(map(str, rids), streams))
+                out["streams"], out["by_rid"] = streams, by_rid
+            finally:
+                stop.set()
+                t.join(300)
+            if err:
+                raise err[0]
+        else:
+            eng.serve_forever(threading.Event())
+            out["by_rid"] = {str(rid): toks
+                             for rid, toks, _ in eng.lockstep_streams}
+        out["ticks"] = eng.ticks
+        with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def bench_multichip(tp_list=(1, 2), V=1024, D=256, H=8, Hk=4, L=4,
+                    slots=4, n_requests=16, prompt_len=16, max_new=32,
+                    block_size=16, dtype="float32", smoke=False,
+                    device=None, python=None, timeout_s=600):
+    """Tensor-parallel decode (the reference's ``bench_multichip``): the
+    same paged chunked engine at each tp degree of ``tp_list``, its
+    sustained decode tok/s against the mesh-less engine's, and every
+    stream BIT-IDENTICAL to the mesh-less engine's at every tp. tp=1 is
+    a mesh of one position in this process; a tp > 1 runs as that many
+    ranks (:func:`multichip_rank`), the leader submitting, every rank
+    stepping in the engine's lock-step loop, each follower's kept
+    streams held to the leader's. ``python`` is the command prefix a
+    rank starts with (default: this interpreter).
+
+    On the CPU (``device='cpu'``, gloo ranks) and on ranks sharing one
+    card the numbers measure dispatch and host staging, not a tp speed:
+    parity is the point there. Departures: no steady-state recompile
+    check (the port's engine is eager), no respawn into virtual host
+    devices."""
+    import tempfile
+
+    from distkeras_torch.parallel.mesh import local_mesh
+    from distkeras_torch.parallel.ranks import run_ranks
+
+    if smoke:
+        V, D, H, Hk, L, slots = 64, 32, 8, 4, 2, 2
+        n_requests, prompt_len, max_new = 6, 8, 8
+        block_size = 8
+    devices = _devices(device)
+    dev = devices[0]
+    max_len = prompt_len + max_new
+    max_len += (-max_len) % block_size
+    cfg = dict(V=V, D=D, H=H, Hk=Hk, L=L, slots=slots,
+               n_requests=n_requests, prompt_len=prompt_len,
+               max_new=max_new, block_size=block_size, dtype=dtype,
+               max_len=max_len)
+    prompts = _multichip_prompts(cfg)
+
+    def local(mesh):
+        eng = _multichip_engine(cfg, dev, mesh)
+        _multichip_pass(eng, prompts, max_new)  # warm
+        return _multichip_pass(eng, prompts, max_new)[:2]
+
+    base_streams, base_tps = local(None)
+    result = {
+        "baseline_decode_tok_s": round(base_tps, 1),
+        "multichip_decode_tok_s": {},
+        "parity": True,
+        "follower_parity": True,
+        "tp_backend": {},
+        "n_devices": len(devices),
+        "backend": dev.type,
+        "config": f"d{D}/h{H}kv{Hk}/L{L}/v{V}-slots{slots}"
+                  f"-req{n_requests}-prompt{prompt_len}+{max_new}"
+                  f"-bs{block_size}-{dtype}"
+                  + ("-smoke" if smoke else ""),
+    }
+    for tp in tp_list:
+        if tp == 1:
+            streams, tps = local(local_mesh({"model": 1}))
+            result["tp_backend"]["tp1"] = None
+        else:
+            cards = len(devices) if dev.type == "cuda" else 0
+            backend = "nccl" if cards >= tp else "gloo"
+            ranks, _ = run_ranks(
+                f"multichip tp={tp}", os.path.abspath(__file__),
+                "--multichip-rank", dict(
+                    cfg, tp=tp, backend=backend, port=_free_port(),
+                    device="cpu" if dev.type != "cuda" else "cuda",
+                    out=tempfile.mkdtemp(prefix="dk_multichip_")),
+                tp, timeout_s, python)
+            streams, tps = ranks[0]["streams"], ranks[0]["tok_s"]
+            result["tp_backend"][f"tp{tp}"] = ranks[0]["backend"]
+            # every follower kept the leader's streams (both passes, by
+            # request id) and ticked as often
+            result["follower_parity"] = result["follower_parity"] and all(
+                r["by_rid"] == ranks[0]["by_rid"]
+                and r["ticks"] == ranks[0]["ticks"] for r in ranks[1:])
+        result["multichip_decode_tok_s"][f"tp{tp}"] = round(tps, 1)
+        result["parity"] = result["parity"] and streams == base_streams
+    print(json.dumps(result), flush=True)
+    if smoke:
+        r = result
+        _check(r, [("parity", r["parity"]),
+                   ("follower_parity", r["follower_parity"])])
+    return result
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m distkeras_torch.serve_bench",
@@ -1368,17 +1573,31 @@ def main(argv=None):
     mode.add_argument("--live-update", action="store_true",
                       help="rolling weight updates mid-flight and an "
                            "SLO-burn auto-rollback")
+    mode.add_argument("--multichip", action="store_true",
+                      help="tensor-parallel decode: the paged engine at "
+                           "each tp of --tp-list (spawned ranks) vs the "
+                           "mesh-less engine, streams bit-identical")
+    mode.add_argument("--multichip-rank", nargs=2,
+                      metavar=("CFG", "RANK"), help=argparse.SUPPRESS)
     ap.add_argument("--smoke", action="store_true",
                     help="self-check the mode's contract")
     ap.add_argument("--replicas", type=int, default=3,
                     help="replicas for --router/--disagg/--live-update; "
                          "the largest fleet of --fleet-sim (default 3)")
+    ap.add_argument("--tp-list", default="1,2",
+                    help="tp degrees of --multichip (default 1,2)")
     ap.add_argument("--device", default=None,
                     help="'cpu' for the host; default: the CUDA cards, "
                          "replica i on cuda:{i %% device_count}")
     args = ap.parse_args(argv)
+    if args.multichip_rank:
+        return multichip_rank(args.multichip_rank[0],
+                              int(args.multichip_rank[1]))
     kw = dict(smoke=args.smoke, device=args.device)
-    if args.router:
+    if args.multichip:
+        bench_multichip(tp_list=tuple(int(t) for t in
+                                      args.tp_list.split(",")), **kw)
+    elif args.router:
         bench_router(replicas=args.replicas, **kw)
     elif args.fleet_sim:
         bench_fleet_sim(max_replicas=args.replicas, **kw)

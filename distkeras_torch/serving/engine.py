@@ -86,6 +86,29 @@ tick: the ranks step in lock step, and no plan decision reads a clock
 imported blocks) is unsharded: gathered over tp on the way out, sliced
 on the way in, so a block moves between engines of any tp degree.
 
+A tensor-parallel engine admits at the step boundary: :meth:`submit`
+applies the scheduler's refusals at once (the queue depth counting what
+is staged) and STAGES an accepted request, which enters the scheduler at
+the top of the next step (every rank submitting the same requests in the
+same order). Behind a server, :meth:`serve_forever` on a tp engine is
+the **lock-step loop**: rank 0 (the leader) sends, at the top of every
+iteration (idle ones included), one step record over the mesh's control
+group (gloo, CPU tensors, its own timeout) holding the named control ops
+it is about to apply (:meth:`control`: a weight push, a KV export or
+import, a role flip, a drain), the admissions it is about to submit,
+whether it steps or dozes and the stop flag; every other rank (a
+follower) receives it, applies the same ops (their tensors broadcast
+after the record) and admissions in the same order and runs the same
+step, so the ticks' tp collectives meet. Each record also carries the
+leader's state (ticks, slots, queue depth, weight version, role, drain
+flag, failed ops), which a follower checks against its own: a rank that
+falls out of step raises naming itself, and a rank that dies or stalls
+makes the others' next broadcast or collective raise after the control
+group's timeout. Either way the loop ends with a flight postmortem. A
+follower's streams are read by nobody: each keeps its tokens, and the
+last :data:`LOCKSTEP_STREAM_RECORDS` finished ones stay in
+``lockstep_streams``.
+
 The loop thread: :meth:`ServingEngine.serve_forever` steps the engine
 until told to stop (on the engine's card: CUDA's current device is per
 thread), and :meth:`ServingEngine.call_in_loop` marshals a control call
@@ -103,6 +126,7 @@ order: an export gathers over tp).
 from __future__ import annotations
 
 import contextlib
+import inspect
 import sys
 import tempfile
 import threading
@@ -117,7 +141,10 @@ import torch.nn.functional as F
 
 from distkeras_torch import bridge, telemetry
 from distkeras_torch.models.transformer import filter_logits, sample_tokens
-from distkeras_torch.parallel.collectives import all_gather_tp
+from distkeras_torch.parallel.collectives import (all_gather_tp,
+                                                  broadcast_object,
+                                                  broadcast_tensors,
+                                                  tensor_specs)
 from distkeras_torch.parallel.mesh import Mesh
 from distkeras_torch.parallel.spmd import (draft_param_specs, shard_tensor,
                                            tp_dim)
@@ -128,7 +155,9 @@ from distkeras_torch.serving.scheduler import (
     QOS_TIERS,
     DrainingError,
     FIFOScheduler,
+    QueueFullError,
     Request,
+    TokenStream,
 )
 from distkeras_torch.serving.weights import validate_like
 from distkeras_torch.telemetry.events import EventJournal
@@ -142,6 +171,13 @@ from distkeras_torch.utils.metrics import MetricsWriter
 # every emission seed, so the proposal chain never shares draws with the
 # emission chain (the reference folds 1 into the request's key)
 _DRAFT_SEED_OFFSET = 1 << 32
+
+# the control calls that touch device state, by name (ServingEngine.
+# control): a tensor-parallel engine applies each on every rank
+CONTROL_OPS = ("update_weights", "export_blocks", "import_blocks",
+               "set_role", "begin_drain", "end_drain")
+# a follower rank keeps the streams of this many finished requests
+LOCKSTEP_STREAM_RECORDS = 1024
 
 
 def _pack_i32(*arrs) -> np.ndarray:
@@ -310,7 +346,52 @@ def _host_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+def _admission(req: Request) -> dict:
+    """A staged request as a step record carries it: every field a
+    follower needs to build the same request (the leader's rid, trace id
+    and sampling fields)."""
+    return {"rid": req.rid, "prompt": req.prompt,
+            "max_new_tokens": req.max_new_tokens,
+            "temperature": req.temperature, "seed": req.seed,
+            "eos_id": req.eos_id, "top_k": req.top_k, "top_p": req.top_p,
+            "tier": req.tier, "trace_id": req.trace_id,
+            "parent_span": req.parent_span}
+
+
 _IDLE_CFG = (0.0, None, None)  # free slots sample greedily into the void
+
+
+@dataclass
+class _Ctrl:
+    """One control call queued for the loop: a closure ``fn`` (run on
+    this rank only) or a named op of :data:`CONTROL_OPS` with its
+    arguments (``meta``, picklable) and tensors (every rank of a tp
+    engine applies it); the caller waits on ``ev`` for ``box``."""
+
+    fn: Any = None
+    op: Optional[str] = None
+    meta: Any = None
+    tensors: list = field(default_factory=list)
+    ev: threading.Event = field(default_factory=threading.Event)
+    box: dict = field(default_factory=dict)
+
+
+class _KeptStream(TokenStream):
+    """A follower rank's request stream, which nobody reads: its tokens
+    are kept in a list (at most the request's ``max_new_tokens``), and
+    at its end ``(rid, tokens, reason)`` joins ``book``, the engine's
+    bounded record of finished streams."""
+
+    def __init__(self, rid: int, book: deque):
+        super().__init__()
+        self.rid, self.kept, self._book = rid, [], book
+
+    def _put(self, tok: int):
+        self.kept.append(int(tok))
+
+    def _finish(self, reason: str):
+        self.finish_reason = reason
+        self._book.append((self.rid, self.kept, reason))
 
 
 @dataclass
@@ -464,7 +545,8 @@ class ServingEngine:
         Pass the ``tp_size=1`` model; the engine runs on its device (one
         card a rank over NCCL, or the CPU over gloo), so ``device=``
         must stay None. A draft whose head counts divide ``n`` is sharded
-        like the flagship, any other runs whole on every rank.
+        like the flagship, any other runs whole on every rank. Building
+        one is collective (it makes the mesh's control group).
       device: where the engine runs; ``None`` means the CUDA card (and
         raises without one). Must be the model's (and the draft's)
         device.
@@ -472,7 +554,8 @@ class ServingEngine:
     Drive it with :meth:`step` or :meth:`drain`, or from a loop thread
     with :meth:`serve_forever`; ``submit`` is thread-safe, stepping is
     single-threaded by design, and other threads reach the engine's
-    state through :meth:`call_in_loop`.
+    state through :meth:`control` (the named control calls) and
+    :meth:`call_in_loop` (a closure).
     """
 
     def __init__(self, model, slots: int = 4,
@@ -542,6 +625,20 @@ class ServingEngine:
                     "engines")
             self.tp = sizes[tp_axis]
         self._tp_group = mesh.group(tp_axis) if self.tp > 1 else None
+        self.tp_rank = mesh.index(tp_axis) if mesh is not None else 0
+        # the lock-step loop's channel, made on every rank as the engine
+        # is built (collective; cached on the mesh)
+        self._ctrl_group = (mesh.control_group(tp_axis) if self.tp > 1
+                            else None)
+        # a tp engine's accepted requests, waiting for the step boundary
+        self._staged_lock = threading.Lock()
+        self._staged_admits: List[Request] = []
+        self._lockstep_on = False
+        self._lockstep_error: Optional[BaseException] = None
+        self.lockstep_streams: deque = deque(maxlen=LOCKSTEP_STREAM_RECORDS)
+        self._lockstep = {"records": 0, "record_ms": 0.0, "tensor_ms": 0.0,
+                          "tensor_bytes": 0, "op_errors": 0, "ops": {},
+                          "last_op": None}
         self.role = role
         self.multi_step_k = multi_step_k
         self.multi_step_fallbacks: dict = {}
@@ -917,7 +1014,38 @@ class ServingEngine:
             top_k=top_k, top_p=top_p, deadline_s=deadline_s,
             tier=tier, trace_id=trace_id, parent_span=parent_span,
         )
+        if self.tp > 1:
+            return self._stage(req)
         return self.scheduler.submit(req)
+
+    def _stage(self, req: Request) -> Request:
+        """A tensor-parallel engine's admission: refused now by the
+        scheduler's own rule (the queue depth counting the staged
+        requests), else staged for the next step boundary, where every
+        rank submits it in the same order."""
+        if self._lockstep_error is not None:
+            raise RuntimeError(
+                f"the engine's lock-step loop ended: "
+                f"{type(self._lockstep_error).__name__}: "
+                f"{self._lockstep_error}")
+        sch = self.scheduler
+        if req.trace_id is None:
+            req.trace_id = self.tracer.new_trace_id()
+        with self._staged_lock:
+            if (sch.depth() + len(self._staged_admits)
+                    >= sch.max_queue_depth):
+                sch._m_rejected.inc()
+                raise QueueFullError(
+                    f"admission queue full "
+                    f"(max_queue_depth={sch.max_queue_depth})")
+            req.submit_t = time.monotonic()
+            self._staged_admits.append(req)
+        return req
+
+    def _take_staged(self) -> List[Request]:
+        with self._staged_lock:
+            out, self._staged_admits = self._staged_admits, []
+        return out
 
     # -- the engine loop ----------------------------------------------------
 
@@ -939,23 +1067,40 @@ class ServingEngine:
                   else contextlib.nullcontext()):
                 return self._step()
         except Exception as e:
-            self._m_crashes.inc()
-            if self.flight is not None:
-                path = self.flight.dump_postmortem(
-                    "crash", error=f"{type(e).__name__}: {e}",
-                    tick=self.ticks,
-                )
-                if path:
-                    print(
-                        f"ServingEngine: step() crashed at tick "
-                        f"{self.ticks}; flight postmortem: {path}",
-                        file=sys.stderr,
-                    )
+            self._crash(e, "step()")
             raise
+
+    def _crash(self, e: BaseException, where: str):
+        """Count a crash and dump the flight postmortem (once per
+        exception)."""
+        if getattr(e, "_dk_postmortem", False):
+            return
+        self._m_crashes.inc()
+        if self.flight is not None:
+            path = self.flight.dump_postmortem(
+                "crash", error=f"{type(e).__name__}: {e}",
+                tick=self.ticks,
+            )
+            if path:
+                print(
+                    f"ServingEngine: {where} crashed at tick "
+                    f"{self.ticks}; flight postmortem: {path}",
+                    file=sys.stderr,
+                )
+        try:
+            e._dk_postmortem = True
+        except AttributeError:  # pragma: no cover - slotted exceptions
+            pass
 
     @torch.no_grad()
     def _step(self) -> bool:
-        self._drain_ctrl()
+        if not self._lockstep_on:
+            # driven directly: the boundary is here (the lock-step loop
+            # applies both from its step record instead)
+            self._drain_ctrl()
+            if self.tp > 1:
+                for req in self._take_staged():
+                    self.scheduler.submit(req)
         if self.pipeline:
             return self._pipelined_step()
         n_prefills = self._admit()
@@ -1024,47 +1169,281 @@ class ServingEngine:
         engine's loop thread. It runs on the engine's card (CUDA's
         current device is per thread). A step that raises ends the loop
         with the error, after :meth:`step` wrote its flight
-        postmortem."""
+        postmortem. On a tensor-parallel engine this is the lock-step
+        loop (see the module docstring): rank 0 leads, watching
+        ``stop``; on every other rank ``stop`` is unused and the loop
+        ends when the leader's does."""
         with (torch.cuda.device(self._device)
               if self._device.type == "cuda" else contextlib.nullcontext()):
+            if self.tp > 1:
+                return self._serve_lockstep(stop, idle_sleep)
             while not stop.is_set():
                 if not self.step():
                     stop.wait(idle_sleep)
+
+    def _has_work(self) -> bool:
+        return (any(st is not None for st in self._slots)
+                or self.scheduler.depth() > 0 or bool(self._pending))
+
+    def _take_ctrl(self) -> List[_Ctrl]:
+        out = []
+        while self._ctrl:
+            try:
+                out.append(self._ctrl.popleft())
+            except IndexError:  # pragma: no cover - single consumer
+                break
+        return out
+
+    @staticmethod
+    def _settle(c: _Ctrl, fn):
+        """Run ``fn`` for the caller waiting on ``c``."""
+        try:
+            c.box["val"] = fn()
+        except BaseException as e:
+            c.box["err"] = e
+        finally:
+            c.ev.set()
 
     def _drain_ctrl(self):
         """Service queued control calls at the top of each step: the
         pool, radix index, caches and weights belong to the loop thread,
         so cross-thread work is marshalled here instead of locked."""
-        while self._ctrl:
-            try:
-                fn, ev, box = self._ctrl.popleft()
-            except IndexError:  # pragma: no cover - single consumer
-                break
-            try:
-                box["val"] = fn()
-            except BaseException as e:
-                box["err"] = e
-            finally:
-                ev.set()
+        for c in self._take_ctrl():
+            self._settle(c, c.fn if c.op is None else (
+                lambda: self._apply_op(c.op, c.meta, c.tensors)))
 
-    def call_in_loop(self, fn, timeout: float = 60.0):
-        """Run ``fn()`` on the engine loop thread between ticks and
-        return its result (exceptions propagate): the thread-safe entry
-        point for :meth:`update_weights`, :meth:`export_blocks`,
-        :meth:`import_blocks` and :meth:`set_role` from server handler
-        threads. Needs the loop (:meth:`serve_forever`), or a caller
-        driving :meth:`step`, to be running."""
-        ev = threading.Event()
-        box: dict = {}
-        self._ctrl.append((fn, ev, box))
-        if not ev.wait(timeout):
+    def _wait_ctrl(self, c: _Ctrl, timeout: float):
+        self._ctrl.append(c)
+        if not c.ev.wait(timeout):
             raise TimeoutError(
                 f"engine loop did not service the control call within "
                 f"{timeout}s (is serve_forever running?)"
             )
-        if "err" in box:
-            raise box["err"]
-        return box.get("val")
+        if "err" in c.box:
+            raise c.box["err"]
+        return c.box.get("val")
+
+    def call_in_loop(self, fn, timeout: float = 60.0):
+        """Run ``fn()`` on the engine loop thread between ticks and
+        return its result (exceptions propagate). Needs the loop
+        (:meth:`serve_forever`), or a caller driving :meth:`step`, to be
+        running. On a tensor-parallel engine ``fn`` runs on THIS rank
+        only: it must touch no state the ranks share (the caches, the
+        pool, the weights, the scheduler) — the named calls of
+        :meth:`control` do that on every rank."""
+        return self._wait_ctrl(_Ctrl(fn=fn), timeout)
+
+    def control(self, op: str, *args, timeout: float = 60.0, **kw):
+        """Apply one of the engine's control calls (:data:`CONTROL_OPS`:
+        :meth:`update_weights`, :meth:`export_blocks`,
+        :meth:`import_blocks`, :meth:`set_role`, :meth:`begin_drain`,
+        :meth:`end_drain`) from any thread, between steps, and return
+        this rank's result (exceptions propagate). One engine: through
+        :meth:`call_in_loop` (the drain pair, flags only, at once). A
+        tensor-parallel engine under its lock-step loop: named in the
+        leader's next step record, with its tensors broadcast after it,
+        and applied on every rank; what can be checked before that (a
+        pushed tree against the live weights) is checked here, so a
+        refusal reaches no rank."""
+        if op not in CONTROL_OPS:
+            raise ValueError(f"unknown control op {op!r}; known: "
+                             f"{CONTROL_OPS}")
+        if self.tp == 1:
+            if op in ("begin_drain", "end_drain"):
+                return getattr(self, op)()
+            return self.call_in_loop(
+                lambda: getattr(self, op)(*args, **kw), timeout)
+        meta, tensors = self._prepare_op(op, *args, **kw)
+        return self._wait_ctrl(_Ctrl(op=op, meta=meta, tensors=tensors),
+                               timeout)
+
+    def _prepare_op(self, op: str, *args, **kw):
+        """``(meta, tensors)`` of a named control call: its picklable
+        arguments and its CPU tensors, which :meth:`_apply_op` turns back
+        into the call on every rank."""
+        call = inspect.signature(getattr(self, op)).bind(*args, **kw)
+        call.apply_defaults()
+        a = call.arguments
+        if op == "update_weights":
+            variables, version = a["variables"], a["version"]
+            if not (isinstance(variables, dict) and "params" in variables):
+                variables = {"params": variables}
+            validate_like(self._param_tree(),
+                          {"params": variables["params"]})
+            paths, tensors = [], []
+            for name, _ in self.model.named_parameters():
+                node = variables
+                for key in bridge.flax_key(name).split("/"):
+                    node = node[key]
+                paths.append(bridge.flax_key(name))
+                tensors.append(_host_tensor(node).detach().contiguous())
+            return {"version": version, "paths": paths}, tensors
+        if "prompt" in a:
+            a["prompt"] = np.asarray(a["prompt"], np.int32).reshape(-1)
+        if op == "import_blocks":
+            rows = [[_host_tensor(x).contiguous() for x in bl]
+                    for bl in a.pop("blocks")]
+            a["widths"] = [len(r) for r in rows]
+            return dict(a), [t for r in rows for t in r]
+        return dict(a), []
+
+    def _apply_op(self, op: str, meta, tensors):
+        if op == "update_weights":
+            tree: dict = {}
+            for path, t in zip(meta["paths"], tensors):
+                node = tree
+                keys = path.split("/")
+                for key in keys[:-1]:
+                    node = node.setdefault(key, {})
+                node[keys[-1]] = t
+            return self.update_weights(tree, version=meta["version"])
+        if op == "import_blocks":
+            rows, i = [], 0
+            for w in meta["widths"]:
+                rows.append(list(tensors[i:i + w]))
+                i += w
+            return self.import_blocks(meta["prompt"], rows)
+        return getattr(self, op)(**meta)
+
+    # -- the lock-step loop (tensor-parallel engines) -------------------------
+
+    def _lockstep_state(self) -> tuple:
+        """What every rank must agree on at a step boundary."""
+        return (self.ticks, tuple(self.slot_requests),
+                self.scheduler.depth(), self.weight_version, self.role,
+                self.draining, self._lockstep["op_errors"])
+
+    def _lockstep_verify(self, theirs: tuple, where: str):
+        mine = self._lockstep_state()
+        if mine != theirs:
+            names = ("ticks", "slot requests", "queue depth",
+                     "weight version", "role", "draining",
+                     "failed control ops")
+            diff = [f"{n} {a!r} (the leader's {b!r})"
+                    for n, a, b in zip(names, mine, theirs) if a != b]
+            raise RuntimeError(
+                f"tp rank {self.tp_rank} fell out of lock step with the "
+                f"leader (rank 0) {where}: {', '.join(diff)}")
+
+    def _serve_lockstep(self, stop: threading.Event, idle_sleep: float):
+        lead = self.tp_rank == 0
+        book = self._lockstep
+        taken: List[_Ctrl] = []
+        admits: List[Request] = []
+        self._lockstep_on = True
+        try:
+            while True:
+                t0 = time.perf_counter()
+                if lead:
+                    taken, admits = self._take_ctrl(), self._take_staged()
+                    rec = {"state": self._lockstep_state(),
+                           "ops": [(c.op, c.meta, tensor_specs(c.tensors))
+                                   for c in taken if c.op is not None],
+                           "admits": [_admission(r) for r in admits],
+                           "busy": bool(admits) or self._has_work(),
+                           "stop": stop.is_set()}
+                    broadcast_object(rec, self._ctrl_group)
+                else:
+                    rec = broadcast_object(None, self._ctrl_group)
+                    self._lockstep_verify(rec["state"], "at the boundary")
+                book["records"] += 1
+                book["record_ms"] += (time.perf_counter() - t0) * 1e3
+                # the ops in the leader's order (its rank-local closures
+                # run between them), then the admissions
+                if lead:
+                    for c in taken:
+                        if c.op is None:
+                            self._settle(c, c.fn)
+                        else:
+                            self._lockstep_op(c.op, c.meta, c.tensors, c)
+                else:
+                    for op, meta, specs in rec["ops"]:
+                        self._lockstep_op(op, meta, specs, None)
+                    admits = [self._follower_request(a)
+                              for a in rec["admits"]]
+                taken = []
+                for req in admits:
+                    self.scheduler.submit(req)
+                admits = []
+                if not lead:
+                    want = rec["state"][2] + len(rec["admits"])
+                    if self.scheduler.depth() != want:
+                        raise RuntimeError(
+                            f"tp rank {self.tp_rank} fell out of lock step "
+                            f"with the leader (rank 0) admitting: queue "
+                            f"depth {self.scheduler.depth()}, the "
+                            f"leader's {want}")
+                if rec["stop"]:
+                    return
+                if rec["busy"]:
+                    self.step()
+                elif lead:
+                    stop.wait(idle_sleep)
+        except BaseException as e:
+            self._lockstep_error = e
+            self._crash(e, f"the lock-step loop (tp rank {self.tp_rank})")
+            self._end_streams(taken, admits, e)
+            raise
+        finally:
+            self._lockstep_on = False
+
+    def _lockstep_op(self, op: str, meta, data, entry: Optional[_Ctrl]):
+        """Apply one named op of a step record on this rank: broadcast its
+        tensors (``data``: the leader's list, else their specs) over the
+        control group, then call it. An op that raises counts in the
+        step state on every rank (it raises alike everywhere); only the
+        leader's caller sees the error."""
+        book = self._lockstep
+        specs = tensor_specs(data) if entry is not None else data
+        t0 = time.perf_counter()
+        tensors = (broadcast_tensors(data if entry is not None else None,
+                                     specs, self._ctrl_group)
+                   if specs else [])
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        bcast_ms = (time.perf_counter() - t0) * 1e3
+        book["tensor_ms"] += bcast_ms
+        book["tensor_bytes"] += nbytes
+        book["ops"][op] = book["ops"].get(op, 0) + 1
+        t1 = time.perf_counter()
+        try:
+            val = self._apply_op(op, meta, tensors)
+            if entry is not None:
+                entry.box["val"] = val
+        except Exception as e:
+            book["op_errors"] += 1
+            if entry is not None:
+                entry.box["err"] = e
+            else:
+                print(f"ServingEngine: tp rank {self.tp_rank}: control op "
+                      f"{op} raised {type(e).__name__}: {e}",
+                      file=sys.stderr)
+        finally:
+            book["last_op"] = {
+                "op": op, "bytes": nbytes,
+                "broadcast_ms": round(bcast_ms, 3),
+                "apply_ms": round((time.perf_counter() - t1) * 1e3, 3)}
+            if entry is not None:
+                entry.ev.set()
+
+    def _follower_request(self, a: dict) -> Request:
+        return Request(stream=_KeptStream(a["rid"], self.lockstep_streams),
+                       **a)
+
+    def _end_streams(self, taken: List[_Ctrl], admits: List[Request],
+                     err: BaseException):
+        """After the lock-step loop failed: every waiting control call
+        gets the error, every stream staged, queued or in a slot ends
+        ``error``."""
+        for c in taken + self._take_ctrl():
+            if not c.ev.is_set():
+                c.box["err"] = err
+                c.ev.set()
+        reqs = admits + self._take_staged()
+        reqs += self.scheduler.pop_admissible(1 << 30)[0]
+        reqs += [st.req for st in self._slots if st is not None]
+        for req in reqs:
+            if req.stream.finish_reason is None:
+                req.stream._finish("error")
 
     def drain(self, timeout: float = 120.0):
         """Step until queue and slots are empty (bench/test helper)."""
@@ -1103,9 +1482,17 @@ class ServingEngine:
 
     @property
     def drained(self) -> bool:
-        """True once a draining engine has finished all accepted work."""
-        return (self.draining and self.scheduler.depth() == 0
+        """True once a draining engine has finished all accepted work
+        (a tensor-parallel engine's staged admissions included)."""
+        return (self.draining and self.queue_depth() == 0
                 and all(st is None for st in self._slots))
+
+    def queue_depth(self) -> int:
+        """Accepted requests not yet in a slot: the scheduler's queue and
+        a tensor-parallel engine's admissions staged for the next step
+        boundary."""
+        with self._staged_lock:
+            return self.scheduler.depth() + len(self._staged_admits)
 
     def _param_tree(self) -> dict:
         """The live weights' flax-layout tree of shapes and dtypes (leaves
@@ -1221,7 +1608,7 @@ class ServingEngine:
         return StallWatchdog(
             progress=lambda: self.ticks,
             busy=lambda: (any(st is not None for st in self._slots)
-                          or self.scheduler.depth() > 0),
+                          or self.queue_depth() > 0),
             timeout_s=timeout_s, interval_s=interval_s,
             flight=self.flight, registry=self.registry,
             tracer=self.tracer,
@@ -1995,7 +2382,7 @@ class ServingEngine:
             return 1
         if self.spec:
             reason = "spec"
-        elif self._ctrl:
+        elif self._ctrl and not self._lockstep_on:
             reason = "control"
         elif (self._restore_queue or self._inflight_restores
               or any(st is not None and st.restoring is not None
@@ -2782,7 +3169,7 @@ class ServingEngine:
             "ticks": self.ticks,
             "requests_completed": self.requests_completed,
             "tokens_generated": self.tokens_generated,
-            "queue_depth": self.scheduler.depth(),
+            "queue_depth": self.queue_depth(),
             "active_slots": sum(1 for st in self._slots if st is not None),
             "draining": self.draining,
             "drained": self.drained,
@@ -2834,6 +3221,17 @@ class ServingEngine:
                 for t in QOS_TIERS
             },
         }
+        if self.tp > 1:
+            book = self._lockstep
+            out["lockstep"] = {
+                "rank": self.tp_rank, "records": book["records"],
+                "record_ms_mean": (round(book["record_ms"] / book["records"],
+                                         4) if book["records"] else None),
+                "tensor_bytes": book["tensor_bytes"],
+                "tensor_ms": round(book["tensor_ms"], 3),
+                "ops": dict(book["ops"]), "op_errors": book["op_errors"],
+                "last_op": book["last_op"],
+            }
         if self.spec:
             out.update({
                 "draft": self.draft_kind,

@@ -307,7 +307,8 @@ class FIFOScheduler:
                     f"admission queue full "
                     f"(max_queue_depth={self.max_queue_depth})"
                 )
-            req.submit_t = time.monotonic()
+            if req.submit_t is None:  # else staged earlier (tp engines)
+                req.submit_t = time.monotonic()
             self._qs[req.tier].append(req)
             depth = self._depth_locked()
             tier_depth = len(self._qs[req.tier])

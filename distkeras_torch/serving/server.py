@@ -12,9 +12,20 @@ the engine's card); handler threads submit (the scheduler is locked),
 read host-side counters (``stats``, the registry, the tracer, the
 flight ring), and marshal everything that touches the pool, the prefix
 index, the caches or the weights through
-:meth:`~distkeras_torch.serving.engine.ServingEngine.call_in_loop`.
-Array leaves on the wire (pushed weights, KV blocks) are numpy in
-flax's msgpack encoding (:mod:`distkeras_torch.utils.serde`).
+:meth:`~distkeras_torch.serving.engine.ServingEngine.control` (the named
+control calls, onto the loop thread). Array leaves on the wire (pushed
+weights, KV blocks) are numpy in flax's msgpack encoding
+(:mod:`distkeras_torch.utils.serde`).
+
+A tensor-parallel engine (``ServingEngine(mesh=make_mesh({"model":
+n}))``, one process a rank) is served by the same script on every rank:
+each builds the same engine and the same ``LMServer(engine)``. Rank 0
+(the leader) binds the socket and serves this wire unchanged; its loop
+is the engine's lock-step loop, whose step records carry every
+admission and named control call to the other ranks. Every other rank
+(a follower) binds nothing (``port`` is None) and runs only its engine's
+follower loop, which ends when the leader stops; a follower's script
+waits for that with :meth:`LMServer.join`.
 
 Protocol (all frames are msgpack dicts):
 
@@ -224,34 +235,43 @@ class LMServer:
     ``timeseries`` op): True (the default) samples the engine registry
     into an own :class:`~distkeras_torch.telemetry.TimeSeriesStore` on a
     self-timed collector thread, a store instance shares one, and
-    None/False disables it."""
+    None/False disables it.
+
+    Over a tensor-parallel engine only rank 0 serves (see the module
+    docstring); on every other rank the server has no socket, SLO
+    monitor, time-series collector or watchdog, ``start()`` starts the
+    follower loop, and ``stop()`` / :meth:`join` wait for the leader to
+    end it."""
 
     def __init__(self, engine: ServingEngine, host: str = "127.0.0.1",
                  port: int = 0,
                  max_frame_bytes: int = MAX_SERVE_FRAME_BYTES,
                  slo=None, watchdog_timeout_s: Optional[float] = None,
                  timeseries=True):
-        if engine.mesh is not None:
-            raise NotImplementedError(
-                "LMServer over a tensor-parallel engine (mesh=) is not "
-                "ported: every tp rank is its own process that must plan "
-                "the same ticks, so a server on one rank would have to "
-                "broadcast each admission and control call to the others "
-                "(ROADMAP A11c)")
         self.engine = engine
-        self.slo = slo
-        if timeseries is True:
-            self.timeseries: Optional[TimeSeriesStore] = TimeSeriesStore(
-                registry=engine.registry)
+        # a tp follower serves nothing: it follows the leader's loop
+        self.leader = engine.tp_rank == 0
+        self.slo = slo if self.leader else None
+        if not self.leader:
+            self.timeseries: Optional[TimeSeriesStore] = None
+        elif timeseries is True:
+            self.timeseries = TimeSeriesStore(registry=engine.registry)
         else:
             self.timeseries = timeseries or None
         self._watchdog = (engine.watchdog(timeout_s=watchdog_timeout_s)
-                          if watchdog_timeout_s is not None else None)
+                          if watchdog_timeout_s is not None and self.leader
+                          else None)
         self.max_frame_bytes = max_frame_bytes
-        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._sock.bind((host, port))
-        self.port = self._sock.getsockname()[1]
+        self._sock: Optional[socket.socket] = None
+        self.port: Optional[int] = None
+        if self.leader:
+            self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            self._sock.bind((host, port))
+            self.port = self._sock.getsockname()[1]
+        # the loop thread's error, once it ended with one
+        self.loop_error: Optional[BaseException] = None
+        self._loop: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
         # live client connections: stop() closes them so handler
@@ -269,9 +289,13 @@ class LMServer:
         ).labels(phase="stream")
 
     def start(self) -> "LMServer":
-        self._sock.listen(64)
-        for target in (self._accept_loop, self._engine_loop):
-            t = threading.Thread(target=target, daemon=True)
+        self._loop = threading.Thread(target=self._engine_loop, daemon=True)
+        targets = [self._loop]
+        if self.leader:
+            self._sock.listen(64)
+            targets.insert(0, threading.Thread(target=self._accept_loop,
+                                               daemon=True))
+        for t in targets:
             t.start()
             self._threads.append(t)
         if self.slo is not None:
@@ -283,6 +307,11 @@ class LMServer:
         return self
 
     def stop(self, timeout: float = 10.0):
+        if not self.leader:
+            # a follower cannot stop alone: its loop ends with the
+            # leader's
+            self.join(timeout)
+            return
         self._stop.set()
         if self._watchdog is not None:
             self._watchdog.stop()
@@ -301,10 +330,23 @@ class LMServer:
         for t in self._threads:
             t.join(timeout)
 
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """Wait until the engine's loop thread has ended — on a
+        tensor-parallel follower, until the leader stopped (or the loop
+        failed: ``loop_error``). Returns whether it has ended."""
+        if self._loop is not None:
+            self._loop.join(timeout)
+            return not self._loop.is_alive()
+        return True
+
     # -- loops --------------------------------------------------------------
 
     def _engine_loop(self):
-        self.engine.serve_forever(self._stop)
+        try:
+            self.engine.serve_forever(self._stop)
+        except BaseException as e:
+            self.loop_error = e
+            raise
 
     def _accept_loop(self):
         while not self._stop.is_set():
@@ -500,9 +542,8 @@ class LMServer:
                         # prompt's prefix. Marshalled onto the engine
                         # loop thread — pool/prefix/cache state is
                         # engine-thread-only by design
-                        out = self.engine.call_in_loop(
-                            lambda m=msg: self.engine.export_blocks(
-                                [int(t) for t in m["prompt"]]))
+                        out = self.engine.control(
+                            "export_blocks", [int(t) for t in msg["prompt"]])
                         self._send(conn, lock, {
                             "ok": 1, "tokens": out["tokens"],
                             "blocks": out["blocks"],
@@ -511,10 +552,9 @@ class LMServer:
                         # the decode-replica half: install migrated
                         # blocks so the next admission of this prompt
                         # hits the prefix cache
-                        out = self.engine.call_in_loop(
-                            lambda m=msg: self.engine.import_blocks(
-                                [int(t) for t in m["prompt"]],
-                                m["blocks"]))
+                        out = self.engine.control(
+                            "import_blocks", [int(t) for t in msg["prompt"]],
+                            msg["blocks"])
                         self._send(conn, lock, {
                             "ok": 1, "imported": out["imported"],
                             "tokens": out["tokens"],
@@ -524,7 +564,7 @@ class LMServer:
                         if msg.get("undrain"):
                             # reopen admissions: the undrain half of
                             # the rolling-update primitive
-                            self.engine.end_drain()
+                            self.engine.control("end_drain")
                             st = self.engine.stats()
                             self._send(conn, lock, {
                                 "ok": 1, "draining": 0,
@@ -536,7 +576,7 @@ class LMServer:
                             # queued + in-flight streams finish under
                             # the normal loop (stats reports
                             # draining/drained progress)
-                            self.engine.begin_drain()
+                            self.engine.control("begin_drain")
                             st = self.engine.stats()
                             self._send(conn, lock, {
                                 "ok": 1, "draining": 1,
@@ -550,9 +590,8 @@ class LMServer:
                         # so the flip lands between ticks; callers
                         # drain first — the controller's declarative
                         # drain → reconfigure → undrain primitive
-                        role = self.engine.call_in_loop(
-                            lambda m=msg: self.engine.set_role(
-                                str(m["role"])))
+                        role = self.engine.control("set_role",
+                                                   str(msg["role"]))
                         self._send(conn, lock, {"ok": 1, "role": role})
                     elif op == "push_weights":
                         # live weight update: chunks accumulate per
@@ -579,7 +618,7 @@ class LMServer:
                     # failures; depth gives routers a load signal
                     self._send(conn, lock, {
                         "ok": 0, "error": "overloaded",
-                        "queue_depth": self.engine.scheduler.depth(),
+                        "queue_depth": self.engine.queue_depth(),
                     })
                 except DrainingError:
                     self._send(conn, lock, {"ok": 0, "error": "draining"})
@@ -641,9 +680,8 @@ class LMServer:
             })
             return
         try:
-            out = self.engine.call_in_loop(
-                lambda: self.engine.update_weights(variables,
-                                                   version=version))
+            out = self.engine.control("update_weights", variables,
+                                      version=version)
         except WeightPushError as e:
             self._send(conn, lock, {
                 "ok": 0, "error": "weight_push", "detail": str(e),

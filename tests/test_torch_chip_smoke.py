@@ -991,3 +991,111 @@ def test_phase12_catches_replicated_grads_summed_over_tp(monkeypatch,
     with pytest.raises(AssertionError, match="12a: the f32 witness"):
         chip_smoke.tp_phase(torch, np, here, _phase3_narrow(),
                             python=[sys.executable, str(launcher)])
+
+
+# -- phase 16 (a tensor-parallel engine behind LMServer) on the CPU -------------
+
+
+def _p16_dk():
+    from distkeras_torch.serving import (DrainingError, LMServer, Router,
+                                         ServingClient, serialize_weights)
+
+    dk = _serving_dk()
+    dk.update(LMServer=LMServer, ServingClient=ServingClient, Router=Router,
+              DrainingError=DrainingError, serialize_weights=serialize_weights)
+    return dk
+
+
+def _narrow_p16(monkeypatch):
+    """Phase 16 at phase 12's narrow widths, phase 4's requests cut to
+    40-token prompts (at least the first migrates through 16b's
+    router)."""
+    _narrow_tp(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "TP_SERVER_DISAGG_TOKENS", 40)
+    p3 = _phase3_narrow()
+    return _p16_dk(), {"phase3_streams": p3["streams"], "phase3": None,
+                       "12b": None, "14a": None}
+
+
+def test_phase16_at_narrow_width(monkeypatch):
+    """Phase 16 end to end on two gloo CPU ranks at narrow widths: 16a
+    serves the cut mix through the tp=2 server from four clients on both
+    layouts (the follower's streams and ticks equal the leader's, every
+    op answers, a push of the same weights lands on both ranks); 16b
+    holds phase 4's requests, greedy and sampled, to tp=1 servers on
+    both layouts, and on the paged one through a push, a reconfigure and
+    a drain, and migrations both ways (the router's tp=2 -> tp=1, an
+    export tp=1 -> tp=2)."""
+    import numpy as np
+    import torch
+
+    dk, yard = _narrow_p16(monkeypatch)
+    here = os.path.dirname(os.path.abspath(chip_smoke.__file__))
+    res = chip_smoke.tp_server_phase(torch, np, dk, here, yard)
+    assert res["backend"] == "gloo" and res["processes"] == 2
+    a, b = res["16a"], res["16b"]
+    for lay in ("paged", "slot"):
+        r = a[lay]
+        assert r["streams_bit_identical_across_ranks"]
+        assert r["tokens"] > 0 and r["tok_per_s"] > 0
+        assert r["client_ttft_ms"]["p99"] >= r["client_ttft_ms"]["p50"] > 0
+        assert r["control_records"] > 0 and r["control_record_ms"] >= 0
+        assert all(v for k, v in r["ops"].items() if k != "alerts")
+        # no kernel on CPU tensors: every rank's count stays 0
+        assert r["launches_per_rank"] == [
+            {"paged_attention": 0, "splash_prefill": 0}] * 2
+        assert r["yardstick_tok_per_s"] == {"phase3": None, "12b": None,
+                                            "14a": None}
+        assert b[lay]["streams_equal"] and b[lay]["follower_streams_kept"]
+    assert b["paged"]["drain_refused"]
+    assert b["paged"]["push"]["version"] == 2
+    assert b["paged"]["role"] == "prefill"
+    marks = res["rank_timeline_s"]
+    assert marks["imports"] <= marks["world"] <= marks["done"]
+    push = a["paged"]["push"]
+    assert push["ack"]["version"] == 2 and push["bytes"] > 0
+    assert push["rank0"]["bytes"] == push["rank1"]["bytes"] == push["bytes"]
+    m = b["paged"]["migrate"]
+    assert m["tp2_to_tp1"]["ok"] >= 1 and m["tp1_to_tp2"]["hit"] > 0
+    assert m["routed"] == 2
+
+
+_P16_FAULT_LAUNCHER = '''
+import runpy
+import sys
+
+from distkeras_torch.serving import scheduler
+
+real = scheduler.FIFOScheduler.submit
+seen = [0]
+
+
+def dropping(self, req):
+    """Rank 1 skips the fifth request its step records admit."""
+    seen[0] += 1
+    if sys.argv[-1] == "1" and seen[0] == 5:
+        return req
+    return real(self, req)
+
+
+scheduler.FIFOScheduler.submit = dropping
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+'''
+
+
+def test_phase16_fails_on_an_injected_fault(monkeypatch, tmp_path):
+    """A follower that skips one staged admission falls out of lock step:
+    phase 16 fails with the follower's own check, which names it."""
+    import numpy as np
+    import torch
+
+    dk, yard = _narrow_p16(monkeypatch)
+    here = os.path.dirname(os.path.abspath(chip_smoke.__file__))
+    launcher = tmp_path / "faulty_launch.py"
+    launcher.write_text(_P16_FAULT_LAUNCHER)
+    with pytest.raises(AssertionError,
+                       match=r"(?s)16: rank .*tp rank 1 fell out of lock "
+                             r"step"):
+        chip_smoke.tp_server_phase(torch, np, dk, here, yard,
+                                   python=[sys.executable, str(launcher)])

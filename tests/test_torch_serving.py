@@ -9,8 +9,8 @@ slots and a shared full-block system prefix:
   on a ``[1, vocab]`` slice with its own generator);
 - the paged layout hits the prefix cache, and with
   ``prefix_cache=False`` returns every block after drain;
-- features the port defers (``mesh``, ``watchdog``) raise
-  ``NotImplementedError``.
+- what is not a serving mesh is refused, and ``LMServer`` over a mesh
+  of one position serves as the mesh-less server does.
 """
 
 import numpy as np
@@ -158,17 +158,34 @@ def test_deferred_engine_options_raise(kw, match):
 
 @pytest.mark.parametrize("item", ["A11c"])
 def test_deferred_engine_methods_raise(item):
-    """The engine's loop thread and watchdog are ported
-    (tests/test_torch_server.py); serving a tensor-parallel (mesh=)
-    engine over TCP is not, and LMServer refuses one naming its ROADMAP
-    item."""
-    from distkeras_torch.serving import LMServer
+    """What ROADMAP A11c deferred is ported: LMServer serves a mesh=
+    engine (tp > 1 across ranks in tests/test_torch_tp_server.py). Over
+    a mesh of one position it is the mesh-less server: the same streams,
+    greedy and sampled, token for token."""
+    from distkeras_torch.serving import LMServer, ServingClient
 
     _, _, pm = _pair()
-    eng = ServingEngine(pm, mesh=local_mesh({"model": 1}),
-                        registry=telemetry.MetricRegistry())
-    with pytest.raises(NotImplementedError, match=item):
-        LMServer(eng)
+    prompts = _prompts(3)
+    cfgs = [dict(max_new_tokens=6),
+            dict(max_new_tokens=5, temperature=1.0, seed=3),
+            dict(max_new_tokens=7, temperature=0.8, seed=5, top_k=8)]
+    streams = []
+    for where in (dict(mesh=local_mesh({"model": 1})), dict(device="cpu")):
+        eng = ServingEngine(pm, slots=2, prefill_chunk=8, block_size=8,
+                            paged=True, registry=telemetry.MetricRegistry(),
+                            tracer=telemetry.Tracer(), **where)
+        srv = LMServer(eng).start()
+        try:
+            assert srv.leader and srv.port
+            c = ServingClient("127.0.0.1", srv.port, timeout=60,
+                              request_timeout=60)
+            rids = [c.generate(p, **cfg) for p, cfg in zip(prompts, cfgs)]
+            streams.append([c.result(r) for r in rids])
+            c.close()
+        finally:
+            srv.stop()
+    assert streams[0] == streams[1]
+    assert all(r == "length" for _, r in streams[0])
 
 
 def test_engine_refuses_a_model_on_another_device():
