@@ -58,7 +58,11 @@ Phases (any failure exits non-zero):
    the routes the wrappers record must all be the bf16 tensor-core
    kernels. The share of greedy tokens equal to a gather-forced twin
    engine is printed (informational at bf16), with each differing
-   stream's first flip and the top-2 logit gap there.
+   stream's first flip and the top-2 logit gap there. Each counted
+   engine is marked steady before its mix (``mark_steady()``, after the
+   warm-up engines ran): the mix must build, load and first-launch no
+   kernel configuration (``recompiles_since_mark()`` empty), and the
+   process totals of kernel builds, loads and first launches print.
 4. **Exact.** A small f32 model (d256, 4 layers, GQA, int8 cache) with
    the kernels on, every engine mode on both layouts — chunked,
    monolithic (``prefill_chunk=None``), pipelined, multi-step k=4 (sync
@@ -298,7 +302,9 @@ Phases (any failure exits non-zero):
    every route a bf16 split kernel; ``stats``, ``metrics``,
    ``timeseries``, ``flight``, ``alerts``, ``events`` (after a drain and
    an undrain) and ``chrome_trace`` answer with content; ``stop()``
-   joins every thread. Prints tok/s over the wire beside phase 3's,
+   joins every thread; each counted engine is marked steady before its
+   mix and ``recompiles_since_mark()`` must be empty after it, as in
+   phase 3. Prints tok/s over the wire beside phase 3's,
    client TTFT and inter-token p50/p99, ms a tick and the share of greedy
    tokens equal to phase 3's streams (informational at bf16: admission
    over the wire changes which rows share a tick). (14b) Phase 4's f32
@@ -315,7 +321,10 @@ Phases (any failure exits non-zero):
    watchdog's 0.5 s while requests queue writes a postmortem that
    ``report.report_flight`` renders as a stall. Any exception that ends
    a server, handler, pump or loop thread fails the phase (collected
-   through ``threading.excepthook``).
+   through ``threading.excepthook``). The whole phase runs under the
+   port's lock-order detector (every lock allocated from
+   ``distkeras_torch`` meanwhile): a cycle fails it, the edge count
+   prints.
 15. **The fleet.** (15a) Phase 3's flagship and mix through
    ``Router(policy="affine")`` over three paged replicas on the card,
    each over a model of its own (int8 cache, 8 slots, 64-token chunks;
@@ -345,7 +354,8 @@ Phases (any failure exits non-zero):
    scales up under queue pressure and back down, and ``replay()``
    reproduces its decisions. Replicas never share a model's parameters
    (checked); any exception in a router, manager, server, pump or loop
-   thread fails the phase.
+   thread fails the phase. The whole phase runs under the lock-order
+   detector, as phase 14.
 16. **A tensor-parallel server.** Two ranks (``--phase16-worker``, as
    phase 12's: NCCL one card each on two cards or more, else gloo on
    the one card), each building the same tp=2 engine and
@@ -1964,10 +1974,13 @@ def ps_roundtrip(torch, dk, model):
 # -- phase 3: serving at full width ----------------------------------------
 
 
-def serve(torch, np, dk, model, requests, **kw):
+def serve(torch, np, dk, model, requests, steady=False, **kw):
     """Drive one engine over ``requests`` (8 slots, 64-token chunks
     unless ``kw`` says otherwise); returns its summary, the streams and
-    the engine."""
+    the engine. With ``steady`` (a warm-up already ran) the engine is
+    marked steady before the mix and the summary carries what the mix
+    built, loaded or launched for the first time
+    (``recompiles_since_mark``)."""
     kw.setdefault("slots", 8)
     kw.setdefault("prefill_chunk", 64)
     if "mesh" not in kw:  # a tp engine runs on its model's device
@@ -1977,6 +1990,8 @@ def serve(torch, np, dk, model, requests, **kw):
         tracer=dk["telemetry"].Tracer(), **kw)
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    if steady:
+        eng.mark_steady()
     sync(torch)
     t0 = time.perf_counter()
     reqs = [eng.submit(p, **c) for p, c in requests]
@@ -2007,7 +2022,17 @@ def serve(torch, np, dk, model, requests, **kw):
         "peak_device_mb": (torch.cuda.max_memory_allocated() / 2**20
                            if DEV == "cuda" else None),
     }
+    if steady:
+        summary["recompiles_since_mark"] = eng.recompiles_since_mark()
     return summary, streams, eng
+
+
+def steady_check(phase, summary):
+    """A warm engine's mix built, loaded and first-launched nothing."""
+    got = summary["recompiles_since_mark"]
+    if got:
+        raise AssertionError(f"{phase}: the mix after the warm-up built, "
+                             f"loaded or first-launched {got}")
 
 
 def greedy_match(requests, a, b):
@@ -2059,7 +2084,9 @@ def serving_phase(torch, np, dk, pa, sp):
     pa.paged_attention.routes.clear()
     sp.splash_prefill_attention.routes.clear()
     paged_sum, paged_streams, _ = serve(torch, np, dk, model, requests,
-                                        paged=True, block_size=16)
+                                        paged=True, block_size=16,
+                                        steady=True)
+    steady_check("serving phase (paged)", paged_sum)
     paged_sum["launches"] = {"paged_attention": pa.paged_attention.launches,
                              "splash_prefill": sp.splash_prefill_attention
                              .launches}
@@ -2073,7 +2100,8 @@ def serving_phase(torch, np, dk, pa, sp):
     pa.paged_attention.routes.clear()
     sp.splash_prefill_attention.routes.clear()
     slot_sum, slot_streams, _ = serve(torch, np, dk, model, requests,
-                                      paged=False)
+                                      paged=False, steady=True)
+    steady_check("serving phase (slot)", slot_sum)
     slot_sum["launches"] = {"paged_attention": pa.paged_attention.launches,
                             "splash_prefill": sp.splash_prefill_attention
                             .launches}
@@ -2107,6 +2135,8 @@ def serving_phase(torch, np, dk, pa, sp):
     paged_sum["routes"] = routes["paged_attention"]
     slot_sum["routes"] = routes["splash_prefill"]
     out["paged"], out["slot"] = paged_sum, slot_sum
+    # process totals by kind (kernel builds, loads, first launches)
+    out["recompiles"] = dk["telemetry"].recompiles.counts()
     return out, launches, routes, {"paged": paged_streams,
                                    "slot": slot_streams}
 
@@ -4237,13 +4267,13 @@ def client_latency(np, out):
             {"p50": _pct(np, itl, 50), "p99": _pct(np, itl, 99)})
 
 
-def wire_serve(torch, np, dk, model, requests, **kw):
+def wire_serve(torch, np, dk, model, requests, steady=False, **kw):
     """Serve ``requests`` through an ``LMServer`` on loopback (8 slots,
     64-token chunks unless ``kw`` says otherwise; an SLO monitor and the
     stall watchdog at ``FLAGSHIP_WATCHDOG_S`` armed), driven by
     ``drive_clients``. Returns (summary, streams, engine, server, a
     client, request ids) with the server still up; the caller stops
-    it."""
+    it. ``steady`` as in :func:`serve`."""
     kw.setdefault("slots", 8)
     kw.setdefault("prefill_chunk", 64)
     tel = dk["telemetry"]
@@ -4254,9 +4284,12 @@ def wire_serve(torch, np, dk, model, requests, **kw):
                          registry=eng.registry, tracer=eng.tracer)
     srv = dk["LMServer"](eng, slo=slo,
                          watchdog_timeout_s=FLAGSHIP_WATCHDOG_S)
+    if steady:
+        eng.mark_steady()
     srv.start()
     out, wall, cl = drive_clients(torch, np, dk, srv.port, requests,
                                   model.vocab_size, "server phase")
+    since = eng.recompiles_since_mark() if steady else None
     ttft, itl = client_latency(np, out)
     st = cl.stats()
     summary = {
@@ -4272,6 +4305,8 @@ def wire_serve(torch, np, dk, model, requests, **kw):
         "prefix_hit_tokens": st.get("prefix_hit_tokens"),
         "stalls": eng.registry.counter("slo_stalls_total").value,
     }
+    if steady:
+        summary["recompiles_since_mark"] = since
     return summary, [o[0] for o in out], eng, srv, cl, [o[4] for o in out]
 
 
@@ -4318,7 +4353,8 @@ def server_flagship(torch, np, dk, pa, sp, phase3, direct):
         _stop_server(srv)
         _zero_counts(pa, sp)
         summary, streams, eng, srv, cl, rids = wire_serve(
-            torch, np, dk, model, requests, **kw)
+            torch, np, dk, model, requests, steady=True, **kw)
+        steady_check(f"server phase ({layout})", summary)
         used = {"paged_attention": pa.paged_attention.launches,
                 "splash_prefill": sp.splash_prefill_attention.launches}
         routes = {"paged_attention": dict(pa.paged_attention.routes),
@@ -4529,12 +4565,31 @@ def server_exact(torch, np, dk, pa, sp, workdir):
     return res
 
 
+def lock_order():
+    """The port's lock-order detector over the port's own locks (every
+    ``threading.Lock`` / ``RLock`` allocated from ``distkeras_torch``
+    while it is installed)."""
+    from distkeras_torch.analysis.lockorder import LockOrderDetector
+
+    return LockOrderDetector(packages=("distkeras_torch",))
+
+
+def lock_order_result(phase, det):
+    """The edges the phase's locks formed; a cycle fails the phase."""
+    try:
+        det.assert_no_cycles()
+    except AssertionError as e:
+        raise AssertionError(f"{phase}: {e}") from None
+    return {"edges": det.edge_count(), "cycles": 0}
+
+
 def server_phase(torch, np, dk, pa, sp, phase3, direct):
     """Phase 14: 14a then 14b, every thread's exceptions collected (any
-    fails the phase)."""
+    fails the phase), the servers and clients under the lock-order
+    detector (a cycle fails the phase)."""
     workdir = tempfile.mkdtemp(prefix="dk_phase14_")
     try:
-        with _ThreadErrors() as errs:
+        with _ThreadErrors() as errs, lock_order() as det:
             flagship, launches = server_flagship(torch, np, dk, pa, sp,
                                                  phase3, direct)
             exact = server_exact(torch, np, dk, pa, sp, workdir)
@@ -4543,7 +4598,8 @@ def server_phase(torch, np, dk, pa, sp, phase3, direct):
                                  f"{errs.seen}")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    return {"14a": flagship, "14b": exact, "thread_errors": 0}, launches
+    return {"14a": flagship, "14b": exact, "thread_errors": 0,
+            "lock_order": lock_order_result("server phase", det)}, launches
 
 
 def start_server(dk, model, **kw):
@@ -4978,14 +5034,16 @@ def fleet_exact(torch, np, dk, pa, sp):
 
 def fleet_phase(torch, np, dk, pa, sp, phase3, direct, server14=None):
     """Phase 15: 15a then 15b, every thread's exceptions collected (any
-    fails the phase)."""
-    with _ThreadErrors() as errs:
+    fails the phase), the replicas, router and clients under the
+    lock-order detector (a cycle fails the phase)."""
+    with _ThreadErrors() as errs, lock_order() as det:
         flagship, launches = fleet_flagship(torch, np, dk, pa, sp, phase3,
                                             direct, server14)
         exact = fleet_exact(torch, np, dk, pa, sp)
     if errs.seen:
         raise AssertionError(f"fleet phase: threads raised {errs.seen}")
-    return {"15a": flagship, "15b": exact, "thread_errors": 0}, launches
+    return {"15a": flagship, "15b": exact, "thread_errors": 0,
+            "lock_order": lock_order_result("fleet phase", det)}, launches
 
 
 

@@ -13,6 +13,15 @@ Nothing here runs at import time: :func:`load` builds on first use, and
 raises when ``nvcc`` is missing or a compile fails — there is no
 fallback to the plain PyTorch versions.
 
+Building or loading a kernel is the port's counterpart of a JAX trace,
+so each one counts in the process-global
+:data:`~distkeras_torch.telemetry.runtime.recompiles` counter that
+``ServingEngine.recompiles_since_mark()`` reads: ``nvcc.<source>`` per
+compiled source, ``load.<source>`` per library loaded, and
+``kernel.<op>`` per first launch of each distinct static launch
+configuration (:func:`note_launch`; CUDA loads a kernel's code lazily
+at its first launch).
+
 Run ``python -m distkeras_torch.kernels.build`` to build eagerly and
 print the compiler's register/shared-memory report.
 """
@@ -27,7 +36,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Set, Tuple
+
+from distkeras_torch.telemetry.runtime import recompiles
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "distkeras_torch"
@@ -80,6 +91,8 @@ class Kernels:
 
 _lock = threading.Lock()
 _loaded: Optional[Kernels] = None
+# (op, static configuration) pairs launched so far in this process
+_launched: Set[Tuple[str, tuple]] = set()
 
 
 def nvcc_path() -> str:
@@ -135,6 +148,7 @@ def build_all() -> Dict[str, str]:
             failed.append(src)
         else:
             os.replace(tmp, _target(src))
+            recompiles.note(f"nvcc.{Path(src).stem}")
     if failed:
         detail = "\n".join(f"--- {s} ---\n{logs[s]}" for s in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{detail}")
@@ -150,8 +164,22 @@ def load() -> Kernels:
             log = build_all()
             seconds = time.perf_counter() - t0 if log else 0.0
             libs = {s: ctypes.CDLL(str(_target(s))) for s in SOURCES}
+            for s in SOURCES:
+                recompiles.note(f"load.{Path(s).stem}")
             _loaded = Kernels(libs, seconds, log)
         return _loaded
+
+
+def note_launch(op: str, config: tuple):
+    """Count the first launch of ``op`` at each static configuration —
+    the template instance and launch shape that its wrapper picks (head
+    dim, dtypes, row tile, merge pass) — as one ``kernel.<op>``
+    recompile. Later launches of a configuration count nothing."""
+    with _lock:
+        if (op, config) in _launched:
+            return
+        _launched.add((op, config))
+    recompiles.note(f"kernel.{op}")
 
 
 def error_string(code: int) -> str:

@@ -226,6 +226,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
                            f"{build.error_string(rc)} (cuda error {rc})")
     paged_attention.launches += 1
     route = launch_route("paged", bf16, bm, splits)
+    # the template instance (KV type, head dim, row tile) and the merge
+    build.note_launch("paged_attention", (bf16, quant, hd, bm if bf16 else 0,
+                                          bf16 and splits > 1))
     paged_attention.routes[route] = paged_attention.routes.get(route, 0) + 1
     return out
 

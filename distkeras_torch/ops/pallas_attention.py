@@ -210,6 +210,7 @@ def _fwd_kernel(q, k, v):
         ctypes.c_float(1.0 / math.sqrt(hd)), _stream(q))
     _raise_on(rc, "forward")
     causal_attention_fwd.launches += 1
+    build.note_launch("causal_attention_fwd", (hd,))
     return out, lse
 
 
@@ -246,6 +247,7 @@ def _dq_kernel(q, k, v, out, lse, do, scratch):
         B, T, H, hd, sb, st, ctypes.c_float(1.0 / math.sqrt(hd)), _stream(q))
     _raise_on(rc, "dq")
     causal_attention_dq.launches += 1
+    build.note_launch("causal_attention_dq", (hd,))
     return dq
 
 
@@ -267,6 +269,7 @@ def _dkv_kernel(q, k, v, out, lse, do, scratch):
         ctypes.c_float(1.0 / math.sqrt(hd)), _stream(q))
     _raise_on(rc, "dk/dv")
     causal_attention_dkv.launches += 1
+    build.note_launch("causal_attention_dkv", (hd, prep))
     return dk, dv
 
 

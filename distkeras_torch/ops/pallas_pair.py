@@ -207,6 +207,7 @@ def _fwd_kernel(q, k, v, causal):
         int(causal), qsb, qst, ksb, kst, _stream(q))
     _raise_on(rc, "forward")
     pair_attention_fwd.launches[_variant(causal)] += 1
+    build.note_launch("pair_attention_fwd", (q.shape[-1], causal))
     return out, lse
 
 
@@ -244,6 +245,7 @@ def _dq_kernel(q, k, v, o, lse, do, dlse, causal, scratch):
         H, hd, int(causal), *strides, _stream(q))
     _raise_on(rc, "dq")
     pair_attention_dq.launches[_variant(causal)] += 1
+    build.note_launch("pair_attention_dq", (q.shape[-1], causal))
     return dq
 
 
@@ -265,6 +267,7 @@ def _dkv_kernel(q, k, v, o, lse, do, dlse, causal, scratch):
         int(prep), B, Tq, Tk, H, hd, int(causal), *strides, _stream(q))
     _raise_on(rc, "dk/dv")
     pair_attention_dkv.launches[_variant(causal)] += 1
+    build.note_launch("pair_attention_dkv", (q.shape[-1], causal))
     return dk, dv
 
 

@@ -260,6 +260,9 @@ def splash_prefill_attention(q, keys, vals, starts):
                            f"{build.error_string(rc)} (cuda error {rc})")
     splash_prefill_attention.launches += 1
     route = launch_route("splash", bf16, bm, splits)
+    # the template instance (head dim, row tile) and the merge
+    build.note_launch("splash_prefill", (bf16, hd, bm if bf16 else 0,
+                                         bf16 and splits > 1))
     routes = splash_prefill_attention.routes
     routes[route] = routes.get(route, 0) + 1
     return out

@@ -36,15 +36,17 @@ Every replica gets a model of its own, loaded from one numpy weight tree
 one would swap the others' too). The reference streams come from the
 port's ``generate()`` on yet another model carrying the same tree.
 
-Departures from the reference, on purpose: the steady-state recompile
-checks (``mark_steady()`` / ``recompiles_since_mark()`` and the
-``*steady_recompiles`` keys) have no counterpart — they count JAX
-retraces, and the port's engine runs eagerly and traces nothing; the
-reference's respawn into forced virtual host devices (``run_router``
-and its siblings, ``run_multichip``) has none either: the replicas share
-the cards or the host as they are, and ``--multichip`` spawns one
-process a tp rank. ``--smoke`` evaluates every self-check of the
-reference (the same thresholds) and fails listing each one that missed.
+Every mode marks its engines steady after its warm-up and reports what
+the measured part built, loaded or launched for the first time
+(``*steady_recompiles``: the port counts kernel builds, library loads
+and first launches of each kernel configuration where the reference
+counts JAX retraces; on the CPU nothing is counted). Departures from the
+reference, on purpose: its respawn into forced virtual host devices
+(``run_router`` and its siblings, ``run_multichip``) has no counterpart:
+the replicas share the cards or the host as they are, and
+``--multichip`` spawns one process a tp rank. ``--smoke`` evaluates
+every self-check of the reference (the same thresholds) and fails
+listing each one that missed.
 """
 
 import argparse
@@ -194,6 +196,8 @@ def bench_router(V=512, D=256, H=4, L=2, replicas=3, slots=2,
                                  max_new_tokens=max_new)
                 c.result(rid, timeout=300)
             c.close()
+        for s in servers:
+            s.engine.mark_steady()
 
     def run_routed(n_replicas, policy, pool_blocks, verify_traces=False):
         servers = start_fleet(n_replicas, pool_blocks)
@@ -238,6 +242,9 @@ def bench_router(V=512, D=256, H=4, L=2, replicas=3, slots=2,
         dt = time.perf_counter() - t0
         router.manager.probe_all()
         st = client.stats()
+        recomp: dict = {}
+        for s in servers:
+            recomp.update(s.engine.recompiles_since_mark())
         out = {
             "tokens_per_sec": round(
                 sum(len(t) for t, _ in streams.values()) / dt, 1),
@@ -246,6 +253,7 @@ def bench_router(V=512, D=256, H=4, L=2, replicas=3, slots=2,
             "spilled": st["router"]["spilled"],
             "routed": st["router"]["routed"],
             "failed": st["router"]["failed"],
+            "steady_recompiles": recomp,
             "streams": streams,
             "prompts": prompts,
         }
@@ -377,6 +385,7 @@ def bench_router(V=512, D=256, H=4, L=2, replicas=3, slots=2,
         "failover_inflight_on_victim": failover["inflight_on_victim"],
         "failover_failed": failover["failed"],
         "fleet_trace": fleet.get("trace"),
+        "fleet_steady_recompiles": fleet["steady_recompiles"],
         "n_devices": len(devices),
         "backend": devices[0].type,
         "config": f"d{D}/h{H}/L{L}/v{V}-replicas{replicas}x{slots}slots"
@@ -409,6 +418,8 @@ def bench_router(V=512, D=256, H=4, L=2, replicas=3, slots=2,
             ("chrome_invalid == 0", tr["chrome_invalid"] == 0),
             ("chrome_flows_paired", tr["chrome_flows_paired"]),
             ("critical_path_reconciles", tr["critical_path_reconciles"]),
+            ("fleet_steady_recompiles == {}",
+             result["fleet_steady_recompiles"] == {}),
         ])
     return result
 
@@ -520,6 +531,8 @@ def bench_fleet_sim(V=256, D=64, H=2, L=2, slots=2,
             rid = c.generate(np.concatenate([pref, tail]), max_new_tokens=4)
             c.result(rid, timeout=300)
         c.close()
+    for s in servers.values():
+        s.engine.mark_steady()
 
     router = Router(
         [("127.0.0.1", servers["r0"].port, "r0")],
@@ -653,8 +666,10 @@ def bench_fleet_sim(V=256, D=64, H=2, L=2, slots=2,
             seen_down = True
         elif e["action"] == "scale_up" and seen_down:
             osc += 1
+    recomp: dict = {}
     preempt = {"interactive": 0, "batch": 0}
     for s in servers.values():
+        recomp.update(s.engine.recompiles_since_mark())
         try:
             qos = s.engine.stats().get("qos", {})
         except Exception:
@@ -745,6 +760,7 @@ def bench_fleet_sim(V=256, D=64, H=2, L=2, slots=2,
         "itl_slo_ms": itl_slo_ms,
         "batch_preempted_chunks": preempt["batch"],
         "interactive_preempted_chunks": preempt["interactive"],
+        "steady_recompiles": recomp,
         "controller_polls": len(auto.signal_log),
         "actions": [{k: e.get(k) for k in ("action", "reason", "replica",
                                            "ok")} for e in acts],
@@ -798,6 +814,7 @@ def bench_fleet_sim(V=256, D=64, H=2, L=2, slots=2,
              and r["burst_ttft_p99_batch_ms"]
              > r["burst_ttft_p99_interactive_ms"]),
             ("batch_preempted_chunks >= 1", r["batch_preempted_chunks"] >= 1),
+            ("steady_recompiles == {}", r["steady_recompiles"] == {}),
             ("journal_reconciles", r["journal_reconciles"]),
             ("journal_scale_events == len(actions)",
              r["journal_scale_events"] == len(acts)),
@@ -908,6 +925,8 @@ def bench_disagg(V=64, D=256, H=4, L=2, replicas=3, slots=3,
         for p, n in ((ws, short_new), (wl, long_new), (wl, long_new)):
             client.result(client.generate(p, max_new_tokens=int(n)),
                           timeout=600)
+        for s in servers:
+            s.engine.mark_steady()
 
         lock = threading.Lock()
         itls, ttfts = [], []
@@ -989,6 +1008,9 @@ def bench_disagg(V=64, D=256, H=4, L=2, replicas=3, slots=3,
             time.sleep(0.005)
         dt = time.perf_counter() - t0
         st = client.stats()
+        recomp: dict = {}
+        for s in servers:
+            recomp.update(s.engine.recompiles_since_mark())
         vals, tt = sorted(itls), sorted(ttfts)
 
         def p99(v):
@@ -1004,6 +1026,7 @@ def bench_disagg(V=64, D=256, H=4, L=2, replicas=3, slots=3,
             "kv_migrations_ok": 0.0,
             "kv_migration_ms": st["router"].get("kv_migration_ms"),
             "failed": st["router"]["failed"],
+            "steady_recompiles": recomp,
             "short_streams": short_streams,
             "long_streams": long_streams,
         }
@@ -1085,6 +1108,7 @@ def bench_disagg(V=64, D=256, H=4, L=2, replicas=3, slots=3,
         "baseline_tokens_per_sec": base["tokens_per_sec"],
         "kv_migrations_ok": disagg["kv_migrations_ok"],
         "kv_migration_ms": disagg["kv_migration_ms"],
+        "disagg_steady_recompiles": disagg["steady_recompiles"],
         "parity": parity,
         "failed": disagg["failed"] + base["failed"],
         "race_streams_lost": race["race_streams_lost"],
@@ -1114,6 +1138,8 @@ def bench_disagg(V=64, D=256, H=4, L=2, replicas=3, slots=3,
              r["disagg_ttft_ms_p99"] < r["baseline_ttft_ms_p99"]),
             ("disagg_itl_ms_p99 < baseline_itl_ms_p99",
              r["disagg_itl_ms_p99"] < r["baseline_itl_ms_p99"]),
+            ("disagg_steady_recompiles == {}",
+             r["disagg_steady_recompiles"] == {}),
         ])
     return result
 
@@ -1228,6 +1254,8 @@ def bench_live_update(V=256, D=128, H=4, L=2, replicas=3, slots=2,
         client.result(client.generate(prompts[0], max_new_tokens=4),
                       timeout=600)
     router.rolling_update(good_a, retry_timeout_s=120.0)
+    for s in servers:
+        s.engine.mark_steady()
 
     base = run_phase("baseline")
 
@@ -1264,6 +1292,9 @@ def bench_live_update(V=256, D=128, H=4, L=2, replicas=3, slots=2,
                        and toks == _solo(final, prompts[i], max_new))
     complete = all(reason == "length" and len(toks) == max_new
                    for toks, reason in live["streams"].values())
+    recomp: dict = {}
+    for s in servers:
+        recomp.update(s.engine.recompiles_since_mark())
     swaps_total = client.stats().get("weight_swaps")
 
     # rollback: bad checkpoint -> SLO burn -> auto-rollback
@@ -1327,6 +1358,7 @@ def bench_live_update(V=256, D=128, H=4, L=2, replicas=3, slots=2,
         "canary_recovered": canary_recovered,
         "canary_streams_lost": canary_lost,
         "canary_runs": len(canary_out),
+        "steady_recompiles": recomp,
         "n_devices": len(devices),
         "backend": devices[0].type,
         "config": f"d{D}/h{H}/L{L}/v{V}-replicas{replicas}x{slots}"
@@ -1354,6 +1386,7 @@ def bench_live_update(V=256, D=128, H=4, L=2, replicas=3, slots=2,
             ("canary_streams_lost == 0", r["canary_streams_lost"] == 0),
             ("live_itl_ms_p99 <= 1.10 * base_itl_ms_p99 + 2.5",
              r["live_itl_ms_p99"] <= 1.10 * r["base_itl_ms_p99"] + 2.5),
+            ("steady_recompiles == {}", r["steady_recompiles"] == {}),
         ])
     return result
 
@@ -1436,10 +1469,13 @@ def multichip_rank(cfg_path: str, rank: int) -> int:
             try:
                 prompts = _multichip_prompts(cfg)
                 by_rid = {}
-                for _ in range(2):  # a warm pass, then the measured one
+                for i in range(2):  # a warm pass, then the measured one
+                    if i:
+                        eng.mark_steady()
                     streams, out["tok_s"], rids = _multichip_pass(
                         eng, prompts, cfg["max_new"], looped=True)
                     by_rid.update(zip(map(str, rids), streams))
+                out["steady_recompiles"] = eng.recompiles_since_mark()
                 out["streams"], out["by_rid"] = streams, by_rid
             finally:
                 stop.set()
@@ -1474,9 +1510,11 @@ def bench_multichip(tp_list=(1, 2), V=1024, D=256, H=8, Hk=4, L=4,
 
     On the CPU (``device='cpu'``, gloo ranks) and on ranks sharing one
     card the numbers measure dispatch and host staging, not a tp speed:
-    parity is the point there. Departures: no steady-state recompile
-    check (the port's engine is eager), no respawn into virtual host
-    devices."""
+    parity is the point there. The steady-state recompile check reads
+    the mesh-less and tp=1 engines and the leader rank of each tp > 1
+    (its followers launch the same kernels at the same shapes in lock
+    step, in processes of their own). Departure: no respawn into
+    virtual host devices."""
     import tempfile
 
     from distkeras_torch.parallel.mesh import local_mesh
@@ -1499,14 +1537,17 @@ def bench_multichip(tp_list=(1, 2), V=1024, D=256, H=8, Hk=4, L=4,
     def local(mesh):
         eng = _multichip_engine(cfg, dev, mesh)
         _multichip_pass(eng, prompts, max_new)  # warm
-        return _multichip_pass(eng, prompts, max_new)[:2]
+        eng.mark_steady()
+        streams, tps, _ = _multichip_pass(eng, prompts, max_new)
+        return streams, tps, eng.recompiles_since_mark()
 
-    base_streams, base_tps = local(None)
+    base_streams, base_tps, _ = local(None)
     result = {
         "baseline_decode_tok_s": round(base_tps, 1),
         "multichip_decode_tok_s": {},
         "parity": True,
         "follower_parity": True,
+        "steady_recompiles": {},
         "tp_backend": {},
         "n_devices": len(devices),
         "backend": dev.type,
@@ -1517,7 +1558,7 @@ def bench_multichip(tp_list=(1, 2), V=1024, D=256, H=8, Hk=4, L=4,
     }
     for tp in tp_list:
         if tp == 1:
-            streams, tps = local(local_mesh({"model": 1}))
+            streams, tps, recomp = local(local_mesh({"model": 1}))
             result["tp_backend"]["tp1"] = None
         else:
             cards = len(devices) if dev.type == "cuda" else 0
@@ -1530,6 +1571,7 @@ def bench_multichip(tp_list=(1, 2), V=1024, D=256, H=8, Hk=4, L=4,
                     out=tempfile.mkdtemp(prefix="dk_multichip_")),
                 tp, timeout_s, python)
             streams, tps = ranks[0]["streams"], ranks[0]["tok_s"]
+            recomp = ranks[0]["steady_recompiles"]
             result["tp_backend"][f"tp{tp}"] = ranks[0]["backend"]
             # every follower kept the leader's streams (both passes, by
             # request id) and ticked as often
@@ -1538,11 +1580,13 @@ def bench_multichip(tp_list=(1, 2), V=1024, D=256, H=8, Hk=4, L=4,
                 and r["ticks"] == ranks[0]["ticks"] for r in ranks[1:])
         result["multichip_decode_tok_s"][f"tp{tp}"] = round(tps, 1)
         result["parity"] = result["parity"] and streams == base_streams
+        result["steady_recompiles"].update(recomp)
     print(json.dumps(result), flush=True)
     if smoke:
         r = result
         _check(r, [("parity", r["parity"]),
-                   ("follower_parity", r["follower_parity"])])
+                   ("follower_parity", r["follower_parity"]),
+                   ("steady_recompiles == {}", r["steady_recompiles"] == {})])
     return result
 
 

@@ -162,7 +162,7 @@ from distkeras_torch.serving.scheduler import (
 from distkeras_torch.serving.weights import validate_like
 from distkeras_torch.telemetry.events import EventJournal
 from distkeras_torch.telemetry.flight import FlightRecorder
-from distkeras_torch.telemetry.runtime import MemoryWatermarks
+from distkeras_torch.telemetry.runtime import MemoryWatermarks, recompiles
 from distkeras_torch.telemetry.slo import StallWatchdog
 from distkeras_torch.utils.device import resolve_device
 from distkeras_torch.utils.metrics import MetricsWriter
@@ -836,6 +836,7 @@ class ServingEngine:
         self.weight_version = 1
         self.weight_swaps = 0
         self._m_weight_version.set(1)
+        self._recompile_mark = recompiles.mark()
 
     def _wire_metrics(self):
         """Register this engine's metric handles (get-or-create: many
@@ -892,6 +893,14 @@ class ServingEngine:
             "serving_restore_wait_ms",
             "RESTORING-row admission to last host-tier block resident "
             "(ms)")
+        # recompiles are process-global (kernel builds, library loads
+        # and lazily loaded kernel configurations are), so the gauge
+        # mirrors the shared counter; the name is the reference's
+        self._m_recompiles = reg.gauge(
+            "jax_recompiles",
+            "process-total kernel builds, kernel library loads and first "
+            "launches of each kernel configuration (steady-state growth "
+            "is a bug)")
         self._m_rss = reg.gauge(
             "process_rss_bytes", "host resident set size")
         self._m_device_mem = reg.gauge(
@@ -1613,6 +1622,20 @@ class ServingEngine:
             flight=self.flight, registry=self.registry,
             tracer=self.tracer,
         )
+
+    def mark_steady(self):
+        """Declare warm-up over: snapshot the process-global recompile
+        counts. Any nonzero :meth:`recompiles_since_mark` afterwards
+        means the serving path built or loaded a kernel, or launched a
+        kernel configuration for the first time, in steady state — a
+        latency spike (``chip_smoke.py`` asserts the dict is empty)."""
+        self._recompile_mark = recompiles.mark()
+
+    def recompiles_since_mark(self) -> dict:
+        """Per-kind counts (``nvcc.<source>``, ``load.<source>``,
+        ``kernel.<op>``) since :meth:`mark_steady` (or engine
+        construction). Empty dict = clean steady state."""
+        return recompiles.since(self._recompile_mark)
 
     # -- admission ------------------------------------------------------------
 
@@ -3093,11 +3116,13 @@ class ServingEngine:
         """Post-tick runtime introspection + the flight snapshot, self-
         timed against tick wall time (``stats()["flight"]``)."""
         self._tick_ns += int((plan_ms + device_ms + stream_ms) * 1e6)
+        rec_total = recompiles.total()
         oldest = self.scheduler.oldest_age_s()
         sample_tick = self.ticks % self.MEM_SAMPLE_EVERY == 1
         mem = None
         if sample_tick:
             mem = self._sample_memory()
+            self._m_recompiles.set(rec_total)
             self._m_oldest_wait.set(round(oldest, 3))
         # device-compute attribution: this tick's device time split
         # evenly over the rows that were active
@@ -3125,6 +3150,7 @@ class ServingEngine:
                 "prefill_tokens": prefill_tokens, "chunk": chunk,
                 "emitted": emitted,
                 "slots": self._slot_snaps(),
+                "recompiles": rec_total,
                 "weight_version": self.weight_version,
             }
             if multi_k is not None:
@@ -3195,6 +3221,11 @@ class ServingEngine:
             },
             "queue_oldest_wait_s": round(
                 self.scheduler.oldest_age_s(), 3),
+            # process-global kernel builds, loads and first launches per
+            # configuration, and the delta since mark_steady() —
+            # nonempty in steady state is a bug
+            "recompiles": recompiles.counts(),
+            "recompiles_since_mark": self.recompiles_since_mark(),
             "memory": self._mem.summary(),
             "pipeline": self.pipeline,
             "device_wait_ms": {

@@ -17,8 +17,11 @@ setup(
     ),
     packages=find_packages(include=["distkeras_tpu", "distkeras_tpu.*",
                                     "distkeras_torch", "distkeras_torch.*"]),
-    # the PyTorch/CUDA port builds its kernels from these at first use
-    package_data={"distkeras_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    # the PyTorch/CUDA port builds its kernels from these at first use;
+    # its static analysis reads its own baseline and op reference
+    package_data={"distkeras_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                      "analysis/baseline.txt",
+                                      "analysis/PROTOCOL.md"]},
     python_requires=">=3.10",
     install_requires=[
         # floors match the APIs the code depends on: top-level

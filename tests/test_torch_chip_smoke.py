@@ -306,11 +306,12 @@ def test_ps_phases_at_narrow_widths(monkeypatch):
 
 def _standin_kernels(monkeypatch):
     """The serving kernels stood in on the CPU: their gates pass as on a
-    card, and each call counts a launch and its route (as the wrappers
-    do where they launch) and runs the plain version in f32, as the
-    kernels accumulate."""
+    card, and each call counts a launch and its route and notes a first
+    launch of its shape (as the wrappers do where they launch) and runs
+    the plain version in f32, as the kernels accumulate."""
     import torch
 
+    from distkeras_torch.kernels import build
     from distkeras_torch.ops import paged_attention as pa
     from distkeras_torch.ops import splash_prefill as sp
 
@@ -319,6 +320,8 @@ def _standin_kernels(monkeypatch):
             f.launches += 1
             route = sp.launch_route(kind, q.dtype == torch.bfloat16, 16, 1)
             f.routes[route] = f.routes.get(route, 0) + 1
+            build.note_launch(f"standin_{kind}", (str(q.dtype),
+                                                  tuple(q.shape[1:])))
             args = [a.float() if torch.is_tensor(a) and a.is_floating_point()
                     else a for a in args]
             return plain(q.float(), *args).to(q.dtype)
@@ -578,6 +581,11 @@ def test_phase14_server_at_narrow_width(monkeypatch):
         assert all(r["ops"].values()) and r["stalls"] == 0
         assert 0.0 <= r["greedy_match_vs_direct"] <= 1.0
         assert r["direct_tok_per_s"] == phase3[lay]["tok_per_s"]
+        assert r["recompiles_since_mark"] == {}
+        assert phase3[lay]["recompiles_since_mark"] == {}
+    assert phase3["recompiles"]["kernel.standin_paged"] >= 1
+    assert out["lock_order"]["cycles"] == 0
+    assert out["lock_order"]["edges"] >= 1
     b = out["14b"]
     for lay in ("paged", "slot"):
         assert b[lay]["greedy_equal"] and b[lay]["after_push_greedy_equal"]
@@ -690,6 +698,8 @@ def test_phase15_fleet_at_narrow_width(monkeypatch):
     assert b["autoscaler"]["actions"] == ["scale_up", "scale_down"]
     assert b["autoscaler"]["replay_exact"] and b["kernel_launches"] > 0
     assert out["thread_errors"] == 0
+    assert out["lock_order"]["cycles"] == 0
+    assert out["lock_order"]["edges"] >= 1
 
 
 @pytest.mark.parametrize("fault", ["replay_resends_tokens", "shared_model"])
@@ -726,6 +736,54 @@ def test_phase15_fails_on_an_injected_fault(monkeypatch, fault):
         match = "share their model"
     with pytest.raises(AssertionError, match=match):
         chip_smoke.fleet_exact(torch, np, dk, pa, sp)
+
+
+def test_phase3_fails_when_the_mix_recompiles(monkeypatch):
+    """Phase 3's steady-state check: a kernel that counted a first
+    launch on every call (a configuration the warm-up did not cover)
+    fails the phase after its warm-up."""
+    import numpy as np
+    import torch
+
+    from distkeras_torch.kernels import build
+    from distkeras_torch.telemetry.runtime import recompiles
+
+    pa, sp = _standin_kernels(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "FLAGSHIP", dict(
+        vocab_size=128, d_model=128, num_heads=2, num_kv_heads=1,
+        num_layers=2, max_len=256, pos_emb="rope", cache_dtype="int8"))
+    monkeypatch.setattr(chip_smoke, "SYSTEM_PREFIX", 32)
+    monkeypatch.setattr(chip_smoke, "PROMPT_LENS", (40, 100, 20))
+    monkeypatch.setattr(build, "note_launch",
+                        lambda op, cfg: recompiles.note(f"kernel.{op}"))
+    dk = _serving_dk()
+    mix = dk["serving_requests"]
+    dk["serving_requests"] = lambda *a: [
+        (p, dict(c, max_new_tokens=4)) for p, c in mix(*a)]
+    with pytest.raises(AssertionError, match="serving phase .paged.: the "
+                       "mix after the warm-up"):
+        chip_smoke.serving_phase(torch, np, dk, pa, sp)
+
+
+def test_lock_order_result_fails_on_a_cycle():
+    """Phases 14 and 15 fail on a lock-order cycle: two locks taken in
+    both orders (allocated here, so the detector is pointed at this
+    file's directory too)."""
+    import threading
+
+    det = chip_smoke.lock_order()
+    det._markers += (os.sep + "tests" + os.sep,)
+    with det:
+        a, b = threading.Lock(), threading.Lock()
+        with a, b:
+            pass
+        with b, a:
+            pass
+    with pytest.raises(AssertionError, match="server phase: lock-order"):
+        chip_smoke.lock_order_result("server phase", det)
+    clean = chip_smoke.lock_order()
+    assert chip_smoke.lock_order_result("fleet phase", clean) == {
+        "edges": 0, "cycles": 0}
 
 
 def test_tier_sizes_follow_the_serve_bench_rule():

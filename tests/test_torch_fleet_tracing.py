@@ -25,6 +25,7 @@ import torch_engine_util as U  # noqa: E402
 import torch_fleet_util as FU  # noqa: E402
 from torch_engine_util import one_thread  # noqa: E402,F401
 from torch_fleet_util import fleet  # noqa: E402,F401
+from torch_lockorder_util import lock_order  # noqa: E402,F401
 
 from distkeras_torch import telemetry  # noqa: E402
 from distkeras_torch.telemetry.trace import Tracer, critical_path  # noqa: E402

@@ -6,7 +6,8 @@ interpreter, since this test process imports both packages),
 and ``chip_smoke.py`` imports none of them either (checked on its
 syntax tree), nor do ``ab_kernels.py``, ``ab_engine.py`` and
 ``ab_server.py``. Importing a module
-builds no kernel and needs no card."""
+builds no kernel and needs no card. The port's static analysis loads
+neither jax nor torch."""
 
 import ast
 import os
@@ -99,7 +100,10 @@ def test_port_modules_import_no_jax():
                  "distkeras_torch.serving.router",
                  "distkeras_torch.serving.fleet",
                  "distkeras_torch.serving.controller",
-                 "distkeras_torch.serve_bench"):
+                 "distkeras_torch.serve_bench",
+                 "distkeras_torch.analysis",
+                 "distkeras_torch.analysis.hostsync",
+                 "distkeras_torch.analysis.lockorder"):
         assert must in res["modules"]
 
 
@@ -176,6 +180,26 @@ def test_stdlib_fabric_copies_match_reference(name):
     with open(os.path.join(ROOT, "distkeras_torch", "serving",
                            name + ".py")) as f:
         assert f.read() == ref
+
+
+def test_analysis_loads_no_jax_and_no_torch():
+    """``distkeras_torch.analysis`` is stdlib ``ast`` only: importing it
+    and running every pass over a port file loads no jax, no reference
+    module (whose package ``__init__`` would pull jax in) and not even
+    torch (a fresh interpreter)."""
+    probe = ("import sys, json; from distkeras_torch.analysis import "
+             "analyze, default_passes; import distkeras_torch.analysis."
+             "__main__, distkeras_torch.analysis.lockorder; "
+             "analyze(['distkeras_torch/serving/engine.py'], "
+             "default_passes()); print(json.dumps(sorted("
+             "k for k in sys.modules if k.split('.')[0] in "
+             "('jax', 'jaxlib', 'flax', 'optax', 'distkeras_tpu', "
+             "'torch'))))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_serving_and_serve_bench_load_no_jax():

@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 import torch_engine_util as U  # noqa: E402
 import torch_fleet_util as FU  # noqa: E402
 from torch_engine_util import one_thread  # noqa: E402,F401
+from torch_lockorder_util import lock_order  # noqa: E402,F401
 
 from distkeras_tpu import telemetry as jax_telemetry  # noqa: E402
 from distkeras_tpu.models.transformer import generate as jax_generate  # noqa: E402

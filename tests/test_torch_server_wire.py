@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 import torch_engine_util as U  # noqa: E402
 from torch_engine_util import one_thread  # noqa: E402,F401
+from torch_lockorder_util import lock_order  # noqa: E402,F401
 
 from distkeras_tpu.serving import LMServer as JaxServer  # noqa: E402
 from distkeras_tpu.serving import ServingClient as JaxClient  # noqa: E402
