@@ -11,9 +11,10 @@ their ranks run over NCCL. ``python3 chip_smoke.py --phase14`` runs
 phase 14 alone after phase 3 (its yardstick), ``python3 chip_smoke.py
 --phase15`` phase 15 alone after phase 3 (its yardstick), ``python3
 chip_smoke.py --phase16`` phase 16 alone after phase 3 (its yardstick;
-on a host of two cards or more its ranks run over NCCL). Phases 14 and
-15 run right after phase 4 in the whole smoke, phase 16 right after
-phase 12.
+on a host of two cards or more its ranks run over NCCL), ``python3
+chip_smoke.py --phase17`` phase 17 alone after phase 2's cases at its
+shapes. Phases 14 and 15 run right after phase 4 in the whole smoke,
+phase 16 right after phase 12, phase 17 right after phase 10.
 
 Phases (any failure exits non-zero):
 
@@ -45,7 +46,10 @@ Phases (any failure exits non-zero):
    the larger of the bytes these inputs need over 3.35 TB/s and their
    FLOPs over the dtype's peak. The bf16 kernels' edges, untimed: T=5
    and T=17, G=1 and G=8, hd 64 and 128, rows ending and starting on a
-   split boundary, trash-page tails.
+   split boundary, trash-page tails. Then both kernels in f32, timed, at
+   phase 17's shapes (``PAGED17``, ``SPLASH17``: 4 heads of 64, paged
+   T in {1, 16, 5, 64} over 18 pages a row, splash T=16 over L=64 and
+   T=64 over L=1056).
 3. **Serving at full width.** The flagship TransformerLM (d_model 2048,
    8 heads of 256, 8 layers, vocab 8192, bf16, rope, 2 KV heads, int8
    KV cache, max_len 2048) with seeded random weights serves 16
@@ -387,12 +391,27 @@ Phases (any failure exits non-zero):
    and an ``export_kv`` from a tp=1 server imported into the tp=2 one
    (tp=1 -> tp=2). A rank that fails fails the phase with its own
    error, which names it.
+17. **serve_bench's engine modes.** The seven single-engine modes of
+   ``distkeras_torch.serve_bench`` (the Poisson bench, shared prefix,
+   host tier, long-prompt interference, speculative with the n-gram
+   drafter, pipeline, multi-step) called in this process on the card at
+   the reference's default sizes (``SERVE_BENCH_MODES``: f32, d256 or
+   d512 with heads of 64, 16-token pages), the launch counts zeroed
+   before each. A mode fails unless the kernel its layout uses launched
+   (paged attention on the paged engines, splash on the slot engines'
+   chunk and verify ticks), every route is the f32 kernel's and every
+   ``exact`` check of its result held (stream parity, token counts,
+   hits, restores, stall counters, acceptance, dispatch counts, every
+   ``*steady_recompiles`` empty); its ``timing`` checks, headline
+   numbers, launches and seconds print on its own line. Every mode runs,
+   then the phase fails naming each mode that failed.
 
 Output: JSON lines per phase, the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line (the serving rows carry every timed shape
 in ``shapes``, phase 14a's launches in ``server_launches`` and phase
-16a's a rank in ``tp_server_launches_per_rank``, the paged row phase
-15a's in ``fleet_launches``; the three forward rows and the causal and
+16a's a rank in ``tp_server_launches_per_rank``, phase 17's in
+``serve_bench_launches``, the paged row phase 15a's in
+``fleet_launches``; the three forward rows and the causal and
 pair dq and dk/dv rows also carry their ``build`` facts; the dq and
 dk/dv rows carry ``bwd_ms``, the two as the backward runs them with one
 prep pass, ``bwd_library_ms``, SDPA's backward, and ``sdpa_backend``;
@@ -432,6 +451,16 @@ SPLASH = dict(S=8, T=64, H=8, Hk=2, hd=256, L=2048)
 # catch-up feeds at hd 128 (4 heads over 2 KV heads)
 SPLASH_MORE = ((5, 256, 8, "depth"), (1024, 256, 8, "zero"),
                (64, 128, 4, "depth"), (2, 128, 4, "depth"))
+# phase 17's shapes (serve_bench's engine modes at the reference's default
+# sizes: f32 pools and queries, 4 heads of 64, no GQA), timed in f32:
+# paged decode, the pipeline and multi-step legs' 16-token chunk, a
+# 5-token verify window and the shared-prefix and host-tier engines'
+# 64-token chunk over 16-token pages (the host tier's 18-page rows);
+# splash at the 16-token chunk over the 64-token slot cache and at the
+# interference bench's 64-token chunk over its 1056-token cache
+PAGED17 = dict(S=8, H=4, Hk=4, hd=64, bs=16, MB=18, T=(1, 16, 5, 64))
+SPLASH17 = (dict(S=8, T=16, H=4, Hk=4, hd=64, L=64),
+            dict(S=4, T=64, H=4, Hk=4, hd=64, L=1056))
 # the flagship at full width (bench.py:130, benchmarks/decode_bench.py:31)
 # with the serving-realistic options (distkeras_torch.bench.FLAGSHIP), its
 # request mix (distkeras_torch.bench.serving_requests), and the small
@@ -749,9 +778,12 @@ def _depths(S, hi):
     return [0] + [int(hi * (i + 0.37) / (S - 1)) for i in range(S - 2)] + [hi]
 
 
-def paged_cases(torch, F, pa, over=None):
+def paged_cases(torch, F, pa, over=None,
+                kinds=("bf16", "int8", "f32", "int8-f32"),
+                timed=("bf16", "int8")):
     """The paged kernel at phase 2's shapes, with ``over`` replacing some
-    of them (``PAGED_TP``: one tp=2 rank's heads)."""
+    of them (``PAGED_TP``: one tp=2 rank's heads; ``PAGED17``: phase 17's
+    f32 shapes), for each pool of ``kinds``, those of ``timed`` timed."""
     cfg = dict(PAGED, **(over or {}))
     S, H, Hk, hd, bs, MB = (cfg[k] for k in ("S", "H", "Hk", "hd", "bs",
                                               "MB"))
@@ -769,7 +801,7 @@ def paged_cases(torch, F, pa, over=None):
         for b, n in enumerate(need):
             tables[b, :n] = perm[off:off + n].to(torch.int32)
             off += n
-        for kind in ("bf16", "int8", "f32", "int8-f32"):
+        for kind in kinds:
             dt = torch.float32 if "f32" in kind else torch.bfloat16
             q = torch.randn((S, T, H, hd), generator=gen, device=DEV).to(dt)
             if kind.startswith("int8"):
@@ -804,7 +836,7 @@ def paged_cases(torch, F, pa, over=None):
                     # the exact result's own rounding to the output dtype
                     "out_rounding": (ref.to(dt).float() - ref).abs().max()
                     .item()}
-            if kind in ("bf16", "int8"):
+            if kind in timed:
                 case["ms"] = time_ms(torch, lambda: pa.paged_attention(
                     q, kp, vp, tables, lens, ks, vs))
                 case["plain_ms"] = time_ms(
@@ -827,7 +859,8 @@ def paged_cases(torch, F, pa, over=None):
                           + (2 * pages * bs * Hk * 4 if ks is not None else 0)
                           + tables.numel() * 4 + lens.numel() * 4)
                 case["bound_ms"], case["bound_by"] = bound(
-                    nbytes, _work(torch, lens, T, H, hd), "bfloat16")
+                    nbytes, _work(torch, lens, T, H, hd),
+                    str(dt).split(".")[-1])
             cases.append(case)
     return cases
 
@@ -907,10 +940,12 @@ def _edge_check(kernel, kind, T, H, Hk, hd, out, ref):
             "hd": hd, "max_abs_err": err, "tol": 1e-2}
 
 
-def splash_cases(torch, F, sp, over=None, more=None, v_std=1.0):
+def splash_cases(torch, F, sp, over=None, more=None, v_std=1.0,
+                 kinds=("bf16", "f32"), timed=("bf16",)):
     """The splash kernel at phase 2's shapes (``over`` replacing some of
     the main one's, ``more`` the other shapes, ``SPLASH_MORE`` by
-    default; values drawn at ``v_std``)."""
+    default; values drawn at ``v_std``) in each dtype of ``kinds``, those
+    of ``timed`` timed."""
     cfg = dict(SPLASH, **(over or {}))
     more = SPLASH_MORE if more is None else more
     S, Hk, L = cfg["S"], cfg["Hk"], cfg["L"]
@@ -922,7 +957,7 @@ def splash_cases(torch, F, sp, over=None, more=None, v_std=1.0):
                   if start_kind == "zero" else
                   torch.tensor(_depths(S, L - T), dtype=torch.int32,
                                device=DEV))
-        for kind in ("bf16", "f32"):
+        for kind in kinds:
             dt = torch.float32 if kind == "f32" else torch.bfloat16
             q = torch.randn((S, T, H, hd), generator=gen, device=DEV).to(dt)
             k = torch.randn((S, L, Hk, hd), generator=gen, device=DEV).to(dt)
@@ -943,7 +978,7 @@ def splash_cases(torch, F, sp, over=None, more=None, v_std=1.0):
                     "starts": start_kind, "dtype": kind, "max_abs_err": err,
                     "tol": tol, "out_rounding": (ref.to(dt).float() - ref)
                     .abs().max().item()}
-            if kind == "bf16":
+            if kind in timed:
                 case["ms"] = time_ms(torch, lambda: sp.splash_prefill_attention(
                     q, k, v, starts))
                 case["plain_ms"] = time_ms(
@@ -957,7 +992,8 @@ def splash_cases(torch, F, sp, over=None, more=None, v_std=1.0):
                           + 2 * tiles * sp.KV_TILE * Hk * hd
                           * k.element_size() + starts.numel() * 4)
                 case["bound_ms"], case["bound_by"] = bound(
-                    nbytes, _work(torch, starts, T, H, hd), "bfloat16")
+                    nbytes, _work(torch, starts, T, H, hd),
+                    str(dt).split(".")[-1])
             cases.append(case)
     return cases
 
@@ -2655,6 +2691,108 @@ def swap_phase(torch, np, dk, pa, sp, model, requests, chunked):
                    requests, streams, chunked["paged"]) if chunked
                    else None)}
     return mode_check(eng, summary, pa, sp, L, True)
+
+
+# -- phase 17: serve_bench's engine modes ------------------------------------
+
+
+# phase 17: each single-engine mode of distkeras_torch.serve_bench at the
+# reference's default sizes (benchmarks/serve_bench.py; f32, 4 heads of
+# 64), with these keywords added (none: no cut), and the kernels its
+# engines must launch: paged attention on the paged layouts, splash on
+# the slot engines' chunk and verify ticks
+SERVE_BENCH_MODES = {
+    "bench": {}, "bench_shared_prefix": {}, "bench_host_tier": {},
+    "bench_long_prompt_interference": {}, "bench_speculative": {},
+    "bench_pipeline": {}, "bench_multistep": {}}
+SERVE_BENCH_KERNELS = {
+    "bench": ("splash_prefill",),
+    "bench_shared_prefix": ("paged_attention",),
+    "bench_host_tier": ("paged_attention",),
+    "bench_long_prompt_interference": ("splash_prefill",),
+    "bench_speculative": ("splash_prefill",),
+    "bench_pipeline": ("paged_attention", "splash_prefill"),
+    "bench_multistep": ("paged_attention", "splash_prefill")}
+F32_ROUTE = "attn_kernel f32"
+
+
+def _headline(result):
+    """A mode's scalar numbers (histograms, memory and checks left out)."""
+    return {k: v for k, v in result.items()
+            if k != "checks" and not isinstance(v, (dict, list))}
+
+
+def serve_bench_phase(torch, pa, sp, sb):
+    """Phase 17: each mode of ``SERVE_BENCH_MODES`` called in this
+    process on the card, the launch counts and routes zeroed just before
+    it. A mode fails unless each kernel of ``SERVE_BENCH_KERNELS`` for it
+    launched, every recorded route is the f32 kernel's and every exact
+    check of its result held; its timing checks are printed, not gated.
+    Every mode runs; the phase then fails naming each mode that did."""
+    import contextlib
+    import io
+    import traceback
+
+    out, failed = {}, {}
+    for name, kw in SERVE_BENCH_MODES.items():
+        _zero_counts(pa, sp)
+        t0 = time.perf_counter()
+        line, problems = {"mode": name, "cut": kw or None}, []
+        try:
+            # the mode's own JSON line (histograms and all) stays out of
+            # the smoke's output: the numbers it needs are returned
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = getattr(sb, name)(device=DEV, **kw)
+        except Exception as e:
+            res = None
+            problems.append(f"raised {type(e).__name__}: {e}")
+            line["traceback"] = traceback.format_exc()[-3000:]
+        line["seconds"] = time.perf_counter() - t0
+        launches = {"paged_attention": pa.paged_attention.launches,
+                    "splash_prefill": sp.splash_prefill_attention.launches}
+        routes = {"paged_attention": dict(pa.paged_attention.routes),
+                  "splash_prefill": dict(sp.splash_prefill_attention.routes)}
+        for kern in SERVE_BENCH_KERNELS[name]:
+            if launches[kern] == 0:
+                problems.append(f"{kern} never launched")
+        for kern, seen in routes.items():
+            if any(r != F32_ROUTE for r in seen):
+                problems.append(f"{kern} routes {seen} are not all "
+                                f"{F32_ROUTE!r}")
+        line.update(launches=launches, routes=routes)
+        if res is not None:
+            missed = [n for n, ok in res["checks"]["exact"].items() if not ok]
+            if missed:
+                problems.append(f"exact checks missed: {missed}")
+            line.update(headline=_headline(res),
+                        exact=res["checks"]["exact"],
+                        timing=res["checks"]["timing"])
+            for key in ("parity_flips", "chunked_parity_flips",
+                        "monolithic_parity_flips"):
+                if key in res:
+                    line[key] = res[key]
+        line["ok"] = not problems
+        if problems:
+            line["problems"] = problems
+            failed[name] = problems
+        _emit({"serve_bench_mode": line})
+        out[name] = line
+    if failed:
+        raise AssertionError(f"phase 17 (serve_bench's engine modes): "
+                             f"{failed}")
+    out["launches"] = {k: sum(out[m]["launches"][k] for m in SERVE_BENCH_MODES)
+                       for k in ("paged_attention", "splash_prefill")}
+    return out
+
+
+def serve_bench_kernel_cases(torch, F, pa, sp):
+    """Phase 2's cases at phase 17's shapes (``PAGED17``, ``SPLASH17``),
+    f32, each timed beside its plain version, SDPA and its bound."""
+    f32 = dict(kinds=("f32",), timed=("f32",))
+    paged = paged_cases(torch, F, pa, PAGED17, **f32)
+    splash = [c for over in SPLASH17
+              for c in splash_cases(torch, F, sp, over, (), **f32)]
+    return paged, splash
 
 
 # -- phase 11: I/O and deployment ---------------------------------------------
@@ -5636,7 +5774,7 @@ def tp_server_worker(cfg_path: str, rank: int) -> int:
 
 def main(phase12_only: bool = False, phase13_only: bool = False,
          phase14_only: bool = False, phase15_only: bool = False,
-         phase16_only: bool = False) -> int:
+         phase16_only: bool = False, phase17_only: bool = False) -> int:
     """The smoke (every phase), or with ``phase12_only`` phase 12 alone
     after phase 3, its yardstick (``chip_smoke.py --phase12``: the
     tensor-parallel ranks over NCCL on a host of several cards), with
@@ -5646,7 +5784,9 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
     (``chip_smoke.py --phase14``), with ``phase15_only`` phase 15
     alone after phase 3, its yardstick (``chip_smoke.py --phase15``), or
     with ``phase16_only`` phase 16 alone after phase 3, its yardstick
-    (``chip_smoke.py --phase16``: over NCCL on several cards)."""
+    (``chip_smoke.py --phase16``: over NCCL on several cards), or with
+    ``phase17_only`` phase 17 alone after phase 2's cases at its shapes
+    (``chip_smoke.py --phase17``)."""
     try:
         import numpy as np
         import torch
@@ -5691,6 +5831,7 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
         from distkeras_torch.models.wrapper import Model
         from distkeras_torch.ops import rules
         from distkeras_torch.utils.keras_import import from_keras_config
+        from distkeras_torch import serve_bench
     except ImportError as e:
         return _fail(f"run from a checkout of the repository ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5749,6 +5890,22 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
         ring = ring_training_phase(torch, np, dk, fa, pp, training)
         _emit({"ring_training_phase": ring})
         phase13(torch, np, F, dk, fa, pp, here, training, ring)
+        print(smi, flush=True)
+        _emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
+    if phase17_only:
+        t0 = time.perf_counter()
+        paged17, splash17 = serve_bench_kernel_cases(torch, F, pa, sp)
+        _emit({"kernel_phase": {"paged_attention_serve_bench": paged17,
+                                "splash_prefill_serve_bench": splash17,
+                                "seconds": time.perf_counter() - t0}})
+        t0 = time.perf_counter()
+        p17 = serve_bench_phase(torch, pa, sp, serve_bench)
+        _emit({"serve_bench_phase": {
+            "launches": p17["launches"],
+            "seconds": time.perf_counter() - t0}})
         print(smi, flush=True)
         _emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5824,10 +5981,14 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
     # 0.0156, over the 1e-2 tolerance (each case reports the exact
     # result's rounding, out_rounding, beside its error)
     splash_tp = splash_cases(torch, F, sp, SPLASH_TP, (), v_std=0.5)
+    # phase 17's f32 shapes (serve_bench's engine modes)
+    paged17, splash17 = serve_bench_kernel_cases(torch, F, pa, sp)
     _emit({"kernel_phase": {"paged_attention": paged,
                             "splash_prefill": splash, "edges": edges,
                             "paged_attention_tp2_shard": paged_tp,
                             "splash_prefill_tp2_shard": splash_tp,
+                            "paged_attention_serve_bench": paged17,
+                            "splash_prefill_serve_bench": splash17,
                             "seconds": time.perf_counter() - t0}})
 
     t0 = time.perf_counter()
@@ -5919,6 +6080,11 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
     modes["seconds"] = time.perf_counter() - t0
     _emit({"engine_modes_phase": modes})
 
+    t0 = time.perf_counter()
+    p17 = serve_bench_phase(torch, pa, sp, serve_bench)
+    _emit({"serve_bench_phase": {"launches": p17["launches"],
+                                 "seconds": time.perf_counter() - t0}})
+
     workdir = tempfile.mkdtemp(prefix="dk_phase11_")
     try:
         t0 = time.perf_counter()
@@ -5970,12 +6136,12 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
     for name, src, rep, case, cases, layout in (
             ("paged_attention", "distkeras_torch/csrc/paged_attention.cu",
              "distkeras_tpu/ops/paged_attention.py:166", main_paged,
-             paged + paged_tp + [c for c in edges if c["kernel"] == "paged"],
-             "paged"),
+             paged + paged_tp + paged17
+             + [c for c in edges if c["kernel"] == "paged"], "paged"),
             ("splash_prefill", "distkeras_torch/csrc/splash_prefill.cu",
              "distkeras_tpu/ops/splash_prefill.py:163", main_splash,
-             splash + splash_tp + [c for c in edges
-                                   if c["kernel"] == "splash"], "slot")):
+             splash + splash_tp + splash17
+             + [c for c in edges if c["kernel"] == "splash"], "slot")):
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             # the main path's launches by what each ran (launch_route)
@@ -5988,13 +6154,15 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
             # slot replica runs there)
             **({"fleet_launches": fleet_launches}
                if name == "paged_attention" else {}),
+            # phase 17: serve_bench's seven engine modes, all together
+            "serve_bench_launches": p17["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": case["ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
             "library_ms": case["library_ms"],
             # every timed shape of the main path (the row's own numbers
             # are the first one's): decode, chunk, verify, monolithic,
-            # and one tp=2 rank's heads (H=4, Hk=1)
+            # one tp=2 rank's heads (H=4, Hk=1) and phase 17's f32 shapes
             "shapes": [{k: c[k] for k in timed if k in c}
                        for c in cases if "ms" in c],
             # phase 12's flagship run, each rank's launches
@@ -6129,4 +6297,5 @@ if __name__ == "__main__":
                   phase13_only=sys.argv[1:] == ["--phase13"],
                   phase14_only=sys.argv[1:] == ["--phase14"],
                   phase15_only=sys.argv[1:] == ["--phase15"],
-                  phase16_only=sys.argv[1:] == ["--phase16"]))
+                  phase16_only=sys.argv[1:] == ["--phase16"],
+                  phase17_only=sys.argv[1:] == ["--phase17"]))

@@ -1,16 +1,52 @@
-"""Serving benchmarks of the port: the four multi-replica modes of the
-reference's ``benchmarks/serve_bench.py`` and its tensor-parallel
-``--multichip`` mode, over port engines.
+"""Serving benchmarks of the port: the reference's
+``benchmarks/serve_bench.py`` over port engines — its seven single-engine
+modes, its four multi-replica modes and its tensor-parallel
+``--multichip`` mode.
 
-Run ``python -m distkeras_torch.serve_bench --router`` (or
-``--fleet-sim``, ``--disagg``, ``--live-update``, ``--multichip``), with
-``--smoke`` for the self-asserting variant, ``--replicas N`` for the
-fleet size, ``--tp-list 1,2`` for ``--multichip``'s tp degrees, and
-``--device cpu`` to run the plain PyTorch path on the host. Without
-``--device`` the replicas run on the CUDA cards: replica ``i`` takes
-``cuda:{i % device_count}`` (one replica per card, as the reference pins
-one replica per device; on one card every replica shares it), and the
-command raises when there is no card. Each prints one JSON line.
+Run ``python -m distkeras_torch.serve_bench`` with a mode flag (none:
+the Poisson bench), ``--smoke`` for the mode's small self-checking
+variant (``--smoke`` alone: the shared-prefix smoke), ``--no-checks`` to
+record a single-engine smoke's checks without raising, and ``--device
+cpu`` to run the plain PyTorch path on the host. Without ``--device``
+the engines run on the CUDA card (the fleet modes: replica ``i`` on
+``cuda:{i % device_count}``, one replica per card as the reference pins
+one per device; on one card every replica shares it), and the command
+raises when there is no card. Each prints one JSON line.
+
+Single-engine modes (each a function of the reference's name, signature,
+defaults and smoke sizes, plus ``device=`` and ``checks=``):
+
+- no flag: continuous batching vs back-to-back ``generate()`` under
+  Poisson arrivals (:func:`bench`);
+- ``--shared-prefix``: the paged engine's radix prefix cache on vs off
+  (:func:`bench_shared_prefix`);
+- ``--host-tier``: the host-RAM KV tier vs device-only vs an
+  all-resident pool (:func:`bench_host_tier`);
+- ``--long-prompt-interference``: chunked vs monolithic prefill under a
+  closed loop of decoding streams (:func:`bench_long_prompt_interference`);
+- ``--speculative``: an n-gram or draft-model drafter vs the plain tick
+  at high acceptance (:func:`bench_speculative`);
+- ``--pipeline``: the pipelined loop vs the sync one
+  (:func:`bench_pipeline`);
+- ``--multi-step``: the multi-step decode window's sweep over k
+  (:func:`bench_multistep`).
+
+Each records every self-check of the reference in its result, at any
+size, as ``"checks": {"exact": {...}, "timing": {...}}``: exact ones
+(stream parity, token counts, hits, demotions and restores, stall
+counters, acceptance, exposition names, dispatch counts, steady-state
+recompiles) hold on any hardware; timing ones (thresholds on tok/s,
+speedups, ITL, TTFT, the flight recorder's share, the pipeline's
+device wait) depend on the host. Under ``--smoke`` (unless
+``--no-checks``) a mode raises listing every check that missed, where
+the reference asserts. The Poisson bench has no smoke; the port records
+two exact checks there (every request finished, no steady-state
+recompile). Each mode builds its model as ``_lm(device, _tree(seed,
+...))``, so a test can hand both packages the same weights by replacing
+:func:`_tree`, and draws its traces from ``numpy.random.default_rng`` in
+the reference's order (bit-identical prompts and lengths).
+
+Fleet and multichip modes:
 
 - ``--router``: N ``LMServer`` replicas behind the prefix-affinity
   ``Router`` vs one replica, a random-routing control arm, a one-replica
@@ -24,12 +60,12 @@ command raises when there is no card. Each prints one JSON line.
   (:func:`bench_disagg`);
 - ``--live-update``: rolling weight updates mid-flight and an SLO-burn
   auto-rollback on a bad checkpoint (:func:`bench_live_update`);
-- ``--multichip``: the same paged engine at each tp degree, its decode
-  tok/s and streams against the mesh-less engine's
-  (:func:`bench_multichip`). A tp > 1 runs as that many spawned ranks
-  (this script, ``--multichip-rank``) under the engine's lock-step loop:
-  gloo on the CPU, NCCL with one card a rank on a host of enough cards,
-  gloo with every rank on the one card otherwise.
+- ``--multichip``: the same paged engine at each tp degree of
+  ``--tp-list``, its decode tok/s and streams against the mesh-less
+  engine's (:func:`bench_multichip`). A tp > 1 runs as that many spawned
+  ranks (this script, ``--multichip-rank``) under the engine's lock-step
+  loop: gloo on the CPU, NCCL with one card a rank on a host of enough
+  cards, gloo with every rank on the one card otherwise.
 
 Every replica gets a model of its own, loaded from one numpy weight tree
 (a port model passed to two engines shares its parameters, so a push to
@@ -44,9 +80,10 @@ counts JAX retraces; on the CPU nothing is counted). Departures from the
 reference, on purpose: its respawn into forced virtual host devices
 (``run_router`` and its siblings, ``run_multichip``) has no counterpart:
 the replicas share the cards or the host as they are, and
-``--multichip`` spawns one process a tp rank. ``--smoke`` evaluates
-every self-check of the reference (the same thresholds) and fails
-listing each one that missed.
+``--multichip`` spawns one process a tp rank; ``_overfit_cycle`` draws
+its batch starts from numpy, not JAX's threefry. A fleet mode's
+``--smoke`` evaluates every self-check of the reference (the same
+thresholds) and fails listing each one that missed.
 """
 
 import argparse
@@ -111,6 +148,1199 @@ def _check(result, checks):
 
 def _kw(dtype):
     return dict(dtype=getattr(torch, dtype), attention="dense")
+
+
+def _device(device):
+    """The one device a single-engine mode runs on: the first CUDA card
+    (the default; raises without one) or the device asked for."""
+    return _devices(device)[0]
+
+
+def _pct(vals, q):
+    """The reference's client-side percentile of sorted samples."""
+    return vals[int(q * (len(vals) - 1))] if vals else None
+
+
+def _flips(model, prompts, got, want, rows):
+    """Where the greedy streams of ``rows`` in ``got`` leave ``want``:
+    each one's first differing token and, from one forward of the model
+    over the prompt and the shared tokens, the gap between its top two
+    logits there (a near tie reads at the dtype's rounding)."""
+    out = []
+    for i in rows:
+        x, y = list(got[i]), list(want[i])
+        if x == y:
+            continue
+        j = next((k for k, (u, v) in enumerate(zip(x, y)) if u != v),
+                 min(len(x), len(y)))
+        ctx = torch.as_tensor(np.concatenate(
+            [prompts[i], np.asarray(x[:j], np.int32)]),
+            dtype=torch.long, device=model.device)[None]
+        with torch.no_grad():
+            top = model(ctx)[0, -1].float().topk(2).values
+        out.append({"row": i, "first_flip": j, "of": len(x),
+                    "top2_gap": (top[0] - top[1]).item()})
+    return out
+
+
+def _verdict(result, exact, timing, smoke, checks):
+    """Record every self-check of a single-engine mode in
+    ``result["checks"]`` — ``exact`` (streams, counts, hits, recompiles:
+    they hold on any hardware) apart from ``timing`` (thresholds on
+    tok/s, speedups, ITL, TTFT and the flight recorder's share, which
+    depend on the host) — print the result's JSON line, and under
+    ``smoke`` with ``checks`` raise listing each check that missed (as
+    the reference asserts under its smoke)."""
+    result["checks"] = {"exact": {n: bool(ok) for n, ok in exact},
+                        "timing": {n: bool(ok) for n, ok in timing}}
+    print(json.dumps(result), flush=True)
+    if smoke and checks:
+        _check(result, list(exact) + list(timing))
+    return result
+
+
+def _engine(model, device, **kw):
+    from distkeras_torch import telemetry
+    from distkeras_torch.serving import ServingEngine
+
+    kw.setdefault("registry", telemetry.MetricRegistry())
+    kw.setdefault("tracer", telemetry.Tracer())
+    return ServingEngine(model, device=device, **kw)
+
+
+def _trace(n_requests, prompt_len, vocab, mean_interarrival_s, seed=0):
+    """Poisson arrivals with mixed output lengths (the continuous-batching
+    win case: a long request must not hold short ones hostage)."""
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(
+        rng.exponential(mean_interarrival_s, size=n_requests)
+    )
+    lengths = rng.choice([8, 16, 32, 48], size=n_requests)
+    prompts = [rng.integers(0, vocab, size=prompt_len).astype(np.int32)
+               for _ in range(n_requests)]
+    return [
+        {"at": float(a), "prompt": p, "max_new_tokens": int(m)}
+        for a, p, m in zip(arrivals, prompts, lengths)
+    ]
+
+
+def bench(V=1024, D=256, H=4, L=4, slots=8, n_requests=48, prompt_len=16,
+          mean_interarrival_s=0.002, dtype="float32", metrics_path=None,
+          device=None, checks=True):
+    """Serving throughput: the continuous-batching engine vs back-to-back
+    ``generate()`` (B=1) over the same seeded Poisson-arrival trace with
+    mixed output lengths. Sustained tokens/s is generated tokens over
+    the makespan (first arrival to last completion), so queueing counts
+    against each system. TTFT p50/p99 come from the engine's
+    ``MetricsWriter``; the TTFT and per-token histograms from a
+    run-isolated registry. The reference has no self-check here; the
+    port records two exact ones (every request finished: the engine's
+    tokens equal the static baseline's; nothing built or first-launched
+    after the warm-up). There is no smoke, so nothing raises
+    (``checks`` is taken for the CLI's sake)."""
+    from distkeras_torch import telemetry
+    from distkeras_torch.models.transformer import generate
+    from distkeras_torch.utils.metrics import MetricsWriter
+
+    dev = _device(device)
+    max_new_max = 48
+    mkw = dict(vocab_size=V, d_model=D, num_heads=H, num_layers=L,
+               max_len=prompt_len + max_new_max, **_kw(dtype))
+    model = _lm(dev, _tree(0, **mkw), **mkw)
+    trace = _trace(n_requests, prompt_len, V, mean_interarrival_s)
+
+    # -- warm both systems (steady state is the claim) ----------------------
+    warm_prompt = torch.as_tensor(trace[0]["prompt"])[None]
+    for m in sorted({r["max_new_tokens"] for r in trace}):
+        generate(model, warm_prompt, m).cpu()
+    warm_engine = _engine(model, dev, slots=slots)
+    warm_engine.submit(trace[0]["prompt"], max_new_tokens=4)
+    warm_engine.drain()
+
+    # -- continuous-batching engine -----------------------------------------
+    metrics = MetricsWriter(metrics_path)
+    # run-isolated registry: the emitted histograms cover exactly this
+    # measured run
+    registry = telemetry.MetricRegistry()
+    engine = _engine(model, dev, slots=slots, metrics=metrics,
+                     registry=registry)
+    engine.mark_steady()
+    stop = threading.Event()
+    loop = threading.Thread(target=engine.serve_forever, args=(stop,),
+                            daemon=True)
+    t0 = time.perf_counter()
+    loop.start()
+    reqs = []
+    for r in trace:
+        delay = t0 + r["at"] - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        reqs.append(
+            engine.submit(r["prompt"], max_new_tokens=r["max_new_tokens"])
+        )
+    tokens_engine = sum(len(r.stream.tokens(timeout=120)) for r in reqs)
+    dt_engine = time.perf_counter() - t0
+    stop.set()
+    loop.join(timeout=10)
+    stats = engine.stats()
+
+    # -- static baseline: back-to-back generate() over the same trace -------
+    t0 = time.perf_counter()
+    tokens_static = 0
+    for r in trace:
+        delay = t0 + r["at"] - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        out = generate(model, torch.as_tensor(r["prompt"])[None],
+                       r["max_new_tokens"]).cpu()
+        tokens_static += int(out.shape[1]) - prompt_len
+    dt_static = time.perf_counter() - t0
+
+    result = {
+        "serve_tokens_per_sec": round(tokens_engine / dt_engine, 1),
+        "static_tokens_per_sec": round(tokens_static / dt_static, 1),
+        "speedup": round(dt_static / dt_engine, 2),
+        "ttft_ms": stats["ttft_ms"],
+        "ttft_hist": registry.histogram("serving_ttft_ms").value,
+        "token_ms_hist": registry.histogram("serving_token_ms").value,
+        "mean_occupancy": stats["mean_occupancy"],
+        "flight_overhead_frac": stats["flight"]["overhead_frac"],
+        "steady_recompiles": stats["recompiles_since_mark"],
+        "memory": stats["memory"],
+        "config": f"d{D}/h{H}/L{L}/v{V}-slots{slots}-req{n_requests}"
+                  f"-prompt{prompt_len}-poisson{mean_interarrival_s}"
+                  f"-mixed8to48-{dtype}",
+    }
+    return _verdict(result, [
+        ("engine tokens == static tokens", tokens_engine == tokens_static),
+        ("steady_recompiles == {}", result["steady_recompiles"] == {}),
+    ], [], False, checks)
+
+
+def _prefix_trace(n_requests, prefix_len, tail_len, vocab,
+                  shared_frac=0.9, seed=0):
+    """The prefix-caching win case: ``shared_frac`` of requests open
+    with one fixed system prompt and differ only in a short tail."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, size=prefix_len).astype(np.int32)
+    out = []
+    for i in range(n_requests):
+        tail = rng.integers(0, vocab, size=tail_len).astype(np.int32)
+        if rng.random() < shared_frac or i == 0:
+            prompt = np.concatenate([system, tail])
+        else:  # cold request: fresh pseudo-prefix, no reuse
+            prompt = np.concatenate([
+                rng.integers(0, vocab, size=prefix_len).astype(np.int32),
+                tail,
+            ])
+        out.append(prompt)
+    return out
+
+
+def bench_shared_prefix(V=1024, D=256, H=4, L=4, slots=8, n_requests=16,
+                        prefix_len=256, tail_len=8, max_new=8,
+                        block_size=16, dtype="float32", smoke=False,
+                        device=None, checks=True):
+    """TTFT with 90% shared system prompts: the paged engine with the
+    radix prefix cache vs the same engine with the cache off (full
+    prefill per request). Requests run one at a time on an idle engine,
+    so TTFT is a clean prefill measurement. Self-checks: hits happen and
+    the hit counters are in the Prometheus exposition, both runs emit
+    every token, nothing is built or first-launched after the warm-up,
+    and the flight recorder costs under 5% of tick time."""
+    from distkeras_torch import telemetry
+    from distkeras_torch.telemetry.exposition import render_prometheus
+
+    if smoke:
+        V, D, H, L, slots = 64, 32, 2, 2, 2
+        n_requests, prefix_len, tail_len, max_new = 8, 32, 4, 4
+        block_size = 8
+    dev = _device(device)
+    max_len = prefix_len + tail_len + max_new
+    max_len += (-max_len) % block_size  # paged mode: whole blocks
+    mkw = dict(vocab_size=V, d_model=D, num_heads=H, num_layers=L,
+               max_len=max_len, **_kw(dtype))
+    model = _lm(dev, _tree(0, **mkw), **mkw)
+    trace = _prefix_trace(n_requests, prefix_len, tail_len, V)
+
+    def run(prefix_cache):
+        # warm engine: full prefill, the suffix-only prefill of the hit
+        # path (two same-prefix requests back to back) and the tick at
+        # both occupancies, on a throwaway engine
+        rng = np.random.default_rng(99)
+        sys_prompt = trace[0][:prefix_len]
+        warm_eng = _engine(model, dev, slots=slots, paged=True,
+                           block_size=block_size, prefix_cache=prefix_cache)
+        for _ in range(2):
+            tail = rng.integers(0, V, size=tail_len).astype(np.int32)
+            warm_eng.submit(np.concatenate([sys_prompt, tail]),
+                            max_new_tokens=max_new)
+            warm_eng.drain()
+
+        registry = telemetry.MetricRegistry()
+        engine = _engine(model, dev, slots=slots, paged=True,
+                         block_size=block_size, prefix_cache=prefix_cache,
+                         registry=registry)
+        engine.mark_steady()
+        t0 = time.perf_counter()
+        tokens = 0
+        for p in trace:
+            req = engine.submit(p, max_new_tokens=max_new)
+            engine.drain()
+            tokens += len(req.stream.tokens(timeout=60))
+        dt = time.perf_counter() - t0
+        return engine, registry, tokens, dt
+
+    eng_hit, reg_hit, tokens_hit, dt_hit = run(prefix_cache=True)
+    eng_cold, _, tokens_cold, dt_cold = run(prefix_cache=False)
+    s_hit, s_cold = eng_hit.stats(), eng_cold.stats()
+    exposition = render_prometheus(reg_hit)
+    result = {
+        "prefix_ttft_ms_p50": s_hit["ttft_ms"]["p50"],
+        "full_ttft_ms_p50": s_cold["ttft_ms"]["p50"],
+        "ttft_speedup": (
+            round(s_cold["ttft_ms"]["p50"] / s_hit["ttft_ms"]["p50"], 2)
+            if s_hit["ttft_ms"]["p50"] else None
+        ),
+        "prefix_hit_fraction": s_hit["prefix_hit_fraction"],
+        "prefix_hit_tokens": s_hit["prefix_hit_tokens"],
+        "block_evictions": reg_hit.counter(
+            "serving_block_evictions_total").value,
+        "tokens_per_sec": round(tokens_hit / dt_hit, 1),
+        "tokens_per_sec_no_cache": round(tokens_cold / dt_cold, 1),
+        "flight_overhead_frac": s_hit["flight"]["overhead_frac"],
+        "steady_recompiles": s_hit["recompiles_since_mark"],
+        "memory": s_hit["memory"],
+        "config": f"d{D}/h{H}/L{L}/v{V}-slots{slots}-req{n_requests}"
+                  f"-prefix{prefix_len}+{tail_len}-new{max_new}"
+                  f"-bs{block_size}-{dtype}"
+                  + ("-smoke" if smoke else ""),
+    }
+    return _verdict(result, [
+        ("prefix_hit_fraction > 0", result["prefix_hit_fraction"] > 0),
+        ("serving_prefix_hit_tokens_total in exposition",
+         "serving_prefix_hit_tokens_total" in exposition),
+        ("serving_blocks_in_use in exposition",
+         "serving_blocks_in_use" in exposition),
+        ("tokens_hit == tokens_cold == n_requests * max_new",
+         tokens_hit == tokens_cold == n_requests * max_new),
+        ("steady_recompiles == {}", result["steady_recompiles"] == {}),
+    ], [
+        ("flight_overhead_frac < 0.05",
+         result["flight_overhead_frac"] < 0.05),
+    ], smoke, checks)
+
+
+def _tier_trace(n_groups, reps, prefix_len, tail_len, vocab, seed=0):
+    """The tiered-cache win case: ``n_groups`` distinct shared system
+    prompts visited round-robin, so by the time a prefix is revisited
+    the LRU has evicted it from a device pool sized for a fraction of
+    the working set — device-only recomputes it, the host tier swaps
+    it back in."""
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(0, vocab, size=prefix_len).astype(np.int32)
+                for _ in range(n_groups)]
+    out = []
+    for _ in range(reps):
+        for p in prefixes:
+            tail = rng.integers(0, vocab, size=tail_len).astype(np.int32)
+            out.append(np.concatenate([p, tail]))
+    return out
+
+
+def bench_host_tier(V=1024, D=256, H=4, L=4, slots=4, n_groups=9,
+                    reps=4, prefix_len=256, tail_len=8, max_new=16,
+                    block_size=16, restore_budget=4, dtype="float32",
+                    smoke=False, checks=True, device=None):
+    """Tiered KV cache: a shared-prefix working set sized to ~3x the
+    device pool's cache headroom, served three ways — **tier** (the
+    starved pool plus a host tier holding every prefix: eviction
+    demotes, a revisit restores), **device** (the same pool, no tier: a
+    revisit recomputes) and **resident** (a pool large enough for
+    everything, the latency reference). The same greedy trace in all
+    three, so the streams must be bit-identical. Self-checks: that
+    parity, the tier's hit fraction >= max(2x device-only, 0.5), real
+    demotions, restores and swap-in bytes, nothing built or
+    first-launched after the warm-up (exact); the flight recorder under
+    5% and the tier's p99 ITL within 10% + 2.5 ms of the resident run's
+    (timing). Swap bytes are the host tier's own counters."""
+    from distkeras_torch import telemetry
+    from distkeras_torch.serving import FIFOScheduler
+
+    if smoke:
+        V, D, H, L, slots = 64, 32, 2, 2, 2
+        n_groups, reps, prefix_len, tail_len, max_new = 6, 3, 32, 4, 16
+        block_size = 8
+    dev = _device(device)
+    pb = prefix_len // block_size  # blocks per shared prefix
+    worst = -(-(prefix_len + tail_len + max_new) // block_size)
+    # device cache headroom = 1/3 of the prefix working set; the pool
+    # also covers every live slot's worst case so admission never
+    # deadlocks on its own residents
+    cache_blocks = max((n_groups * pb) // 3, pb)
+    num_blocks = 1 + slots * worst + cache_blocks
+    host_blocks = n_groups * pb + pb
+    max_len = prefix_len + tail_len + max_new
+    max_len += (-max_len) % block_size
+    mkw = dict(vocab_size=V, d_model=D, num_heads=H, num_layers=L,
+               max_len=max_len, **_kw(dtype))
+    model = _lm(dev, _tree(0, **mkw), **mkw)
+    trace = _tier_trace(n_groups, reps, prefix_len, tail_len, V)
+    warm_n = n_groups  # first round-robin pass = warm-up
+
+    def run(tier, pool_blocks):
+        engine = _engine(
+            model, dev, slots=slots, paged=True, block_size=block_size,
+            num_blocks=pool_blocks,
+            host_blocks=host_blocks if tier else None,
+            scheduler=FIFOScheduler(max_queue_depth=len(trace) + 1,
+                                    restore_budget=restore_budget))
+        # warm-up: the first pass over every prefix, submitted
+        # concurrently (both widths, the decode-only shape and, on the
+        # tier leg, demotion under pressure), then a revisit's restore,
+        # all before the steady mark; greedy throughout
+        warm = [engine.submit(p, max_new_tokens=max_new)
+                for p in trace[:warm_n]]
+        engine.drain(timeout=600)
+        for r in warm:
+            r.stream.tokens(timeout=60)
+        engine.submit(trace[0], max_new_tokens=max_new)
+        engine.drain(timeout=600)
+        engine.mark_steady()
+        reqs = [engine.submit(p, max_new_tokens=max_new)
+                for p in trace[warm_n:]]
+        t0 = time.perf_counter()
+        engine.drain(timeout=600)
+        dt = time.perf_counter() - t0
+        streams = [r.stream.tokens(timeout=60) for r in reqs]
+        # the stats now, before the next leg builds or launches anything
+        return engine, engine.stats(), streams, dt
+
+    eng_t, s_t, streams_t, dt_t = run(tier=True, pool_blocks=num_blocks)
+    _, s_d, streams_d, dt_d = run(tier=False, pool_blocks=num_blocks)
+    resident_blocks = 1 + slots * worst + n_groups * pb + cache_blocks
+    _, s_r, streams_r, dt_r = run(tier=False,
+                                  pool_blocks=resident_blocks)
+    parity = streams_t == streams_d == streams_r
+    swap_bytes = eng_t.host.bytes_restored_total
+    tokens = sum(len(s) for s in streams_t)
+    result = {
+        "tier_hit_fraction": s_t["prefix_hit_fraction"],
+        "device_hit_fraction": s_d["prefix_hit_fraction"],
+        "resident_hit_fraction": s_r["prefix_hit_fraction"],
+        "hit_gain": (
+            round(s_t["prefix_hit_fraction"]
+                  / s_d["prefix_hit_fraction"], 2)
+            if s_d["prefix_hit_fraction"] else None
+        ),
+        "tier_itl_ms_p99": s_t["itl_ms"]["p99"],
+        "resident_itl_ms_p99": s_r["itl_ms"]["p99"],
+        "device_itl_ms_p99": s_d["itl_ms"]["p99"],
+        "tier_tokens_per_sec": round(tokens / dt_t, 1),
+        "device_tokens_per_sec": round(tokens / dt_d, 1),
+        "resident_tokens_per_sec": round(tokens / dt_r, 1),
+        "demotions": s_t["block_demotions"],
+        "restores": s_t["block_restores"],
+        "restore_wait_ms": s_t["restore_wait_ms"],
+        "swap_in_bytes": swap_bytes,
+        "swap_out_bytes": eng_t.host.bytes_demoted_total,
+        # effective swap-in traffic over the measured drain — a demand
+        # rate, not a link-bandwidth probe
+        "swap_in_mb_s": round(swap_bytes / dt_t / 1e6, 2),
+        "host_blocks_cached": s_t["host_blocks_cached"],
+        "host_bytes": s_t["host_bytes"],
+        "parity": parity,
+        "flight_overhead_frac": s_t["flight"]["overhead_frac"],
+        "steady_recompiles": s_t["recompiles_since_mark"],
+        "memory": s_t["memory"],
+        "config": f"d{D}/h{H}/L{L}/v{V}-slots{slots}"
+                  f"-groups{n_groups}x{reps}-prefix{prefix_len}"
+                  f"+{tail_len}-new{max_new}-bs{block_size}"
+                  f"-dev{num_blocks}-host{host_blocks}"
+                  f"-rb{restore_budget}-{dtype}"
+                  + ("-smoke" if smoke else ""),
+    }
+    if not parity:
+        result["parity_flips"] = {
+            leg: _flips(model, trace[warm_n:], s, streams_t,
+                        range(len(s)))
+            for leg, s in (("device", streams_d), ("resident", streams_r))}
+    r = result
+    itl_t, itl_r = r["tier_itl_ms_p99"], r["resident_itl_ms_p99"]
+    return _verdict(result, [
+        ("parity", parity),
+        ("tier_hit_fraction >= max(2 * device_hit_fraction, 0.5)",
+         r["tier_hit_fraction"] >= max(2 * r["device_hit_fraction"], 0.5)),
+        ("demotions > 0 and restores > 0",
+         r["demotions"] > 0 and r["restores"] > 0),
+        ("swap_in_bytes > 0", r["swap_in_bytes"] > 0),
+        ("steady_recompiles == {}", r["steady_recompiles"] == {}),
+    ], [
+        ("flight_overhead_frac < 0.05", r["flight_overhead_frac"] < 0.05),
+        ("tier_itl_ms_p99 <= 1.1 * resident_itl_ms_p99 + 2.5",
+         not (itl_t and itl_r) or itl_t <= 1.1 * itl_r + 2.5),
+    ], smoke, checks)
+
+
+def _interference_trace(V, n_short, short_prompt, short_new, n_long,
+                        long_prompt, seed=0):
+    """The interference bench's short prompts, their staggered output
+    lengths (equal ones would let the closed loop complete in lock step,
+    every long prompt landing BETWEEN streams) and the long prompts."""
+    rng = np.random.default_rng(seed)
+    shorts = [rng.integers(0, V, size=short_prompt).astype(np.int32)
+              for _ in range(n_short)]
+    short_lens = rng.integers(max(2, short_new // 2), short_new + 1,
+                              size=n_short)
+    longs = [rng.integers(0, V, size=long_prompt).astype(np.int32)
+             for _ in range(n_long)]
+    return shorts, short_lens, longs
+
+
+def bench_long_prompt_interference(
+        V=1024, D=256, H=4, L=4, slots=4,
+        n_short=24, short_prompt=16, short_new=32,
+        n_long=6, long_prompt=1024, long_new=4, long_every=4,
+        prefill_chunk=64, tick_token_budget=None, think_time=0.0,
+        dtype="float32", smoke=False, checks=True, device=None):
+    """p99 inter-token latency of live decode streams while long prompts
+    keep arriving: chunked mixed-tick prefill vs monolithic prefill.
+
+    A closed loop of ``slots - 1`` short requests decodes continuously
+    (each completion submits the next); after every ``long_every`` short
+    completions one ``long_prompt``-token request takes the spare slot.
+    Monolithic mode runs each long prompt as one whole-prompt dispatch
+    between ticks, which every live short stream waits out; chunked
+    mode streams it ``prefill_chunk`` tokens a tick under
+    ``tick_token_budget``. ITL is measured client-side (a consumer
+    thread a request stamps each token). ``think_time`` pauses before
+    each closed-loop refill (0 saturates). Self-checks: every short
+    stream in both modes equals a solo ``generate()`` of its prompt (at
+    any size), monolithic mode stalled decodes and chunked mode never
+    did (``serving_decode_stalls_total``), nothing built or
+    first-launched after the warm-up (exact); chunked p99 ITL under
+    monolithic's and the flight recorder under 5% (timing)."""
+    from distkeras_torch import telemetry
+    from distkeras_torch.serving import FIFOScheduler
+
+    if smoke:
+        # sized so the monolithic long-prompt prefill's compute dominates
+        # the per-dispatch host overhead; slots=3 keeps two shorts
+        # decoding, so a long fired at one's completion always has
+        # another mid-stream
+        V, D, H, L, slots = 64, 256, 4, 2, 3
+        n_short, short_prompt, short_new = 8, 8, 8
+        n_long, long_prompt, long_new, long_every = 3, 1024, 2, 2
+        prefill_chunk = 32
+    if tick_token_budget is None:
+        # one full chunk of prefill alongside every decode, per tick
+        tick_token_budget = slots + prefill_chunk
+    dev = _device(device)
+    max_len = long_prompt + max(long_new, short_new)
+    mkw = dict(vocab_size=V, d_model=D, num_heads=H, num_layers=L,
+               max_len=max_len, **_kw(dtype))
+    model = _lm(dev, _tree(0, **mkw), **mkw)
+    shorts, short_lens, longs = _interference_trace(
+        V, n_short, short_prompt, short_new, n_long, long_prompt)
+
+    def make(chunked, registry=None):
+        return _engine(
+            model, dev, slots=slots,
+            registry=registry or telemetry.MetricRegistry(),
+            prefill_chunk=prefill_chunk if chunked else None,
+            scheduler=FIFOScheduler(tick_token_budget=tick_token_budget,
+                                    registry=telemetry.MetricRegistry(),
+                                    tracer=telemetry.Tracer()))
+
+    def run(chunked):
+        # a throwaway engine through every shape the measured run uses
+        warm = make(chunked)
+        warm.submit(shorts[0], max_new_tokens=2)
+        warm.submit(longs[0], max_new_tokens=2)
+        warm.drain()
+
+        registry = telemetry.MetricRegistry()
+        engine = make(chunked, registry)
+        engine.mark_steady()
+        stop = threading.Event()
+        loop = threading.Thread(target=engine.serve_forever, args=(stop,),
+                                daemon=True)
+        lock = threading.Lock()
+        itls, streams = [], {}  # streams: short idx -> emitted tokens
+        tokens = [0]
+        short_left = list(enumerate(shorts))
+        long_left = list(longs)
+        short_done, long_done, long_fired = [0], [0], [0]
+        threads = []
+
+        def consume_long(req):
+            n = len(req.stream.tokens(timeout=120))
+            with lock:
+                tokens[0] += n
+                long_done[0] += 1
+
+        def consume(idx, req):
+            stamps, toks = [], []
+            for tok in req.stream:
+                stamps.append(time.perf_counter())
+                toks.append(tok)
+            with lock:
+                tokens[0] += len(toks)
+                streams[idx] = toks
+                itls.extend(
+                    (b - a) * 1e3 for a, b in zip(stamps, stamps[1:])
+                )
+                short_done[0] += 1
+                # closed loop: a finished short feeds the next one in;
+                # every long_every-th completion also launches a long
+                nxt = short_left.pop(0) if short_left else None
+                fire_long = (long_left
+                             and short_done[0] % long_every == 0)
+                lng = long_left.pop(0) if fire_long else None
+                if lng is not None:
+                    long_fired[0] += 1
+            if lng is not None:
+                rl = engine.submit(lng, max_new_tokens=long_new)
+                tl = threading.Thread(target=consume_long, args=(rl,),
+                                      daemon=True)
+                tl.start()
+                with lock:
+                    threads.append(tl)
+            if nxt is not None:
+                if think_time > 0:
+                    time.sleep(think_time)
+                i, p = nxt
+                r = engine.submit(p, max_new_tokens=int(short_lens[i]))
+                t = threading.Thread(target=consume, args=(i, r),
+                                     daemon=True)
+                t.start()
+                with lock:
+                    threads.append(t)
+
+        t0 = time.perf_counter()
+        loop.start()
+        with lock:
+            seeds = [short_left.pop(0)
+                     for _ in range(min(max(slots - 1, 1),
+                                        len(short_left)))]
+        for i, p in seeds:
+            r = engine.submit(p, max_new_tokens=int(short_lens[i]))
+            t = threading.Thread(target=consume, args=(i, r), daemon=True)
+            t.start()
+            with lock:
+                threads.append(t)
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline:
+            with lock:
+                if (short_done[0] >= n_short
+                        and long_done[0] >= long_fired[0]):
+                    break
+            time.sleep(0.005)
+        dt = time.perf_counter() - t0
+        stop.set()
+        loop.join(timeout=10)
+        while True:
+            with lock:
+                pend = [t for t in threads if t.is_alive()]
+            if not pend:
+                break
+            pend[0].join(timeout=10)
+        with lock:
+            vals = sorted(itls)
+            total = tokens[0]
+        est = engine.stats()
+        return {
+            "itl_ms_p50": _pct(vals, 0.50), "itl_ms_p99": _pct(vals, 0.99),
+            "itl_ms_max": vals[-1] if vals else None,
+            "itl_samples": len(vals),
+            "tokens_per_sec": round(total / dt, 1),
+            "itl_hist": registry.histogram("serving_itl_ms").value,
+            "decode_stalls": registry.counter(
+                "serving_decode_stalls_total").value,
+            "steady_recompiles": est["recompiles_since_mark"],
+            "flight_overhead_frac": est["flight"]["overhead_frac"],
+            "memory": est["memory"],
+            "streams": streams,
+        }
+
+    chunked = run(chunked=True)
+    mono = run(chunked=False)
+    # parity: every short stream, in both modes, equals a solo
+    # generate() of the same prompt
+    want = [_solo(model, shorts[i], int(short_lens[i]))
+            for i in range(n_short)]
+    parity = {}
+    for name, mode in (("chunked", chunked), ("monolithic", mono)):
+        parity[name] = (len(mode["streams"]) == n_short, all(
+            toks == want[i] for i, toks in mode["streams"].items()))
+    result = {
+        "chunked_itl_ms_p99": chunked["itl_ms_p99"],
+        "monolithic_itl_ms_p99": mono["itl_ms_p99"],
+        "itl_p99_reduction": (
+            round(mono["itl_ms_p99"] / chunked["itl_ms_p99"], 2)
+            if chunked["itl_ms_p99"] else None
+        ),
+        "chunked_itl_ms_p50": chunked["itl_ms_p50"],
+        "monolithic_itl_ms_p50": mono["itl_ms_p50"],
+        "chunked_itl_ms_max": chunked["itl_ms_max"],
+        "monolithic_itl_ms_max": mono["itl_ms_max"],
+        "chunked_tokens_per_sec": chunked["tokens_per_sec"],
+        "monolithic_tokens_per_sec": mono["tokens_per_sec"],
+        "monolithic_decode_stalls": mono["decode_stalls"],
+        "chunked_decode_stalls": chunked["decode_stalls"],
+        "chunked_steady_recompiles": chunked["steady_recompiles"],
+        "monolithic_steady_recompiles": mono["steady_recompiles"],
+        "chunked_flight_overhead_frac": chunked["flight_overhead_frac"],
+        "monolithic_flight_overhead_frac": mono["flight_overhead_frac"],
+        "memory": chunked["memory"],
+        "chunked_itl_samples": chunked["itl_samples"],
+        "monolithic_itl_samples": mono["itl_samples"],
+        "chunked_itl_hist": chunked["itl_hist"],
+        "monolithic_itl_hist": mono["itl_hist"],
+        "config": f"d{D}/h{H}/L{L}/v{V}-slots{slots}"
+                  f"-short{short_prompt}+{short_new}x{n_short}"
+                  f"-long{long_prompt}+{long_new}x{n_long}"
+                  f"-chunk{prefill_chunk}-budget{tick_token_budget}"
+                  + (f"-think{think_time}" if think_time else "")
+                  + f"-{dtype}" + ("-smoke" if smoke else ""),
+    }
+    for name, mode in (("chunked", chunked), ("monolithic", mono)):
+        if not parity[name][1]:
+            rows = sorted(mode["streams"])
+            result[f"{name}_parity_flips"] = _flips(
+                model, shorts, {i: mode["streams"][i] for i in rows},
+                want, rows)
+    return _verdict(result, [
+        ("chunked: every short stream finished", parity["chunked"][0]),
+        ("chunked: short streams == solo generate()", parity["chunked"][1]),
+        ("monolithic: every short stream finished",
+         parity["monolithic"][0]),
+        ("monolithic: short streams == solo generate()",
+         parity["monolithic"][1]),
+        ("monolithic decode_stalls > 0", mono["decode_stalls"] > 0),
+        ("chunked decode_stalls == 0", chunked["decode_stalls"] == 0),
+        ("chunked_steady_recompiles == {}",
+         chunked["steady_recompiles"] == {}),
+        ("monolithic_steady_recompiles == {}",
+         mono["steady_recompiles"] == {}),
+    ], [
+        ("chunked itl_ms_p99 < monolithic itl_ms_p99",
+         None not in (chunked["itl_ms_p99"], mono["itl_ms_p99"])
+         and chunked["itl_ms_p99"] < mono["itl_ms_p99"]),
+        ("chunked flight_overhead_frac < 0.05",
+         chunked["flight_overhead_frac"] < 0.05),
+        ("monolithic flight_overhead_frac < 0.05",
+         mono["flight_overhead_frac"] < 0.05),
+    ], smoke, checks)
+
+
+def _overfit_cycle(model, corpus, train_steps, T=32, B=8, lr=1e-3, seed=0,
+                   starts=None):
+    """Overfit ``model`` IN PLACE on a periodic token stream with Adam
+    (the port's ``utils.losses.Adam``: optax's semantics), so its greedy
+    streams carry the strong local structure a drafter's proposals
+    survive on — the speculative bench's high-acceptance regime. Returns
+    the last step's loss.
+
+    Departure from the reference, on purpose: its batch starts come from
+    JAX's threefry (``jax.random.randint``), which torch cannot draw;
+    here they come from ``numpy.random.default_rng(seed)`` over the same
+    range, or from ``starts`` (``[train_steps, B]``) when given. One step
+    on the same weights and batch equals the reference's jitted optax
+    step."""
+    import torch.nn.functional as F
+
+    from distkeras_torch.utils.losses import Adam
+
+    if starts is None:
+        rng = np.random.default_rng(seed)
+        starts = [rng.integers(0, len(corpus) - T - 1, size=B)
+                  for _ in range(train_steps)]
+    opt = Adam(model.parameters(), lr)
+    loss = None
+    for s in starts[:train_steps]:
+        xy = torch.as_tensor(np.stack([corpus[i:i + T + 1] for i in s]),
+                             dtype=torch.long, device=model.device)
+        logits = model(xy[:, :-1])
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                               xy[:, 1:].reshape(-1))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+    opt.zero_grad(set_to_none=True)
+    return float(loss.detach())
+
+
+def _spec_trace(V, period, n_requests, max_new, seed=7):
+    """The speculative bench's ``period``-token cycle, the corpus it is
+    tiled into, the staggered output lengths and the prompts (rotations
+    of the cycle), drawn in the reference's order."""
+    rng = np.random.default_rng(seed)
+    cycle = rng.integers(0, V, size=period).astype(np.int32)
+    corpus = np.tile(cycle, 64)
+    lens = rng.integers(max(4, max_new // 2), max_new + 1,
+                        size=n_requests)
+    prompts = [np.concatenate([cycle, cycle[:int(o)]]).astype(np.int32)
+               for o in rng.integers(1, period, size=n_requests)]
+    return cycle, corpus, lens, prompts
+
+
+def bench_speculative(V=64, D=512, H=8, L=4, slots=4, n_requests=12,
+                      max_new=48, spec_k=4, prefill_chunk=32,
+                      tick_token_budget=None, train_steps=150, period=8,
+                      draft="ngram", dtype="float32", smoke=False,
+                      checks=True, device=None):
+    """Speculative decoding vs the plain mixed tick at high acceptance:
+    decode tokens/s and client-side ITL p50/p99 on a staggered-length
+    trace, the same engine config with and without a drafter. The model
+    is first overfit on a ``period``-token cycle
+    (:func:`_overfit_cycle`); prompts are rotations of the cycle.
+    ``draft`` picks the drafter: ``"ngram"`` (self-speculative suffix
+    lookup) or ``"model"`` (a small port TransformerLM overfit on the
+    same corpus, passed as ``draft=``; it carries its own weights).
+    Self-checks: greedy bit-parity spec vs baseline, acceptance > 0.5,
+    the acceptance metrics in the exposition, nothing built or
+    first-launched after the warm-up (exact); >= 1.5x decode tok/s, p50
+    ITL no worse than the baseline's, the flight recorder under 5%
+    (timing)."""
+    from distkeras_torch import telemetry
+    from distkeras_torch.serving import FIFOScheduler
+    from distkeras_torch.telemetry.exposition import render_prometheus
+
+    if smoke:
+        V, D, H, L, slots = 64, 256, 4, 2, 3
+        n_requests, max_new, train_steps = 6, 32, 80
+    if tick_token_budget is None:
+        tick_token_budget = slots * (spec_k + 1) + prefill_chunk
+    dev = _device(device)
+    _, corpus, lens, prompts = _spec_trace(V, period, n_requests, max_new)
+    max_len = 2 * period + max_new + spec_k + 1
+    max_len += (-max_len) % 16
+    mkw = dict(vocab_size=V, d_model=D, num_heads=H, num_layers=L,
+               max_len=max_len, **_kw(dtype))
+    model = _lm(dev, _tree(0, **mkw), **mkw)
+    t0 = time.perf_counter()
+    loss = _overfit_cycle(model, corpus, train_steps)
+    train_s = time.perf_counter() - t0
+    draft_kw = {"draft": "ngram"}
+    if draft == "model":
+        dkw = dict(vocab_size=V, d_model=32, num_heads=2, num_layers=1,
+                   max_len=max_len, **_kw(dtype))
+        dmodel = _lm(dev, _tree(1, **dkw), **dkw)
+        _overfit_cycle(dmodel, corpus, train_steps, seed=1)
+        draft_kw = {"draft": dmodel}
+
+    def run(spec):
+        def make_engine():
+            return _engine(
+                model, dev, slots=slots, prefill_chunk=prefill_chunk,
+                scheduler=FIFOScheduler(
+                    tick_token_budget=tick_token_budget,
+                    registry=telemetry.MetricRegistry(),
+                    tracer=telemetry.Tracer()),
+                **({**draft_kw, "spec_k": spec_k} if spec else {}))
+
+        # a throwaway engine through every shape
+        warm = make_engine()
+        for p, m in zip(prompts, lens):
+            warm.submit(p, max_new_tokens=int(m))
+        warm.drain()
+
+        engine = make_engine()
+        registry = engine.registry
+        engine.mark_steady()
+
+        # pass 1 — throughput: submit everything, drain, read the streams
+        # afterwards (no consumer threads contend); best of 3 replays
+        best = 0.0
+        for _ in range(3):
+            reqs = [engine.submit(p, max_new_tokens=int(m))
+                    for p, m in zip(prompts, lens)]
+            t0 = time.perf_counter()
+            engine.drain()
+            dt = time.perf_counter() - t0
+            streams = [r.stream.tokens(timeout=300) for r in reqs]
+            total = sum(map(len, streams))
+            best = max(best, total / dt)
+
+        # pass 2 — client-side ITL: one consumer thread a request stamps
+        # every token as it crosses the stream boundary (a verify tick
+        # releases its accepted prefix as a burst)
+        stop = threading.Event()
+        loop = threading.Thread(target=engine.serve_forever,
+                                args=(stop,), daemon=True)
+        lock = threading.Lock()
+        itls = []
+
+        def consume(req):
+            stamps = [time.perf_counter() for _ in req.stream]
+            with lock:
+                itls.extend(
+                    (b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
+
+        loop.start()
+        threads = []
+        for p, m in zip(prompts, lens):
+            r = engine.submit(p, max_new_tokens=int(m))
+            t = threading.Thread(target=consume, args=(r,), daemon=True)
+            t.start()
+            threads.append(t)
+        for t in threads:
+            t.join(timeout=300)
+        stop.set()
+        loop.join(timeout=10)
+        with lock:
+            vals = sorted(itls)
+        stats = engine.stats()
+        return {
+            "streams": streams,
+            "tokens_per_sec": round(best, 1),
+            "itl_ms_p50": _pct(vals, 0.50),
+            "itl_ms_p99": _pct(vals, 0.99),
+            "acceptance_rate": stats.get("acceptance_rate"),
+            "accept_len": registry.histogram("serving_accept_len").value,
+            "steady_recompiles": stats["recompiles_since_mark"],
+            "flight_overhead_frac": stats["flight"]["overhead_frac"],
+            "memory": stats["memory"],
+            "exposition": render_prometheus(registry),
+        }
+
+    spec = run(True)
+    base = run(False)
+    result = {
+        "spec_tokens_per_sec": spec["tokens_per_sec"],
+        "baseline_tokens_per_sec": base["tokens_per_sec"],
+        "decode_speedup": (
+            round(spec["tokens_per_sec"] / base["tokens_per_sec"], 2)
+            if base["tokens_per_sec"] else None
+        ),
+        "spec_itl_ms_p50": spec["itl_ms_p50"],
+        "baseline_itl_ms_p50": base["itl_ms_p50"],
+        "spec_itl_ms_p99": spec["itl_ms_p99"],
+        "baseline_itl_ms_p99": base["itl_ms_p99"],
+        "acceptance_rate": spec["acceptance_rate"],
+        "accept_len": spec["accept_len"],
+        "parity": spec["streams"] == base["streams"],
+        "spec_steady_recompiles": spec["steady_recompiles"],
+        "baseline_steady_recompiles": base["steady_recompiles"],
+        "flight_overhead_frac": spec["flight_overhead_frac"],
+        "memory": spec["memory"],
+        "train_s": round(train_s, 1),
+        "train_loss": round(loss, 5),
+        "config": f"d{D}/h{H}/L{L}/v{V}-slots{slots}"
+                  f"-req{n_requests}-new{max_new}-k{spec_k}"
+                  f"-draft{draft}-period{period}"
+                  f"-chunk{prefill_chunk}-budget{tick_token_budget}"
+                  f"-{dtype}" + ("-smoke" if smoke else ""),
+    }
+    if not result["parity"]:
+        result["parity_flips"] = _flips(model, prompts, spec["streams"],
+                                        base["streams"],
+                                        range(n_requests))
+    r, expo = result, spec["exposition"]
+    return _verdict(result, [
+        ("parity", r["parity"]),
+        ("acceptance_rate > 0.5",
+         bool(r["acceptance_rate"]) and r["acceptance_rate"] > 0.5),
+        ("serving_draft_tokens_total in exposition",
+         "serving_draft_tokens_total" in expo),
+        ("serving_accepted_tokens_total in exposition",
+         "serving_accepted_tokens_total" in expo),
+        ("serving_accept_len in exposition", "serving_accept_len" in expo),
+        ("spec_steady_recompiles == {}", r["spec_steady_recompiles"] == {}),
+        ("baseline_steady_recompiles == {}",
+         r["baseline_steady_recompiles"] == {}),
+    ], [
+        ("decode_speedup >= 1.5",
+         r["decode_speedup"] is not None and r["decode_speedup"] >= 1.5),
+        ("spec_itl_ms_p50 <= baseline_itl_ms_p50",
+         None not in (r["spec_itl_ms_p50"], r["baseline_itl_ms_p50"])
+         and r["spec_itl_ms_p50"] <= r["baseline_itl_ms_p50"]),
+        ("flight_overhead_frac < 0.05", r["flight_overhead_frac"] < 0.05),
+    ], smoke, checks)
+
+
+def _readback_bound(flight) -> bool:
+    """True when the measured engine's sync loop blocks on token
+    readback (the flight recorder's ``device_wait_ms`` p50 above its
+    ``dispatch_ms`` p50): the device's time surfaces at the readback,
+    which is where the pipelined loop can hide host work, so the >= 1.15x
+    overlap floor is asserted only there (elsewhere a no-regression
+    floor)."""
+    wait = flight.percentile("device_wait_ms", 50)
+    disp = flight.percentile("dispatch_ms", 50)
+    return (wait is not None and disp is not None and wait > disp)
+
+
+def _mixed_requests(V, n_requests, prompt_len, max_new, seed=0):
+    """The pipeline and multi-step benches' staggered-length trace, every
+    other request sampled at 0.8."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, V, size=prompt_len).astype(np.int32)
+               for _ in range(n_requests)]
+    lens = rng.integers(max(4, max_new // 2), max_new + 1,
+                        size=n_requests)
+    temps = [0.0 if i % 2 == 0 else 0.8 for i in range(n_requests)]
+    return prompts, lens, temps
+
+
+def _one_pass(eng, prompts, lens, temps):
+    reqs = [eng.submit(p, max_new_tokens=int(m), temperature=t, seed=i)
+            for i, (p, m, t) in enumerate(zip(prompts, lens, temps))]
+    t0 = time.perf_counter()
+    eng.drain()
+    dt = time.perf_counter() - t0
+    streams = [r.stream.tokens(timeout=300) for r in reqs]
+    return streams, sum(map(len, streams)) / dt
+
+
+def _solo_rows(model, prompts, lens, temps):
+    """Solo ``generate()`` of every greedy row (None for sampled ones)."""
+    return [_solo(model, p, int(m)) if t == 0.0 else None
+            for p, m, t in zip(prompts, lens, temps)]
+
+
+def bench_pipeline(V=1024, D=256, H=4, L=4, slots=8, n_requests=16,
+                   prompt_len=16, max_new=48, prefill_chunk=16,
+                   dtype="float32", smoke=False, checks=True, device=None):
+    """The pipelined engine loop vs the sync one
+    (``ServingEngine(pipeline=True)`` A/B): sustained decode tokens/s
+    over a drain of staggered-length mixed greedy/sampled requests, the
+    slot layout as the headline plus a paged parity leg. Each arm gets
+    two warm passes before ``mark_steady``, then best-of-3 measured
+    drains. :func:`_readback_bound` probes the sync arm's flight
+    decomposition: where the loop blocks on readback the >= 1.15x
+    overlap floor and a lower pipelined ``device_wait_ms`` p50 are
+    checked, elsewhere a 0.7x no-regression floor (timing). Exact:
+    streams bit-identical pipe vs sync vs paged, sampled rows included,
+    greedy rows equal to solo ``generate()``, nothing built or
+    first-launched after the warm-up in any measured arm."""
+    if smoke:
+        V, D, H, L, slots = 64, 64, 2, 2, 4
+        n_requests, prompt_len, max_new, prefill_chunk = 8, 8, 24, 8
+    dev = _device(device)
+    max_len = prompt_len + max_new
+    max_len += (-max_len) % 16  # paged leg: whole blocks
+    mkw = dict(vocab_size=V, d_model=D, num_heads=H, num_layers=L,
+               max_len=max_len, **_kw(dtype))
+    model = _lm(dev, _tree(0, **mkw), **mkw)
+    prompts, lens, temps = _mixed_requests(V, n_requests, prompt_len,
+                                           max_new)
+
+    def run(pipeline, paged):
+        eng = _engine(model, dev, slots=slots, pipeline=pipeline,
+                      paged=paged, block_size=16,
+                      prefill_chunk=prefill_chunk)
+        # pass 1 builds, pass 2 reaches the paged prefix-hit steady
+        # state (suffix prefills + COW) — both before the mark
+        _one_pass(eng, prompts, lens, temps)
+        _one_pass(eng, prompts, lens, temps)
+        eng.mark_steady()
+        best, streams = 0.0, None
+        for _ in range(3):
+            streams, tps = _one_pass(eng, prompts, lens, temps)
+            best = max(best, tps)
+        st = eng.stats()
+        return {
+            "streams": streams,
+            "tokens_per_sec": round(best, 1),
+            "flight": eng.flight,
+            "device_wait_ms_p50": eng.flight.percentile(
+                "device_wait_ms", 50),
+            "overrun_tokens": st["overrun_tokens"],
+            "steady_recompiles": st["recompiles_since_mark"],
+            "flight_overhead_frac": st["flight"]["overhead_frac"],
+            "memory": st["memory"],
+        }
+
+    sync = run(False, False)
+    pipe = run(True, False)
+    sync_paged = run(False, True)
+    pipe_paged = run(True, True)
+    # greedy rows must also equal solo generate()
+    solo = _solo_rows(model, prompts, lens, temps)
+    greedy = [i for i, t in enumerate(temps) if t == 0.0]
+    solo_ok = all(pipe["streams"][i] == solo[i] for i in greedy)
+    capable = _readback_bound(sync["flight"])
+    result = {
+        "pipe_tokens_per_sec": pipe["tokens_per_sec"],
+        "sync_tokens_per_sec": sync["tokens_per_sec"],
+        "speedup": (
+            round(pipe["tokens_per_sec"] / sync["tokens_per_sec"], 3)
+            if sync["tokens_per_sec"] else None
+        ),
+        "paged_pipe_tokens_per_sec": pipe_paged["tokens_per_sec"],
+        "paged_sync_tokens_per_sec": sync_paged["tokens_per_sec"],
+        "pipe_device_wait_ms_p50": pipe["device_wait_ms_p50"],
+        "sync_device_wait_ms_p50": sync["device_wait_ms_p50"],
+        "overrun_tokens": pipe["overrun_tokens"],
+        "parity": (pipe["streams"] == sync["streams"]
+                   and pipe_paged["streams"] == sync_paged["streams"]
+                   and sync_paged["streams"] == sync["streams"]
+                   and solo_ok),
+        "overlap_capable": capable,
+        "pipe_steady_recompiles": pipe["steady_recompiles"],
+        "sync_steady_recompiles": sync["steady_recompiles"],
+        "paged_pipe_steady_recompiles": pipe_paged["steady_recompiles"],
+        "flight_overhead_frac": pipe["flight_overhead_frac"],
+        "memory": pipe["memory"],
+        "config": f"d{D}/h{H}/L{L}/v{V}-slots{slots}-req{n_requests}"
+                  f"-prompt{prompt_len}+{max_new}-chunk{prefill_chunk}"
+                  f"-{dtype}" + ("-smoke" if smoke else ""),
+    }
+    if not result["parity"]:
+        result["parity_flips"] = {
+            "paged_vs_slot": _flips(model, prompts, sync_paged["streams"],
+                                    sync["streams"], greedy),
+            "slot_vs_solo": _flips(model, prompts, pipe["streams"], solo,
+                                   greedy)}
+    r = result
+    sp = r["speedup"] or 0.0
+    waits = (r["pipe_device_wait_ms_p50"], r["sync_device_wait_ms_p50"])
+    return _verdict(result, [
+        ("parity", r["parity"]),
+        ("pipe_steady_recompiles == {}", r["pipe_steady_recompiles"] == {}),
+        ("sync_steady_recompiles == {}", r["sync_steady_recompiles"] == {}),
+        ("paged_pipe_steady_recompiles == {}",
+         r["paged_pipe_steady_recompiles"] == {}),
+    ], [
+        ("flight_overhead_frac < 0.05", r["flight_overhead_frac"] < 0.05),
+        (f"speedup >= {1.15 if capable else 0.7}"
+         + (" (readback-bound)" if capable else ""),
+         sp >= (1.15 if capable else 0.7)),
+        ("pipe_device_wait_ms_p50 < sync_device_wait_ms_p50 where "
+         "readback-bound",
+         not capable or (None not in waits and waits[0] < waits[1])),
+    ], smoke, checks)
+
+
+def bench_multistep(V=1024, D=256, H=4, L=4, slots=8, n_requests=16,
+                    prompt_len=16, max_new=48, prefill_chunk=16,
+                    k_list=(1, 2, 4, 8), dtype="float32", smoke=False,
+                    checks=True, device=None):
+    """Device-resident multi-step decode (``ServingEngine(
+    multi_step_k=k)``): sustained decode tokens/s against the window
+    width k over a drain of staggered-length mixed greedy/sampled
+    requests — the slot layout as the sweep plus a paged parity leg at
+    the best k. Each arm warms its tick family on a throwaway engine,
+    then measures on a fresh one (one pass before the mark, best of 3
+    after). Exact: every arm and the paged leg bit-identical to k=1
+    (sampled rows included), greedy rows equal to solo ``generate()``,
+    nothing built or first-launched after the warm-up, fewer dispatches
+    at the best k than at k=1. Timing: >= 1.3x at the best k, tok/s at
+    k=4 no lower than k=1, ITL p99 within 10% + 2.5 ms of k=1's."""
+    if smoke:
+        V, D, H, L, slots = 64, 64, 2, 2, 4
+        n_requests, prompt_len, max_new, prefill_chunk = 8, 8, 24, 8
+    dev = _device(device)
+    max_len = prompt_len + max_new
+    max_len += (-max_len) % 16  # paged leg: whole blocks
+    mkw = dict(vocab_size=V, d_model=D, num_heads=H, num_layers=L,
+               max_len=max_len, **_kw(dtype))
+    model = _lm(dev, _tree(0, **mkw), **mkw)
+    prompts, lens, temps = _mixed_requests(V, n_requests, prompt_len,
+                                           max_new)
+
+    def run(k, paged):
+        def make():
+            return _engine(model, dev, slots=slots, paged=paged,
+                           block_size=16, prefill_chunk=prefill_chunk,
+                           multi_step_k=k)
+
+        # a throwaway engine: pass 1 builds this (k, layout)'s ticks,
+        # pass 2 reaches the paged prefix-hit steady state
+        warm = make()
+        _one_pass(warm, prompts, lens, temps)
+        _one_pass(warm, prompts, lens, temps)
+        eng = make()
+        streams, tps = _one_pass(eng, prompts, lens, temps)
+        eng.mark_steady()
+        best = tps
+        for _ in range(3):
+            streams, tps = _one_pass(eng, prompts, lens, temps)
+            best = max(best, tps)
+        st = eng.stats()
+        return {
+            "streams": streams,
+            "tokens_per_sec": round(best, 1),
+            "itl_ms_p99": st["itl_ms"]["p99"],
+            "dispatches": st["dispatches"],
+            "tokens_per_dispatch_p50": st["tokens_per_dispatch"]["p50"],
+            "fallbacks": st["multi_step_fallbacks"],
+            "steady_recompiles": st["recompiles_since_mark"],
+            "flight_overhead_frac": st["flight"]["overhead_frac"],
+            "memory": st["memory"],
+        }
+
+    k_list = tuple(sorted(set(int(k) for k in k_list)))
+    arms = {k: run(k, paged=False) for k in k_list}
+    k1 = arms[min(k_list)]
+    best_k = max(arms, key=lambda k: arms[k]["tokens_per_sec"])
+    paged_arm = run(best_k, paged=True)
+
+    # parity: every arm and the paged leg bit-identical, greedy rows also
+    # equal solo generate()
+    solo = _solo_rows(model, prompts, lens, temps)
+    greedy = [i for i, t in enumerate(temps) if t == 0.0]
+    parity = all(a["streams"] == k1["streams"] for a in arms.values())
+    parity = parity and paged_arm["streams"] == k1["streams"]
+    parity = parity and all(k1["streams"][i] == solo[i] for i in greedy)
+
+    recompiles: dict = {}
+    for k, a in arms.items():
+        recompiles.update(a["steady_recompiles"])
+    recompiles.update(paged_arm["steady_recompiles"])
+
+    result = {
+        **{f"tok_s_k{k}": a["tokens_per_sec"] for k, a in arms.items()},
+        "best_k": best_k,
+        "speedup_best": (
+            round(arms[best_k]["tokens_per_sec"]
+                  / k1["tokens_per_sec"], 3)
+            if k1["tokens_per_sec"] else None
+        ),
+        "paged_tok_s_best": paged_arm["tokens_per_sec"],
+        **{f"itl_p99_ms_k{k}": a["itl_ms_p99"]
+           for k, a in arms.items()},
+        **{f"dispatches_k{k}": a["dispatches"]
+           for k, a in arms.items()},
+        "tokens_per_dispatch_p50_best":
+            arms[best_k]["tokens_per_dispatch_p50"],
+        "fallbacks_best": arms[best_k]["fallbacks"],
+        "parity": parity,
+        "multi_steady_recompiles": recompiles,
+        "flight_overhead_frac": arms[best_k]["flight_overhead_frac"],
+        "memory": arms[best_k]["memory"],
+        "config": f"d{D}/h{H}/L{L}/v{V}-slots{slots}-req{n_requests}"
+                  f"-prompt{prompt_len}+{max_new}-chunk{prefill_chunk}"
+                  f"-k{','.join(map(str, k_list))}-{dtype}"
+                  + ("-smoke" if smoke else ""),
+    }
+    if not parity:
+        result["parity_flips"] = {
+            "paged_vs_slot": _flips(model, prompts, paged_arm["streams"],
+                                    k1["streams"], greedy),
+            "slot_vs_solo": _flips(model, prompts, k1["streams"], solo,
+                                   greedy)}
+    r = result
+    kb, k0 = best_k, min(k_list)
+    p99_1, p99_b = r[f"itl_p99_ms_k{k0}"], r[f"itl_p99_ms_k{kb}"]
+    sweep = max(k_list) > 1
+    return _verdict(result, [
+        ("parity", parity),
+        ("multi_steady_recompiles == {}", recompiles == {}),
+        (f"dispatches_k{kb} < dispatches_k{k0} or best_k == {k0}",
+         not sweep or kb == k0
+         or r[f"dispatches_k{kb}"] < r[f"dispatches_k{k0}"]),
+    ], [
+        ("speedup_best >= 1.3",
+         not sweep or (r["speedup_best"] or 0.0) >= 1.3),
+        ("tok_s_k4 >= tok_s_k1",
+         not sweep or not (4 in arms and 1 in arms)
+         or r["tok_s_k4"] >= r["tok_s_k1"]),
+        (f"itl_p99_ms_k{kb} <= 1.1 * itl_p99_ms_k{k0} + 2.5",
+         not sweep or not (p99_1 and p99_b) or p99_b <= 1.1 * p99_1 + 2.5),
+    ], smoke, checks)
 
 
 def bench_router(V=512, D=256, H=4, L=2, replicas=3, slots=2,
@@ -1601,8 +2831,32 @@ def _free_port():
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m distkeras_torch.serve_bench",
-        description="Fleet serving benchmarks of the port.")
-    mode = ap.add_mutually_exclusive_group(required=True)
+        description="Serving benchmarks of the port: the Poisson bench "
+                    "(no mode flag), the six other single-engine modes, "
+                    "the four fleet modes and tensor-parallel decode.")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--shared-prefix", action="store_true",
+                      help="paged-engine prefix-caching TTFT bench "
+                           "(90%% shared system prompts)")
+    mode.add_argument("--host-tier", action="store_true",
+                      help="tiered KV cache: a shared-prefix trace sized "
+                           "to 3x the device pool's cache headroom, host "
+                           "tier vs device-only vs all-resident")
+    mode.add_argument("--long-prompt-interference", action="store_true",
+                      help="chunked-prefill ITL bench: short decode "
+                           "streams vs a stream of long prompts, chunked "
+                           "mixed ticks vs monolithic prefill")
+    mode.add_argument("--speculative", action="store_true",
+                      help="speculative decoding vs the plain mixed tick "
+                           "at high acceptance (the model overfit on a "
+                           "periodic stream): decode tok/s and ITL")
+    mode.add_argument("--multi-step", action="store_true",
+                      help="device-resident multi-step decode: tok/s and "
+                           "ITL p99 against the window width k")
+    mode.add_argument("--pipeline", action="store_true",
+                      help="pipelined engine loop vs the sync one: decode "
+                           "tok/s, device_wait_ms p50, slot and paged "
+                           "parity")
     mode.add_argument("--router", action="store_true",
                       help="N replicas behind the prefix-affinity Router "
                            "vs one replica: throughput scaling, affine vs "
@@ -1624,31 +2878,114 @@ def main(argv=None):
     mode.add_argument("--multichip-rank", nargs=2,
                       metavar=("CFG", "RANK"), help=argparse.SUPPRESS)
     ap.add_argument("--smoke", action="store_true",
-                    help="self-check the mode's contract")
+                    help="the mode's small self-checking variant (alone: "
+                         "the --shared-prefix smoke)")
+    ap.add_argument("--no-checks", action="store_true",
+                    help="single-engine modes: record the --smoke "
+                         "self-checks in the result without raising")
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--requests", type=int, default=48)
+    ap.add_argument("--interarrival", type=float, default=0.002,
+                    help="mean Poisson inter-arrival (seconds)")
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--metrics", default=None,
+                    help="JSONL path for the engine's MetricsWriter")
+    ap.add_argument("--prefix-len", type=int, default=None,
+                    help="shared system-prompt length (default 256)")
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--long-prompt", type=int, default=None,
+                    help="interference bench: long-prompt length "
+                         "(default 1024)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunk size C of the interference, speculative, "
+                         "pipeline and multi-step benches")
+    ap.add_argument("--tick-token-budget", type=int, default=None,
+                    help="per-tick token budget (default: slots + chunk "
+                         "for interference, slots * (k + 1) + chunk for "
+                         "speculative)")
+    ap.add_argument("--think-time", type=float, default=0.0,
+                    help="interference bench: pause (s) before each "
+                         "closed-loop short refill — 0 saturates")
+    ap.add_argument("--restore-budget", type=int, default=4,
+                    help="host-tier bench: blocks restored per tick")
+    ap.add_argument("--draft", default="ngram", choices=["ngram", "model"],
+                    help="speculative bench drafter: n-gram lookup or a "
+                         "small overfit draft TransformerLM")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="speculative bench: draft tokens per row a tick")
+    ap.add_argument("--multi-step-k", default="1,2,4,8",
+                    help="comma list of window widths for --multi-step")
     ap.add_argument("--replicas", type=int, default=3,
                     help="replicas for --router/--disagg/--live-update; "
                          "the largest fleet of --fleet-sim (default 3)")
     ap.add_argument("--tp-list", default="1,2",
                     help="tp degrees of --multichip (default 1,2)")
     ap.add_argument("--device", default=None,
-                    help="'cpu' for the host; default: the CUDA cards, "
-                         "replica i on cuda:{i %% device_count}")
+                    help="'cpu' for the host; default: the CUDA card "
+                         "(fleet modes: replica i on "
+                         "cuda:{i %% device_count})")
     args = ap.parse_args(argv)
     if args.multichip_rank:
         return multichip_rank(args.multichip_rank[0],
                               int(args.multichip_rank[1]))
-    kw = dict(smoke=args.smoke, device=args.device)
-    if args.multichip:
-        bench_multichip(tp_list=tuple(int(t) for t in
-                                      args.tp_list.split(",")), **kw)
-    elif args.router:
-        bench_router(replicas=args.replicas, **kw)
+    fleet = dict(smoke=args.smoke, device=args.device)
+    one = dict(smoke=args.smoke, device=args.device,
+               checks=not args.no_checks)
+    chunk = ({} if args.prefill_chunk is None
+             else dict(prefill_chunk=args.prefill_chunk))
+    if args.multi_step:
+        bench_multistep(slots=args.slots, dtype=args.dtype,
+                        k_list=tuple(int(x) for x
+                                     in args.multi_step_k.split(",")),
+                        **chunk, **one)
+    elif args.pipeline:
+        bench_pipeline(slots=args.slots, dtype=args.dtype, **chunk, **one)
     elif args.fleet_sim:
-        bench_fleet_sim(max_replicas=args.replicas, **kw)
+        bench_fleet_sim(max_replicas=args.replicas, **fleet)
+    elif args.live_update:
+        bench_live_update(replicas=args.replicas, **fleet)
     elif args.disagg:
-        bench_disagg(replicas=args.replicas, **kw)
+        bench_disagg(replicas=args.replicas, **fleet)
+    elif args.router:
+        bench_router(replicas=args.replicas, **fleet)
+    elif args.multichip:
+        bench_multichip(tp_list=tuple(int(t) for t in
+                                      args.tp_list.split(",")), **fleet)
+    elif args.host_tier:
+        kw = dict(slots=args.slots, block_size=args.block_size,
+                  restore_budget=args.restore_budget, dtype=args.dtype)
+        if args.prefix_len is not None:
+            kw["prefix_len"] = args.prefix_len
+        bench_host_tier(**kw, **one)
+    elif args.speculative:
+        kw = dict(draft=args.draft, spec_k=args.spec_k, dtype=args.dtype,
+                  **chunk)
+        if args.tick_token_budget is not None:
+            kw["tick_token_budget"] = args.tick_token_budget
+        bench_speculative(**kw, **one)
+    elif args.long_prompt_interference:
+        kw = dict(slots=args.slots, dtype=args.dtype,
+                  tick_token_budget=args.tick_token_budget,
+                  think_time=args.think_time, **chunk)
+        if args.long_prompt is not None:
+            kw["long_prompt"] = args.long_prompt
+        bench_long_prompt_interference(**kw, **one)
+    elif args.shared_prefix or args.smoke:
+        # only explicit values: the function's defaults are the tuned
+        # shared-prefix config, not the Poisson bench's
+        kw = dict(slots=args.slots, block_size=args.block_size,
+                  dtype=args.dtype)
+        if args.prefix_len is not None:
+            kw["prefix_len"] = args.prefix_len
+        if args.requests != ap.get_default("requests"):
+            kw["n_requests"] = args.requests
+        bench_shared_prefix(**kw, **one)
     else:
-        bench_live_update(replicas=args.replicas, **kw)
+        bench(slots=args.slots, n_requests=args.requests,
+              mean_interarrival_s=args.interarrival, dtype=args.dtype,
+              metrics_path=args.metrics, device=args.device,
+              checks=not args.no_checks)
     return 0
 
 

@@ -1157,3 +1157,79 @@ def test_phase16_fails_on_an_injected_fault(monkeypatch, tmp_path):
                              r"step"):
         chip_smoke.tp_server_phase(torch, np, dk, here, yard,
                                    python=[sys.executable, str(launcher)])
+
+
+# -- phase 17: serve_bench's engine modes ---------------------------------------
+
+# every mode at a narrow width that keeps the kernels' gates open: 64-wide
+# heads, 16-token pages, slot caches of whole 16-key tiles
+_NARROW_P17 = {
+    "bench": dict(V=64, D=64, H=1, L=1, slots=2, n_requests=4),
+    "bench_shared_prefix": dict(V=64, D=64, H=1, L=1, slots=2,
+                                n_requests=6, prefix_len=32, tail_len=4,
+                                max_new=4, block_size=16),
+    "bench_host_tier": dict(V=64, D=64, H=1, L=1, slots=2, n_groups=6,
+                            reps=3, prefix_len=32, tail_len=4, max_new=12,
+                            block_size=16),
+    "bench_long_prompt_interference": dict(
+        V=64, D=64, H=1, L=1, slots=3, n_short=6, short_prompt=8,
+        short_new=8, n_long=2, long_prompt=120, long_new=2, long_every=2,
+        prefill_chunk=16),
+    "bench_speculative": dict(V=64, D=64, H=1, L=1, slots=2, n_requests=3,
+                              max_new=16, train_steps=80),
+    "bench_pipeline": dict(V=64, D=64, H=1, L=1, slots=2, n_requests=4,
+                           prompt_len=8, max_new=8, prefill_chunk=8),
+    "bench_multistep": dict(V=64, D=64, H=1, L=1, slots=2, n_requests=4,
+                            prompt_len=8, max_new=8, prefill_chunk=8,
+                            k_list=(1, 2)),
+}
+
+
+def test_phase17_at_narrow_width(monkeypatch, capsys):
+    """Phase 17 on the CPU, every mode narrowed (hd 64, 16-token pages)
+    with the kernels stood in as f32 kernels: each mode launches the
+    kernel its layout uses, every route is the f32 kernel's, every exact
+    check holds, and each mode prints its line."""
+    import json
+
+    import torch
+
+    from distkeras_torch import serve_bench
+
+    pa, sp = _standin_kernels(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "SERVE_BENCH_MODES", _NARROW_P17)
+    out = chip_smoke.serve_bench_phase(torch, pa, sp, serve_bench)
+    lines = [json.loads(ln)["serve_bench_mode"]
+             for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith('{"serve_bench_mode"')]
+    assert [ln["mode"] for ln in lines] == list(_NARROW_P17)
+    for name in _NARROW_P17:
+        r = out[name]
+        assert r["ok"] and all(r["exact"].values()), (name, r)
+        for kern in chip_smoke.SERVE_BENCH_KERNELS[name]:
+            assert r["launches"][kern] > 0, (name, kern)
+        assert all(set(seen) <= {chip_smoke.F32_ROUTE}
+                   for seen in r["routes"].values())
+        assert r["seconds"] > 0 and "timing" in r
+    assert out["launches"]["paged_attention"] == sum(
+        out[m]["launches"]["paged_attention"] for m in _NARROW_P17)
+    assert out["bench_speculative"]["headline"]["acceptance_rate"] > 0.5
+
+
+def test_phase17_fails_on_an_injected_fault(monkeypatch):
+    """A paged stand-in that runs the plain version but never counts its
+    launch fails phase 17, naming the mode whose layout needed it."""
+    import torch
+
+    from distkeras_torch import serve_bench
+
+    pa, sp = _standin_kernels(monkeypatch)
+    monkeypatch.setattr(pa, "paged_attention",
+                        lambda q, *a: pa.paged_attention_reference(q, *a))
+    pa.paged_attention.launches, pa.paged_attention.routes = 0, {}
+    monkeypatch.setattr(chip_smoke, "SERVE_BENCH_MODES", {
+        "bench_shared_prefix": _NARROW_P17["bench_shared_prefix"]})
+    with pytest.raises(AssertionError,
+                       match="bench_shared_prefix.*paged_attention never "
+                             "launched"):
+        chip_smoke.serve_bench_phase(torch, pa, sp, serve_bench)
