@@ -15,6 +15,8 @@ on a host of two cards or more its ranks run over NCCL), ``python3
 chip_smoke.py --phase17`` phase 17 alone after phase 2's cases at its
 shapes. Phases 14 and 15 run right after phase 4 in the whole smoke,
 phase 16 right after phase 12, phase 17 right after phase 10.
+``python3 chip_smoke.py --phase18`` runs phase 18 (the examples) alone
+after phase 1; in the whole smoke it runs last.
 
 Phases (any failure exits non-zero):
 
@@ -405,6 +407,30 @@ Phases (any failure exits non-zero):
    ``*steady_recompiles`` empty); its ``timing`` checks, headline
    numbers, launches and seconds print on its own line. Every mode runs,
    then the phase fails naming each mode that failed.
+18. **The examples.** The six modules of ``distkeras_torch/examples/``
+   through their stages. 18a ``lm_training`` on one card at the
+   flagship's widths with the example's own flags (``LM18``: d_model
+   2048, 8 heads, 2 KV heads, 8 layers, vocab 8192, T=2048, rope, 8
+   rows a step, lr 3e-4), 8 steps (8 epochs of one batch of rows), then
+   ``--sample 32``:
+   the losses finite and falling, the causal forward, dq and dk/dv each
+   launched once a layer a step, the sample's route and launches
+   printed. 18b ``lm_training --sp 2`` on two ranks (``--phase18-worker``,
+   each given the ``DK_TPU_*`` environment of a two-process ``Job``:
+   gloo when they share a card, NCCL one card each) at the same widths
+   cut to 2 layers and 2 steps (one batch, two epochs): the pair kernels launched on both ranks
+   as the ring schedules them, the two ranks' parameters bit-identical.
+   18c the four dist-keras examples at the reference's defaults: MNIST
+   accuracy >= 0.9 for ``single`` and ``dataparallel``, the other
+   trainers finite and above chance; CIFAR's losses finite; streaming
+   equal to a batch predict; the evaluation from prediction shards equal
+   to the in-memory one. 18d ``lm_serving`` at the reference's sizes in
+   each mode (default, ``--paged``, ``--prefill-chunk 0``, ``--draft
+   ngram``, ``--draft model``, ``--pipeline``, ``--multi-step-k 4``,
+   ``--replicas 3``): every f32 stream equal to ``generate()``; at head
+   dim 32 no serving kernel takes these shapes, and the route each
+   mode ran (``plain``) is printed. ``python3 chip_smoke.py --phase18``
+   runs phase 18 alone after phase 1.
 
 Output: JSON lines per phase, the ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` line (the serving rows carry every timed shape
@@ -417,7 +443,9 @@ dk/dv rows carry ``bwd_ms``, the two as the backward runs them with one
 prep pass, ``bwd_library_ms``, SDPA's backward, and ``sdpa_backend``;
 the causal rows carry ``pp_microbatch`` (phase 13's shape, timed),
 ``pp_launches_per_rank`` and ``moe_launches``, the pair rows
-``sp2_chunk`` and ``sp2_launches_per_rank``),
+``sp2_chunk`` and ``sp2_launches_per_rank``; phase 18's launches ride
+on the causal rows as ``example_launches`` and on the pair rows as
+``example_sp2_launches_per_rank``),
 and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -682,6 +710,31 @@ FLEET_DISAGG_TOKENS = 512
 # many tokens through the tp=2 prefill replica (all of phase 4's)
 TP_SERVER_WAIT_S = 600
 TP_SERVER_DISAGG_TOKENS = 64
+# phase 18: the examples. 18a: lm_training's own flags at the flagship's
+# widths (3e-4: the example's help for flagship-size models), 8 steps,
+# then a 32-token sample. The steps are 8 epochs of one batch of rows:
+# over 8 distinct batches the loss did not fall (each row's pattern is
+# learned in context, after many more steps; PERF.md, PR 19)
+LM18 = ["--d-model", "2048", "--heads", "8", "--kv-heads", "2",
+        "--layers", "8", "--vocab", "8192", "--seq-len", "2048", "--rope",
+        "--batch-size", "8", "--lr", "3e-4"]
+LM18_STEPS = 8
+LM18_SAMPLE = 32
+# 18b: the same at sp=2 over two ranks, cut to 2 layers and 2 steps (one
+# batch, two epochs: two steps cannot show a falling loss on two batches)
+LM18_SP = dict(sp=2, layers=2, steps=2)
+P18_TIMEOUT_S = 600
+# 18c: the four dist-keras examples' flags (none: the reference's
+# defaults, nothing cut)
+EXAMPLES18 = {"mnist_workflow": [], "cifar10_training": [],
+              "streaming_inference": [], "bigdata_pipeline": []}
+MNIST18_STRICT = ("single", "dataparallel")  # held to MNIST_MIN_ACCURACY
+# 18d: lm_serving at the reference's sizes, one run a mode flag
+SERVING18 = {"default": [], "paged": ["--paged"],
+             "monolithic": ["--prefill-chunk", "0"],
+             "ngram": ["--draft", "ngram"], "draft_model": ["--draft", "model"],
+             "pipeline": ["--pipeline"], "multi_step": ["--multi-step-k", "4"],
+             "replicas": ["--replicas", "3"]}
 
 
 def _fail(msg):
@@ -3708,6 +3761,7 @@ def tp_worker(cfg_path: str, rank: int) -> int:
     from distkeras_torch import bridge, telemetry
     from distkeras_torch.bench import serving_requests
     from distkeras_torch.kernels import build
+    from distkeras_torch.parallel.ranks import rank_threads
     from distkeras_torch.models import get_model
     from distkeras_torch.ops import paged_attention as pa
     from distkeras_torch.ops import pallas_attention as fa
@@ -3727,7 +3781,7 @@ def tp_worker(cfg_path: str, rank: int) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         build.load()
-    torch.set_num_threads(max(1, (os.cpu_count() or 2) // TP))
+    torch.set_num_threads(rank_threads(TP))
     dist.init_process_group(cfg["backend"],
                             init_method=f"tcp://127.0.0.1:{cfg['port']}",
                             rank=rank, world_size=TP,
@@ -4213,6 +4267,7 @@ def p13_worker(cfg_path: str, rank: int) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from distkeras_torch import bridge
     from distkeras_torch.kernels import build
+    from distkeras_torch.parallel.ranks import rank_threads
     from distkeras_torch.models import get_model
     from distkeras_torch.ops import pallas_attention as fa
     from distkeras_torch.ops import pallas_pair as pp
@@ -4234,7 +4289,7 @@ def p13_worker(cfg_path: str, rank: int) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         build.load()
-    torch.set_num_threads(max(1, (os.cpu_count() or 2) // P13))
+    torch.set_num_threads(rank_threads(P13))
     dist.init_process_group(cfg["backend"],
                             init_method=f"tcp://127.0.0.1:{cfg['port']}",
                             rank=rank, world_size=P13,
@@ -5733,6 +5788,7 @@ def tp_server_worker(cfg_path: str, rank: int) -> int:
     from distkeras_torch import telemetry
     from distkeras_torch.bench import serving_requests
     from distkeras_torch.kernels import build
+    from distkeras_torch.parallel.ranks import rank_threads
     from distkeras_torch.models import get_model
     from distkeras_torch.ops import paged_attention as pa
     from distkeras_torch.ops import splash_prefill as sp
@@ -5748,7 +5804,7 @@ def tp_server_worker(cfg_path: str, rank: int) -> int:
         torch.backends.cudnn.allow_tf32 = False
         build.load()
     _mark(cfg, "kernels")
-    torch.set_num_threads(max(1, (os.cpu_count() or 2) // TP))
+    torch.set_num_threads(rank_threads(TP))
     dist.init_process_group(cfg["backend"],
                             init_method=f"tcp://127.0.0.1:{cfg['port']}",
                             rank=rank, world_size=TP,
@@ -5772,9 +5828,244 @@ def tp_server_worker(cfg_path: str, rank: int) -> int:
     return 0
 
 
+# -- phase 18: the examples ------------------------------------------------
+
+
+def examples_lm_phase(torch, np, fa, pp, pa, sp, lm):
+    """18a: ``lm_training`` on one card through its stages (flags
+    ``LM18``): the training launches counted around ``train``, the
+    sample's around ``decode``."""
+    from distkeras_torch.utils.device import resolve_device
+
+    rows = LM18[LM18.index("--batch-size") + 1]
+    args = lm.parse_args(LM18 + ["--n", rows, "--epochs", str(LM18_STEPS),
+                                 "--sample", str(LM18_SAMPLE), "--device",
+                                 DEV])
+    device = resolve_device(args.device)
+    axes = lm.mesh_axes(args, 1)
+    ds, tokens, _ = lm.load_data(args)
+    model = lm.build_model(args, axes, device)
+    zero_training_counts(fa, pp)
+    sync(torch)
+    t0 = time.perf_counter()
+    trainer, trained = lm.train(args, model, ds, axes, len(tokens))
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = training_counts(fa, pp)
+    losses = [float(h["loss"]) for h in trainer.history]
+    if len(losses) != LM18_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"18a: losses {losses}: want {LM18_STEPS} "
+                             f"finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"18a: the loss did not fall: {losses}")
+    want = {n: 0 for n in launches}
+    want.update({n: args.layers * LM18_STEPS for n in CAUSAL_NAMES})
+    if launches != want:
+        raise AssertionError(f"18a: training launches {launches}, not "
+                             f"{want} (once a layer a step)")
+    Tp = min(16, args.seq_len - LM18_SAMPLE)
+    _zero_counts(pa, sp)
+    t0 = time.perf_counter()
+    rows = lm.decode(args, trained, tokens[:2, :Tp], LM18_SAMPLE)
+    sync(torch)
+    sample_s = time.perf_counter() - t0
+    if rows.shape != (2, Tp + LM18_SAMPLE):
+        raise AssertionError(f"18a: sample shape {rows.shape}")
+    paged, splash = _launches(pa, sp)
+    routes = {"paged_attention": dict(pa.paged_attention.routes),
+              "splash_prefill": dict(sp.splash_prefill_attention.routes)}
+    steps = len(losses)
+    out = {"flags": LM18, "steps": steps, "losses": losses, "train_s": wall,
+           "ms_per_step": wall / steps * 1e3,
+           "tok_s": steps * args.batch_size * args.seq_len / wall,
+           "note": "the window's wall time, first use of each kernel and "
+                   "library in the process included",
+           "launches": launches,
+           "sample": {"rows": 2, "prompt": Tp, "new": LM18_SAMPLE,
+                      "seconds": sample_s,
+                      "launches": {"paged_attention": paged,
+                                   "splash_prefill": splash},
+                      "route": routes if paged or splash else "plain",
+                      "tokens": rows[:, Tp:].tolist()}}
+    del trainer, trained, model
+    _free(torch)
+    return out
+
+
+def examples_sp_phase(torch, np, here, cards=None, python=None):
+    """18b: ``lm_training --sp 2`` on two ranks
+    (``chip_smoke.py --phase18-worker``), each given the ``DK_TPU_*``
+    environment of a two-process ``Job``."""
+    if cards is None:
+        cards = torch.cuda.device_count() if DEV == "cuda" else 1
+    n = LM18_SP["sp"]
+    out = tempfile.mkdtemp(prefix="dk_phase18_")
+    cfg = {"out": out, "device": DEV, "port": _free_port(),
+           "ps_port": _free_port(), "world": n, "argv": LM18,
+           "sp": LM18_SP, "batch": int(LM18[LM18.index("--batch-size") + 1])}
+    ranks, wall = run_ranks("18", cfg, n, P18_TIMEOUT_S, here, python)
+    L, W = LM18_SP["layers"], LM18_SP["steps"]
+    per_layer = pair_per_layer(n)
+    for r, res in enumerate(ranks):
+        if DEV == "cuda" and not res["kernel_selected"]:
+            raise AssertionError(f"18b: rank {r}'s ring did not select the "
+                                 f"pair kernels")
+        want = {k: 0 for k in res["launches"]}
+        want.update({k: (v * L * W if res["kernel_selected"] else 0)
+                     for k, v in per_layer.items()})
+        _launch_check("18b", r, res["launches"], want)
+        if not np.isfinite(res["losses"]).all():
+            raise AssertionError(f"18b: rank {r}'s losses {res['losses']}")
+    if len({res["params_sha256"] for res in ranks}) != 1:
+        raise AssertionError("18b: the two ranks' parameters differ")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError(f"18b: the ranks' losses differ: "
+                             f"{[x['losses'] for x in ranks]}")
+    return {"processes": n, "backend": ranks[0]["backend"],
+            "layers": L, "steps": W,
+            "cut": "2 layers, 2 steps (one batch of rows, two epochs)",
+            "losses": ranks[0]["losses"],
+            "ms_per_step": [x["seconds"] / W * 1e3 for x in ranks],
+            "launches_per_rank": [x["launches"] for x in ranks],
+            "params_bit_identical": True, "wall_s": wall}
+
+
+def examples_sp_worker(cfg_path: str, rank: int) -> int:
+    """One rank of 18b (``chip_smoke.py --phase18-worker <cfg> <rank>``):
+    the environment a ``Job`` of ``world`` local processes gives rank
+    ``rank``, then the example's own ``run`` over it."""
+    import torch
+    import torch.distributed as dist
+
+    global DEV
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from distkeras_torch.examples import lm_training as lm
+    from distkeras_torch.job_deployment import Job
+    from distkeras_torch.kernels import build
+    from distkeras_torch.ops import pallas_attention as fa
+    from distkeras_torch.ops import pallas_pair as pp
+    from distkeras_torch.ops.ring_attention import _pair_kernel_block
+    from distkeras_torch.parallel.ranks import rank_threads
+
+    cfg = json.load(open(cfg_path))
+    DEV = cfg["device"]
+    if DEV == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.load()
+    torch.set_num_threads(rank_threads(cfg["world"]))
+    os.environ.update(Job(
+        "-m", hosts=["local"] * cfg["world"],
+        coordinator_port=cfg["port"],
+        ps_port=cfg["ps_port"]).environment_for(rank))
+    sp_cfg = cfg["sp"]
+    argv = list(cfg["argv"])
+    argv[argv.index("--layers") + 1] = str(sp_cfg["layers"])
+    # one batch of rows, one step an epoch: the second step's loss is
+    # the first batch's again, after one update on it
+    args = lm.parse_args(argv + ["--sp", str(sp_cfg["sp"]), "--n",
+                                 str(cfg["batch"]), "--epochs",
+                                 str(sp_cfg["steps"]), "--device", DEV])
+    hd = args.d_model // args.heads
+    C = args.seq_len // sp_cfg["sp"] // 2
+    try:
+        zero_training_counts(fa, pp)
+        res = lm.run(args)
+        out = {"rank": rank, "backend": dist.get_backend(),
+               "losses": res["losses"], "seconds": res["seconds"],
+               "params_sha256": res["params_sha256"],
+               "launches": training_counts(fa, pp),
+               "kernel_selected": _pair_kernel_block(
+                   C, hd, torch.bfloat16, DEV) is not None}
+        with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
+
+
+def examples_dk_phase(torch, np, ex):
+    """18c: the four dist-keras examples with ``EXAMPLES18``'s flags."""
+    import contextlib
+    import io
+
+    out = {}
+    for name, argv in EXAMPLES18.items():
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = getattr(ex, name).main(list(argv) + ["--device", DEV])
+        sync(torch)
+        if not np.isfinite(res.get("losses", [])).all():
+            raise AssertionError(f"18c: {name}'s losses are not finite")
+        out[name] = {k: v for k, v in res.items() if k != "losses"} | {
+            "seconds_total": time.perf_counter() - t0,
+            "printed": buf.getvalue().strip().splitlines()[-3:]}
+    mnist = out["mnist_workflow"]["trainers"]
+    for name, r in mnist.items():
+        if not np.isfinite(r["losses"]).all():
+            raise AssertionError(f"18c: MNIST {name}'s losses not finite")
+        floor = MNIST_MIN_ACCURACY if name in MNIST18_STRICT else 0.1
+        if not r["accuracy"] > floor - (name in MNIST18_STRICT) * 1e-12:
+            raise AssertionError(f"18c: MNIST {name}'s accuracy "
+                                 f"{r['accuracy']} under {floor}")
+        r.pop("losses")
+    return out
+
+
+def examples_serving_phase(torch, pa, sp, ex):
+    """18d: ``lm_serving`` in each mode of ``SERVING18`` (its own checks:
+    every stream equal to ``generate()``), the serving launches zeroed
+    before each."""
+    import contextlib
+    import io
+
+    out = {}
+    for name, argv in SERVING18.items():
+        _zero_counts(pa, sp)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = ex.lm_serving.main(list(argv) + ["--device", DEV])
+        paged, splash = _launches(pa, sp)
+        routes = {"paged_attention": dict(pa.paged_attention.routes),
+                  "splash_prefill": dict(sp.splash_prefill_attention.routes)}
+        out[name] = {"flags": argv, "tok_s": res["tok_s"],
+                     "tokens": res["tokens"],
+                     "seconds": time.perf_counter() - t0,
+                     "launches": {"paged_attention": paged,
+                                  "splash_prefill": splash},
+                     "route": routes if paged or splash else "plain",
+                     "streams_equal_generate": True}
+    return out
+
+
+def examples_phase(torch, np, fa, pp, pa, sp, here, python=None):
+    """Phase 18: 18a-18d, each line printed as it ends."""
+    from distkeras_torch import examples as ex
+    from distkeras_torch.examples import (bigdata_pipeline,  # noqa: F401
+                                          cifar10_training, lm_serving,
+                                          lm_training, mnist_workflow,
+                                          streaming_inference)
+
+    t0 = time.perf_counter()
+    res = {"18a": examples_lm_phase(torch, np, fa, pp, pa, sp, lm_training)}
+    _emit({"examples_lm": res["18a"]})
+    res["18b"] = examples_sp_phase(torch, np, here, python=python)
+    _emit({"examples_lm_sp2": res["18b"]})
+    res["18c"] = examples_dk_phase(torch, np, ex)
+    _emit({"examples_dist_keras": res["18c"]})
+    res["18d"] = examples_serving_phase(torch, pa, sp, ex)
+    _emit({"examples_lm_serving": res["18d"]})
+    res["seconds"] = time.perf_counter() - t0
+    _emit({"examples_phase": {"seconds": res["seconds"]}})
+    return res
+
+
 def main(phase12_only: bool = False, phase13_only: bool = False,
          phase14_only: bool = False, phase15_only: bool = False,
-         phase16_only: bool = False, phase17_only: bool = False) -> int:
+         phase16_only: bool = False, phase17_only: bool = False,
+         phase18_only: bool = False) -> int:
     """The smoke (every phase), or with ``phase12_only`` phase 12 alone
     after phase 3, its yardstick (``chip_smoke.py --phase12``: the
     tensor-parallel ranks over NCCL on a host of several cards), with
@@ -5786,7 +6077,8 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
     with ``phase16_only`` phase 16 alone after phase 3, its yardstick
     (``chip_smoke.py --phase16``: over NCCL on several cards), or with
     ``phase17_only`` phase 17 alone after phase 2's cases at its shapes
-    (``chip_smoke.py --phase17``)."""
+    (``chip_smoke.py --phase17``), or with ``phase18_only`` phase 18 alone
+    after phase 1 (``chip_smoke.py --phase18``)."""
     try:
         import numpy as np
         import torch
@@ -5890,6 +6182,13 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
         ring = ring_training_phase(torch, np, dk, fa, pp, training)
         _emit({"ring_training_phase": ring})
         phase13(torch, np, F, dk, fa, pp, here, training, ring)
+        print(smi, flush=True)
+        _emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
+    if phase18_only:
+        examples_phase(torch, np, fa, pp, pa, sp, here)
         print(smi, flush=True)
         _emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6128,6 +6427,9 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
     moe, p13, p13_shapes = phase13(torch, np, F, dk, fa, pp, here,
                                    training, ring)
 
+    _free(torch)
+    p18 = examples_phase(torch, np, fa, pp, pa, sp, here)
+
     main_paged = next(c for c in paged if c["T"] == 64 and c["pool"] == "int8")
     main_splash = next(c for c in splash if c["dtype"] == "bf16")
     timed = ("T", "H", "Hk", "hd", "pool", "dtype", "starts", "ms",
@@ -6221,6 +6523,8 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
         rows[-1]["pp_launches_per_rank"] = [
             n[name] for n in p13["13a"]["launches_per_rank"]]
         rows[-1]["moe_launches"] = moe["launches"][name]
+        # phase 18a: lm_training at the flagship's widths
+        rows[-1]["example_launches"] = p18["18a"]["launches"][name]
         if name in fwd_facts:
             rows[-1]["build"] = fwd_facts[name]
         if name in bwd_facts:
@@ -6276,6 +6580,9 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
                     "bwd_library_ms"]
             rows[-1]["sp2_launches_per_rank"] = [
                 n[name] for n in p13["13c"]["launches_per_rank"]]
+            # phase 18b: lm_training --sp 2
+            rows[-1]["example_sp2_launches_per_rank"] = [
+                n[name] for n in p18["18b"]["launches_per_rank"]]
     print(smi, flush=True)
     _emit({"kernels": rows})
     _emit({"ok": True, "device": {"platform": "gpu",
@@ -6293,9 +6600,12 @@ if __name__ == "__main__":
         sys.exit(p13_worker(sys.argv[2], int(sys.argv[3])))
     if len(sys.argv) == 4 and sys.argv[1] == "--phase16-worker":
         sys.exit(tp_server_worker(sys.argv[2], int(sys.argv[3])))
+    if len(sys.argv) == 4 and sys.argv[1] == "--phase18-worker":
+        sys.exit(examples_sp_worker(sys.argv[2], int(sys.argv[3])))
     sys.exit(main(phase12_only=sys.argv[1:] == ["--phase12"],
                   phase13_only=sys.argv[1:] == ["--phase13"],
                   phase14_only=sys.argv[1:] == ["--phase14"],
                   phase15_only=sys.argv[1:] == ["--phase15"],
                   phase16_only=sys.argv[1:] == ["--phase16"],
-                  phase17_only=sys.argv[1:] == ["--phase17"]))
+                  phase17_only=sys.argv[1:] == ["--phase17"],
+                  phase18_only=sys.argv[1:] == ["--phase18"]))

@@ -30,6 +30,16 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
+def rank_threads(world: int) -> int:
+    """Intra-op threads for one of ``world`` rank processes on this host:
+    ``OMP_NUM_THREADS`` when it is set, else an equal share of the
+    cores."""
+    env = os.environ.get("OMP_NUM_THREADS", "")
+    if env.isdigit() and int(env) > 0:
+        return int(env)
+    return max(1, (os.cpu_count() or 2) // world)
+
+
 def post(out: str, name: str, obj=None):
     """Leave ``obj`` as JSON at ``out/name`` (whole or not at all)."""
     tmp = os.path.join(out, f".{name}.tmp")

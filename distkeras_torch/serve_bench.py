@@ -2671,13 +2671,14 @@ def multichip_rank(cfg_path: str, rank: int) -> int:
     import torch.distributed as dist
 
     from distkeras_torch.parallel.mesh import make_mesh
+    from distkeras_torch.parallel.ranks import rank_threads
 
     cfg = json.load(open(cfg_path))
     device = cfg["device"]
     if device.startswith("cuda"):
         torch.cuda.set_device(rank if cfg["backend"] == "nccl" else 0)
         device = f"cuda:{torch.cuda.current_device()}"
-    torch.set_num_threads(max(1, (os.cpu_count() or 2) // cfg["tp"]))
+    torch.set_num_threads(rank_threads(cfg["tp"]))
     dist.init_process_group(cfg["backend"],
                             init_method=f"tcp://127.0.0.1:{cfg['port']}",
                             rank=rank, world_size=cfg["tp"],

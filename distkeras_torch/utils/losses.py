@@ -20,13 +20,17 @@ place.
 
 :func:`get_optimizer` returns a factory, the counterpart of an optax
 ``GradientTransformation``: calling it with parameters builds the
-optimizer, as ``optimizer.init(params)`` builds optax's state.
+optimizer, as ``optimizer.init(params)`` builds optax's state. ``adam`` / ``adamw``
+also take a schedule for ``learning_rate`` (a callable of the step
+count, :func:`warmup_cosine_decay_schedule`), as ``optax.adam`` does.
 """
 
 from __future__ import annotations
 
 import functools
 from typing import Callable, Optional
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -152,9 +156,10 @@ class Adam(torch.optim.Optimizer):
     corrections ``1 - b^count`` in f32, ``u = mu_hat / (sqrt(nu_hat +
     eps_root) + eps)`` — then ``u + wd * p`` and ``p += -lr * u``.
     ``mu_dtype`` stores the first moment in that dtype (rounded after
-    this step's ``mu_hat`` is formed from the f32 moment)."""
+    this step's ``mu_hat`` is formed from the f32 moment). ``lr`` may be
+    a schedule, a callable of optax's count (0 at the first step)."""
 
-    def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
+    def __init__(self, params, lr, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, eps_root: float = 0.0,
                  mu_dtype=None, weight_decay: Optional[float] = None):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
@@ -191,7 +196,12 @@ class Adam(torch.optim.Optimizer):
                                   + group["eps"])
                 if wd is not None:
                     u = u + wd * p
-                p.add_(u * -group["lr"])
+                lr = group["lr"]
+                if callable(lr):
+                    # optax's scale_by_schedule: its own count, 0 at the
+                    # first step (the moments' count is already 1 there)
+                    lr = float(lr(st["count"] - 1))
+                p.add_(u * -lr)
                 st["mu"] = mu.to(st["mu"].dtype)
                 st["nu"] = nu
         return loss
@@ -302,6 +312,49 @@ class Adadelta(torch.optim.Optimizer):
         return loss
 
 
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0,
+                                 exponent: float = 1.0) -> Callable:
+    """``optax.warmup_cosine_decay_schedule``: a linear warm-up from
+    ``init_value`` to ``peak_value`` over ``warmup_steps``, then a cosine
+    decay to ``end_value`` at ``decay_steps`` (the warm-up included),
+    constant after. Returns ``f(count) -> float``: optax's operations, in
+    its order, in float32. Its values agree with optax's to a few float32
+    units in the last place, not bit for bit: numpy's cosine rounds
+    differently from XLA's, and inside a jitted step XLA turns a division
+    by a constant into a product with its reciprocal."""
+    f32 = np.float32
+
+    if decay_steps - warmup_steps <= 0:
+        raise ValueError(
+            f"The cosine_decay_schedule requires positive decay_steps, got "
+            f"decay_steps={decay_steps - warmup_steps}.")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    span = f32(decay_steps - warmup_steps)
+
+    def linear(count):
+        if warmup_steps <= 0:
+            return f32(init_value)
+        c = f32(min(max(count, 0), warmup_steps))
+        frac = f32(1) - c / f32(warmup_steps)
+        return f32(init_value - peak_value) * frac + f32(peak_value)
+
+    def cosine(count):
+        c = np.minimum(f32(count), span)
+        decay = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / span))
+        if exponent != 1.0:
+            decay = decay ** f32(exponent)
+        return f32(peak_value) * (f32(1 - alpha) * decay + f32(alpha))
+
+    def schedule(count):
+        count = int(count)
+        return float(linear(count) if count < warmup_steps
+                     else cosine(count - warmup_steps))
+
+    return schedule
+
+
 _OPTIMIZERS = {"sgd": SGD, "momentum": SGD, "nesterov": SGD, "adam": Adam,
                "adamw": Adam, "adagrad": Adagrad, "rmsprop": RMSprop,
                "adadelta": Adadelta}
@@ -317,7 +370,8 @@ def get_optimizer(name, learning_rate: float = 0.01, **kwargs):
     ``adamw`` takes ``weight_decay=`` (default 1e-4, optax's); the others
     take optax's keywords (``adagrad``: ``initial_accumulator_value``,
     ``eps``; ``rmsprop``: ``decay``, ``eps``, ``initial_scale``;
-    ``adadelta``: ``rho``, ``eps``).
+    ``adadelta``: ``rho``, ``eps``). ``adam`` and ``adamw`` take a
+    schedule as ``learning_rate`` (``optax.adam(schedule)``).
     """
     if isinstance(name, torch.optim.Optimizer) or callable(name):
         return name

@@ -1233,3 +1233,134 @@ def test_phase17_fails_on_an_injected_fault(monkeypatch):
                        match="bench_shared_prefix.*paged_attention never "
                              "launched"):
         chip_smoke.serve_bench_phase(torch, pa, sp, serve_bench)
+
+
+# -- phase 18: the examples ---------------------------------------------------
+
+
+def _standin_training_kernels(monkeypatch):
+    """The causal training kernels stood in on the CPU: the model's gate
+    passes for any device at any T (the dense cut-off lowered), and each
+    kernel runs its plain version and counts a launch, the autograd
+    backward going through the dq and dk/dv wrappers as on a card."""
+    import torch
+
+    from distkeras_torch.models.transformer import TransformerLM
+    from distkeras_torch.ops import pallas_attention as fa
+
+    def counting(name, plain):
+        def f(*args):
+            getattr(fa, name).launches += 1
+            return plain(*args[:6])
+        return f
+
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq = fa.causal_attention_dq(q, k, v, out, lse, do, ctx.block)
+        dk, dv = fa.causal_attention_dkv(q, k, v, out, lse, do, ctx.block)
+        return dq, dk, dv, None
+
+    monkeypatch.setattr(TransformerLM, "_DENSE_MAX_T", 0)
+    monkeypatch.setattr(fa, "preferred", lambda T, hd, dtype=None,
+                        device=None, block=None: fa.supports(T, hd, dtype))
+    monkeypatch.setattr(fa, "_on_card", lambda *a: True)
+    monkeypatch.setattr(fa, "_fwd_kernel", counting(
+        "causal_attention_fwd", lambda q, k, v: tuple(
+            t.to(q.dtype) if i == 0 else t for i, t in enumerate(
+                fa.causal_attention_reference(q, k, v)))))
+    monkeypatch.setattr(fa, "_dq_kernel", counting(
+        "causal_attention_dq", lambda *a: fa.causal_attention_dq_reference(
+            *a).to(a[0].dtype)))
+    monkeypatch.setattr(fa, "_dkv_kernel", counting(
+        "causal_attention_dkv", lambda *a: tuple(
+            t.to(a[1].dtype) for t in fa.causal_attention_dkv_reference(
+                *a))))
+    monkeypatch.setattr(fa._PallasCausalAttention, "backward",
+                        staticmethod(backward))
+    return fa
+
+
+def _narrow_p18(monkeypatch):
+    """Phase 18 at narrow widths: 18a and 18b at d128 (2 heads of 64, 1
+    KV head), 2 layers, vocab 64, T=64, 4 rows a step; the dist-keras
+    examples at ``tests/test_examples.py``'s sizes; the serving modes at
+    the reference's own sizes (they are narrow)."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "LM18", [
+        "--d-model", "128", "--heads", "2", "--kv-heads", "1", "--layers",
+        "2", "--vocab", "64", "--seq-len", "64", "--rope", "--batch-size",
+        "4", "--lr", "3e-3"])
+    monkeypatch.setattr(chip_smoke, "LM18_SAMPLE", 8)
+    monkeypatch.setattr(chip_smoke, "EXAMPLES18", {
+        "mnist_workflow": ["--trainers", "single,adag,dataparallel",
+                           "--workers", "2", "--epochs", "1", "--n", "1024",
+                           "--batch-size", "64", "--model", "mlp"],
+        "cifar10_training": ["--epochs", "1", "--n", "256", "--batch-size",
+                             "32", "--workers", "2", "--small"],
+        "streaming_inference": ["--n", "256", "--batch-size", "64"],
+        "bigdata_pipeline": ["--n", "1024", "--rows-per-shard", "256",
+                             "--batch-size", "32", "--epochs", "2"]})
+
+
+def test_phase18_at_narrow_width(monkeypatch, capsys):
+    """Phase 18 on the CPU with the causal kernels stood in (their gates
+    open at the narrow width): 18a's loss falls and each kernel launches
+    once a layer a step; 18b's two gloo ranks end bit-identical; 18c's
+    bars hold; every 18d mode's streams equal ``generate()``, each on
+    the plain route."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from distkeras_torch.ops import pallas_pair as pp
+
+    _narrow_p18(monkeypatch)
+    pa, sp = _standin_kernels(monkeypatch)
+    fa = _standin_training_kernels(monkeypatch)
+    here = os.path.dirname(os.path.abspath(chip_smoke.__file__))
+    res = chip_smoke.examples_phase(torch, np, fa, pp, pa, sp, here)
+    keys = [next(iter(json.loads(ln))) for ln in
+            capsys.readouterr().out.splitlines() if ln.startswith('{"ex')]
+    assert keys == ["examples_lm", "examples_lm_sp2", "examples_dist_keras",
+                    "examples_lm_serving", "examples_phase"]
+    a = res["18a"]
+    assert a["launches"]["causal_attention_fwd"] == 2 * 8
+    assert a["losses"][-1] < a["losses"][0]
+    assert a["sample"]["route"] == "plain" or a["sample"]["launches"]
+    b = res["18b"]
+    assert b["processes"] == 2 and b["backend"] == "gloo"
+    assert b["params_bit_identical"] and len(b["losses"]) == 2
+    c = res["18c"]
+    assert c["bigdata_pipeline"]["accuracy"] == c["bigdata_pipeline"][
+        "accuracy_in_memory"]
+    assert set(c["mnist_workflow"]["trainers"]) == {"single", "adag",
+                                                    "dataparallel"}
+    d = res["18d"]
+    assert list(d) == list(chip_smoke.SERVING18)
+    for name, r in d.items():
+        assert r["route"] == "plain" and r["tok_s"] > 0, name
+
+
+def test_phase18_fails_when_an_engine_drops_a_token(monkeypatch):
+    """An engine whose streams each lose a token fails 18d on the
+    example's own check of every stream against ``generate()``."""
+    import torch
+
+    from distkeras_torch import examples as ex
+    from distkeras_torch.examples import lm_serving  # noqa: F401
+    from distkeras_torch.serving import scheduler
+
+    _narrow_p18(monkeypatch)
+    pa, sp = _standin_kernels(monkeypatch)
+    real = scheduler.TokenStream._put
+
+    def dropping(self, tok):
+        self.n_put = getattr(self, "n_put", 0) + 1
+        if self.n_put != 3:
+            real(self, tok)
+
+    monkeypatch.setattr(scheduler.TokenStream, "_put", dropping)
+    monkeypatch.setattr(chip_smoke, "SERVING18", {"paged": ["--paged"]})
+    with pytest.raises(AssertionError):
+        chip_smoke.examples_serving_phase(torch, pa, sp, ex)

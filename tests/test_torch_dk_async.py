@@ -51,6 +51,7 @@ from distkeras_torch.data.dataset import PartitionedDataset  # noqa: E402
 from distkeras_torch.models import get_model  # noqa: E402
 from distkeras_torch.ops import rules  # noqa: E402
 from distkeras_torch.utils.metrics import MetricsWriter  # noqa: E402
+from torch_spawn_util import one_thread  # noqa: E402,F401
 
 DIM, CLASSES = 16, 4
 MLP_KW = dict(features=(24,), num_classes=CLASSES)

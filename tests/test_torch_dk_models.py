@@ -32,6 +32,7 @@ from distkeras_tpu.models import get_model as jax_get_model  # noqa: E402
 from distkeras_torch import bridge  # noqa: E402
 from distkeras_torch.models import get_model, model_spec  # noqa: E402
 from distkeras_torch.models.wrapper import Model  # noqa: E402
+from torch_spawn_util import one_thread  # noqa: E402,F401
 
 CASES = {
     "mlp": (dict(features=(32, 16)), dict(in_features=784), (4, 28, 28, 1)),

@@ -44,6 +44,7 @@ from distkeras_torch import transformers as ttf  # noqa: E402
 from distkeras_torch.data.dataset import PartitionedDataset as TDS  # noqa: E402
 from distkeras_torch.models import get_model  # noqa: E402
 from distkeras_torch.models.wrapper import Model  # noqa: E402
+from torch_spawn_util import one_thread  # noqa: E402,F401
 
 
 def _both(cols, parts):

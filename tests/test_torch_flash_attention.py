@@ -31,6 +31,7 @@ from distkeras_torch.ops import pallas_attention as fa  # noqa: E402
 from distkeras_torch.ops.flash_attention import (  # noqa: E402
     blocked_causal_attention,
 )
+from torch_spawn_util import one_thread  # noqa: E402,F401
 
 SHAPE = (2, 256, 2, 128)  # B, T, H, hd — tests/test_pallas_attention.py
 

@@ -106,6 +106,7 @@ def test_router_one_trace_across_fleet(fleet):
     assert st["critical_path_ms"]["router"]["p50"] is not None
 
 
+@pytest.mark.slow  # as its twin, tests/test_tracing.py
 def test_failover_replay_keeps_trace_id(fleet):
     """Kill the replica serving streams mid-flight: the replayed stream
     completes under the ORIGINAL trace id, and the merged chain gains

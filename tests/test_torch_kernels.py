@@ -30,6 +30,7 @@ from distkeras_torch.ops import paged_attention as pa  # noqa: E402
 from distkeras_torch.ops import pallas_attention as fa  # noqa: E402
 from distkeras_torch.ops import pallas_pair as pp  # noqa: E402
 from distkeras_torch.ops import splash_prefill as sp  # noqa: E402
+from torch_spawn_util import one_thread  # noqa: E402,F401
 
 
 def _card():

@@ -18,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from distkeras_tpu.ops import paged_attention as jax_pa  # noqa: E402
 from distkeras_torch.ops import paged_attention as pa  # noqa: E402
+from torch_spawn_util import one_thread  # noqa: E402,F401
 
 
 def _pool(rng, nb, bs, Hk, hd, quant):

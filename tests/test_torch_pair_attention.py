@@ -23,6 +23,7 @@ from distkeras_tpu.ops.pallas_pair import (  # noqa: E402
     pallas_pair_attention as jax_pair,
 )
 from distkeras_torch.ops import pallas_pair as pp  # noqa: E402
+from torch_spawn_util import one_thread  # noqa: E402,F401
 
 
 def _inputs(seed, B, Tq, Tk, H, hd, scale=0.2):

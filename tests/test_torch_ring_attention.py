@@ -6,11 +6,11 @@
   1-device mesh and against dense causal attention, values and
   gradients, with the pair op forced on (``DK_RING_PALLAS=1``: its plain
   version) and off (the blocked loop).
-- Four gloo ranks (``torch.multiprocessing`` spawn, one spawn per test
-  running several cases, rendezvous through a file in ``tmp_path`` so
-  parallel test workers never share a port): the port's zigzag and
-  naive rings equal JAX's ring on the 4-device CPU mesh, values and
-  gradients; ``TransformerLM`` with ``'ring'`` equals the standard model
+- Four gloo ranks (``torch.multiprocessing`` spawn, one spawn for the
+  module running every case in turn, rendezvous through a file in
+  ``tmp_path`` so parallel test workers never share a port): the port's
+  zigzag and naive rings equal JAX's ring on the 4-device CPU mesh,
+  values and gradients; ``TransformerLM`` with ``'ring'`` equals the standard model
   (logits and parameter gradients, global positions on every shard);
   three ``make_lm_train_step`` steps and an ``LMTrainer`` epoch on a
   dp=2 x sp=2 mesh give the losses and parameters of the unsharded
@@ -200,13 +200,16 @@ def _entry(rank, name, init, args):
 
 
 def _spawn(tmp_path, worker, *args):
-    """Run ``worker(rank, *args)`` on WORLD gloo ranks; returns each
-    rank's saved arrays."""
+    """Run ``worker(rank, out, *args)`` on WORLD gloo ranks."""
     out = str(tmp_path)
     torch.multiprocessing.spawn(
         _entry, args=(worker.__name__, f"file://{out}/rendezvous",
                       (out,) + args),
         nprocs=WORLD)
+
+
+def _saved(out):
+    """Each rank's saved arrays under ``out``."""
     return [dict(np.load(os.path.join(out, f"rank{r}.npz")))
             for r in range(WORLD)]
 
@@ -231,10 +234,9 @@ def _ring_worker(rank, out, q, k, v, r):
     np.savez(os.path.join(out, f"rank{rank}.npz"), **saved)
 
 
-def test_four_rank_ring_matches_jax_ring(tmp_path, monkeypatch):
-    monkeypatch.delenv("DK_RING_PALLAS", raising=False)
+def test_four_rank_ring_matches_jax_ring(four_ranks):
     q, k, v, r = _qkv(2)
-    ranks = _spawn(tmp_path, _ring_worker, q, k, v, r)
+    ranks = four_ranks["ring"]
     for name, impl, causal, _ in RING_CASES:
         want_out, want_grads = _jax_ring(q, k, v, r, WORLD, causal=causal,
                                          impl=impl)
@@ -279,11 +281,16 @@ def _model_worker(rank, out, toks, r):
     np.savez(os.path.join(out, f"rank{rank}.npz"), **saved)
 
 
-def test_four_rank_transformer_ring_equals_standard(tmp_path):
+def _model_data():
     rng = np.random.default_rng(3)
     toks = rng.integers(0, TINY["vocab_size"], size=(2, 64))
     r = rng.normal(size=(2, 64, TINY["vocab_size"])).astype(np.float32)
-    ranks = _spawn(tmp_path, _model_worker, toks, r)
+    return toks, r
+
+
+def test_four_rank_transformer_ring_equals_standard(four_ranks):
+    toks, r = _model_data()
+    ranks = four_ranks["model"]
     for name, kw in MODEL_CASES:
         std = get_model("transformer_lm", seed=7, **kw, **TINY)
         logits, grads = _model_grads(std, toks, r)
@@ -338,10 +345,32 @@ def _train_data():
     return batches, rows
 
 
+def _all_worker(rank, out, ring, model, train):
+    """Every four-rank case in turn, each saving under its own
+    directory; the ring cases' pair-op flag is dropped after them."""
+    _ring_worker(rank, os.path.join(out, "ring"), *ring)
+    os.environ.pop("DK_RING_PALLAS", None)
+    _model_worker(rank, os.path.join(out, "model"), *model)
+    _train_worker(rank, os.path.join(out, "train"), *train)
+
+
 @pytest.fixture(scope="module")
-def train_ranks(tmp_path_factory):
-    return _spawn(tmp_path_factory.mktemp("train"), _train_worker,
-                  *_train_data())
+def four_ranks(tmp_path_factory):
+    """One spawn of the four ranks for the module (the pair-op flag unset
+    in the parent, so the ranks start from the default)."""
+    out = tmp_path_factory.mktemp("four_ranks")
+    for name in ("ring", "model", "train"):
+        (out / name).mkdir()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("DK_RING_PALLAS", raising=False)
+        _spawn(out, _all_worker, _qkv(2), _model_data(), _train_data())
+    return {name: _saved(str(out / name))
+            for name in ("ring", "model", "train")}
+
+
+@pytest.fixture(scope="module")
+def train_ranks(four_ranks):
+    return four_ranks["train"]
 
 
 def test_dp2_sp2_step_and_trainer_match_unsharded(train_ranks):

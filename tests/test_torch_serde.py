@@ -32,6 +32,7 @@ from distkeras_torch.models import get_model  # noqa: E402
 from distkeras_torch.models.wrapper import Model  # noqa: E402
 from distkeras_torch.ops import rules  # noqa: E402
 from distkeras_torch.utils import serde  # noqa: E402
+from torch_spawn_util import one_thread  # noqa: E402,F401
 
 CASES = {
     "mlp": (dict(features=(8,), num_classes=4), dict(in_features=12),

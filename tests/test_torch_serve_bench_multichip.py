@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_spawn_util import one_thread  # noqa: E402,F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # a rank's launcher: rank 1's scheduler drops the third admission its

@@ -30,6 +30,7 @@ from distkeras_torch.models.transformer import generate  # noqa: E402
 from distkeras_torch.parallel.mesh import local_mesh  # noqa: E402
 from distkeras_torch.serving import ServingEngine  # noqa: E402
 from torch_lockorder_util import lock_order  # noqa: E402,F401
+from torch_spawn_util import one_thread  # noqa: E402,F401
 
 KW = dict(vocab_size=97, d_model=64, num_heads=4, num_layers=2, max_len=64,
           num_kv_heads=2, pos_emb="rope")

@@ -24,6 +24,7 @@ from distkeras_tpu.data import shard_io as jsio  # noqa: E402
 from distkeras_tpu.data.dataset import PartitionedDataset as JDS  # noqa: E402
 from distkeras_torch.data import shard_io as tsio  # noqa: E402
 from distkeras_torch.data.dataset import PartitionedDataset as TDS  # noqa: E402
+from torch_spawn_util import one_thread  # noqa: E402,F401
 
 
 def _cols(n=53, seed=0):

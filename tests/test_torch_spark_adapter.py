@@ -10,6 +10,7 @@ import pytest
 from distkeras_tpu.data import spark_adapter as jsa
 from distkeras_torch import data as tdata
 from distkeras_torch.data import spark_adapter as tsa
+from torch_spawn_util import one_thread  # noqa: E402,F401
 
 
 class FakeVector:

@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from distkeras_tpu.ops import splash_prefill as jax_sp  # noqa: E402
 from distkeras_torch.ops import splash_prefill as sp  # noqa: E402
+from torch_spawn_util import one_thread  # noqa: E402,F401
 
 
 def _both(q, k, v, starts):

@@ -29,6 +29,7 @@ from distkeras_torch.serving import (  # noqa: E402
     ServingClient,
     ServingEngine,
 )
+from torch_spawn_util import one_thread  # noqa: E402,F401
 
 KW = dict(vocab_size=64, d_model=32, num_heads=2, num_layers=2, max_len=48)
 

@@ -10,6 +10,7 @@ import pytest
 
 from distkeras_tpu.data import text as jt
 from distkeras_torch.data import text as tt
+from torch_spawn_util import one_thread  # noqa: E402,F401
 
 
 def _tree(tmp_path):

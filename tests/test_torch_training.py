@@ -48,6 +48,7 @@ from distkeras_torch.ops import fused_ce as tce  # noqa: E402
 from distkeras_torch.parallel.spmd import make_lm_train_step  # noqa: E402
 from distkeras_torch.trainers import LMTrainer  # noqa: E402
 from distkeras_torch.utils.losses import get_optimizer  # noqa: E402
+from torch_spawn_util import one_thread  # noqa: E402,F401
 
 TINY = dict(vocab_size=61, d_model=32, num_heads=2, num_layers=2,
             max_len=16)

@@ -29,6 +29,7 @@ from distkeras_tpu.models.transformer import generate as jax_generate  # noqa: E
 from distkeras_torch import bridge  # noqa: E402
 from distkeras_torch.models import get_model  # noqa: E402
 from distkeras_torch.models import transformer as tt  # noqa: E402
+from torch_spawn_util import one_thread  # noqa: E402,F401
 
 BASE = dict(vocab_size=97, d_model=64, num_heads=4, num_layers=2,
             max_len=64)

@@ -18,15 +18,7 @@ from distkeras_torch import bridge, telemetry
 from distkeras_torch.models import get_model
 from distkeras_torch.serving import ServingEngine
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Tiny tensors gain nothing from intra-op threads, and the suite
-    runs several test processes at once: run each importing module on
-    one torch thread, then restore the setting."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_spawn_util import one_thread  # noqa: E402,F401
 
 
 V = 97

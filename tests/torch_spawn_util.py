@@ -1,13 +1,31 @@
 """Spawning gloo ranks for the port's multi-process tests
 (``tests/test_torch_tp*.py``): one spawn per test module, under a
-timeout of its own. Imports no JAX: the ranks import the test module
-that calls it."""
+timeout of its own; and the one-thread fixture the port's test modules
+share. Imports no JAX: the ranks import the test module that calls it."""
 
 import os
 import signal
 import time
 
+import pytest
 import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny tensors gain nothing from intra-op threads, and the suite
+    runs several test processes at once: run each importing module on
+    one torch thread, and every process it starts too (their rank
+    threads follow ``OMP_NUM_THREADS``); then restore both."""
+    n, env = torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
 
 
 def _errors(out, default):
