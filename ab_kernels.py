@@ -9,7 +9,9 @@ directory by default). The script imports ``distkeras_torch.ops.
 paged_attention``, ``splash_prefill``, ``pallas_attention`` and
 ``pallas_pair`` from ``DIR``, whose ``kernels/build.py`` builds ``DIR``'s
 kernels under ``DIR``, and runs them through ``paged_cases`` and
-``splash_cases`` (phase 2), ``causal_cases`` (phase 5) and ``pair_cases``
+``splash_cases`` (phase 2, every pool and dtype),
+``serve_bench_kernel_cases`` and ``exact_kernel_cases`` (the f32 shapes
+of phases 17 and 4), ``causal_cases`` (phase 5) and ``pair_cases``
 (phase 5b) of the ``chip_smoke.py`` beside this script: the same seeded
 inputs, the same error checks, the same ``time_ms`` (CUDA events, 64 MB
 flushed and a ~1 ms spin kernel before each start event; ``--no-spin``
@@ -75,6 +77,8 @@ def main(argv=None) -> int:
     print(nvidia_smi(), flush=True)
     paged = smoke.paged_cases(torch, F, pa)
     splash = smoke.splash_cases(torch, F, sp)
+    paged17, splash17 = smoke.serve_bench_kernel_cases(torch, F, pa, sp)
+    paged4 = smoke.exact_kernel_cases(torch, F, pa)
     causal = smoke.causal_cases(torch, F, fa)
     pair = smoke.pair_cases(torch, F, pp)
     print(json.dumps({
@@ -82,6 +86,9 @@ def main(argv=None) -> int:
         "files": [os.path.relpath(m.__file__, tree)
                   for m in (pa, sp, fa, pp)],
         "paged_attention": paged, "splash_prefill": splash,
+        "paged_attention_serve_bench": paged17,
+        "splash_prefill_serve_bench": splash17,
+        "paged_attention_exact_decode": paged4,
         "causal_attention": causal, "pair_attention": pair}), flush=True)
     return 0
 

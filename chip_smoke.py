@@ -46,12 +46,15 @@ Phases (any failure exits non-zero):
    times come from CUDA events with the 50 MB L2 flushed before each
    launch and a spin kernel covering the host's enqueue; the bound is
    the larger of the bytes these inputs need over 3.35 TB/s and their
-   FLOPs over the dtype's peak. The bf16 kernels' edges, untimed: T=5
+   FLOPs over the dtype's peak. Every case is timed, the f32 and
+   int8-f32 ones (the FFMA kernels) as the bf16 ones. The bf16 kernels'
+   edges, untimed: T=5
    and T=17, G=1 and G=8, hd 64 and 128, rows ending and starting on a
    split boundary, trash-page tails. Then both kernels in f32, timed, at
-   phase 17's shapes (``PAGED17``, ``SPLASH17``: 4 heads of 64, paged
-   T in {1, 16, 5, 64} over 18 pages a row, splash T=16 over L=64 and
-   T=64 over L=1056).
+   phase 4's decode (``PAGED_EXACT``: 4 heads of 64 over 2 KV heads,
+   int8 pages) and at phase 17's shapes (``PAGED17``, ``SPLASH17``: 4
+   heads of 64, paged T in {1, 16, 5, 64} over 18 pages a row, splash
+   T=16 over L=64 and T=64 over L=1056).
 3. **Serving at full width.** The flagship TransformerLM (d_model 2048,
    8 heads of 256, 8 layers, vocab 8192, bf16, rope, 2 KV heads, int8
    KV cache, max_len 2048) with seeded random weights serves 16
@@ -62,9 +65,10 @@ Phases (any failure exits non-zero):
    paged kernel in every layer of every paged tick and the splash kernel
    in every layer of every slot tick that carried a prompt chunk, and
    the routes the wrappers record must all be the bf16 tensor-core
-   kernels. The share of greedy tokens equal to a gather-forced twin
-   engine is printed (informational at bf16), with each differing
-   stream's first flip and the top-2 logit gap there. Each counted
+   kernels (``BF16_ROUTE``, never an f32 one). The share of greedy
+   tokens equal to a gather-forced twin engine is printed
+   (informational at bf16), with each differing stream's first flip and
+   the top-2 logit gap there. Each counted
    engine is marked steady before its mix (``mark_steady()``, after the
    warm-up engines ran): the mix must build, load and first-launch no
    kernel configuration (``recompiles_since_mark()`` empty), and the
@@ -401,7 +405,8 @@ Phases (any failure exits non-zero):
    d512 with heads of 64, 16-token pages), the launch counts zeroed
    before each. A mode fails unless the kernel its layout uses launched
    (paged attention on the paged engines, splash on the slot engines'
-   chunk and verify ticks), every route is the f32 kernel's and every
+   chunk and verify ticks), every route is the f32 FFMA kernel's
+   (``F32_ROUTE``) and every
    ``exact`` check of its result held (stream parity, token counts,
    hits, restores, stall counters, acceptance, dispatch counts, every
    ``*steady_recompiles`` empty); its ``timing`` checks, headline
@@ -487,6 +492,9 @@ SPLASH_MORE = ((5, 256, 8, "depth"), (1024, 256, 8, "zero"),
 # splash at the 16-token chunk over the 64-token slot cache and at the
 # interference bench's 64-token chunk over its 1056-token cache
 PAGED17 = dict(S=8, H=4, Hk=4, hd=64, bs=16, MB=18, T=(1, 16, 5, 64))
+# phase 4's decode (EXACT: 8 slots, 4 heads of 64 over 2 KV heads, int8
+# pages, max_len 256), timed in f32
+PAGED_EXACT = dict(S=8, H=4, Hk=2, hd=64, bs=16, MB=16, T=(1,))
 SPLASH17 = (dict(S=8, T=16, H=4, Hk=4, hd=64, L=64),
             dict(S=4, T=64, H=4, Hk=4, hd=64, L=1056))
 # the flagship at full width (bench.py:130, benchmarks/decode_bench.py:31)
@@ -833,7 +841,7 @@ def _depths(S, hi):
 
 def paged_cases(torch, F, pa, over=None,
                 kinds=("bf16", "int8", "f32", "int8-f32"),
-                timed=("bf16", "int8")):
+                timed=("bf16", "int8", "f32", "int8-f32")):
     """The paged kernel at phase 2's shapes, with ``over`` replacing some
     of them (``PAGED_TP``: one tp=2 rank's heads; ``PAGED17``: phase 17's
     f32 shapes), for each pool of ``kinds``, those of ``timed`` timed."""
@@ -994,7 +1002,7 @@ def _edge_check(kernel, kind, T, H, Hk, hd, out, ref):
 
 
 def splash_cases(torch, F, sp, over=None, more=None, v_std=1.0,
-                 kinds=("bf16", "f32"), timed=("bf16",)):
+                 kinds=("bf16", "f32"), timed=("bf16", "f32")):
     """The splash kernel at phase 2's shapes (``over`` replacing some of
     the main one's, ``more`` the other shapes, ``SPLASH_MORE`` by
     default; values drawn at ``v_std``) in each dtype of ``kinds``, those
@@ -2202,8 +2210,8 @@ def serving_phase(torch, np, dk, pa, sp):
     routes["splash_prefill"] = dict(sp.splash_prefill_attention.routes)
     for name, seen in routes.items():
         # the bf16 model's calls run the tensor-core kernels, never the
-        # scalar f32 kernel
-        if not seen or any("split_kernel" not in r for r in seen):
+        # f32 FFMA kernels
+        if not seen or any(not BF16_ROUTE.fullmatch(r) for r in seen):
             raise AssertionError(f"{name}: launch routes {seen} are not "
                                  f"all the bf16 split kernels")
     launches = {"paged_attention": paged_sum["launches"]["paged_attention"],
@@ -2502,7 +2510,7 @@ def mode_check(eng, summary, pa, sp, L, paged, expect_splash=None,
                                  f"{launches['splash_prefill']} < "
                                  f"{expect_splash}")
     for name, seen in routes.items():
-        if any("split_kernel" not in r for r in seen):
+        if any(not BF16_ROUTE.fullmatch(r) for r in seen):
             raise AssertionError(f"{name}: launch routes {seen} are not "
                                  f"all the bf16 split kernels")
     summary["launches"], summary["routes"] = launches, routes
@@ -2766,7 +2774,14 @@ SERVE_BENCH_KERNELS = {
     "bench_speculative": ("splash_prefill",),
     "bench_pipeline": ("paged_attention", "splash_prefill"),
     "bench_multistep": ("paged_attention", "splash_prefill")}
-F32_ROUTE = "attn_kernel f32"
+# the routes the wrappers record (``launch_route``): the bf16 tensor-core
+# split kernels and the f32 FFMA split kernels, each with its merge when
+# the plan has more than one split
+BF16_ROUTE = re.compile(
+    r"(paged|splash)_split_kernel bm=\d+ splits=(1|\d+ \+ \1_merge_kernel)")
+F32_ROUTE = re.compile(
+    r"(paged|splash)_f32_split_kernel bm=\d+ splits="
+    r"(1|\d+ \+ \1_f32_merge_kernel)")
 
 
 def _headline(result):
@@ -2809,9 +2824,9 @@ def serve_bench_phase(torch, pa, sp, sb):
             if launches[kern] == 0:
                 problems.append(f"{kern} never launched")
         for kern, seen in routes.items():
-            if any(r != F32_ROUTE for r in seen):
-                problems.append(f"{kern} routes {seen} are not all "
-                                f"{F32_ROUTE!r}")
+            if any(not F32_ROUTE.fullmatch(r) for r in seen):
+                problems.append(f"{kern} routes {seen} are not all the f32 "
+                                f"split kernels")
         line.update(launches=launches, routes=routes)
         if res is not None:
             missed = [n for n, ok in res["checks"]["exact"].items() if not ok]
@@ -2846,6 +2861,14 @@ def serve_bench_kernel_cases(torch, F, pa, sp):
     splash = [c for over in SPLASH17
               for c in splash_cases(torch, F, sp, over, (), **f32)]
     return paged, splash
+
+
+def exact_kernel_cases(torch, F, pa):
+    """Phase 2's paged case at phase 4's decode (``PAGED_EXACT``), int8
+    pages and f32 queries, timed beside its plain version, SDPA and its
+    bound."""
+    return paged_cases(torch, F, pa, PAGED_EXACT, kinds=("int8-f32",),
+                       timed=("int8-f32",))
 
 
 # -- phase 11: I/O and deployment ---------------------------------------------
@@ -4562,7 +4585,7 @@ def server_flagship(torch, np, dk, pa, sp, phase3, direct):
         if used[key] < need or used[key] == 0:
             raise AssertionError(f"server phase ({layout}): {used[key]} "
                                  f"{key} launches < {need}")
-        if not routes[key] or any("split_kernel" not in r
+        if not routes[key] or any(not BF16_ROUTE.fullmatch(r)
                                   for r in routes[key]):
             raise AssertionError(f"server phase ({layout}): routes "
                                  f"{routes[key]} are not all the bf16 "
@@ -4962,7 +4985,7 @@ def fleet_flagship(torch, np, dk, pa, sp, phase3, direct, server14=None):
                                         if k):
             raise AssertionError(f"fleet phase ({name}): {used} paged "
                                  f"launches < ticks {ticks} x {L}")
-        if not routes or any("split_kernel" not in r for r in routes):
+        if not routes or any(not BF16_ROUTE.fullmatch(r) for r in routes):
             raise AssertionError(f"fleet phase ({name}): routes {routes} "
                                  f"are not all the bf16 split kernels")
         ttft, itl = client_latency(np, out)
@@ -5598,7 +5621,8 @@ def tp_server_check(np, ranks, cfg, a, b, wall):
             want = got[count] * L if got["kernel_selected"] else 0
             n = got["launches"][key]
             if (n < want or (want == 0) != (n == 0)
-                    or any("split_kernel" not in k for k in got["routes"])):
+                    or any(not BF16_ROUTE.fullmatch(k)
+                           for k in got["routes"])):
                 raise AssertionError(
                     f"16a ({layout}): rank {r} launched {key} {n} times "
                     f"({got['routes']}); its {got[count]} {count} x {L} "
@@ -6197,8 +6221,10 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
     if phase17_only:
         t0 = time.perf_counter()
         paged17, splash17 = serve_bench_kernel_cases(torch, F, pa, sp)
+        paged4 = exact_kernel_cases(torch, F, pa)
         _emit({"kernel_phase": {"paged_attention_serve_bench": paged17,
                                 "splash_prefill_serve_bench": splash17,
+                                "paged_attention_exact_decode": paged4,
                                 "seconds": time.perf_counter() - t0}})
         t0 = time.perf_counter()
         p17 = serve_bench_phase(torch, pa, sp, serve_bench)
@@ -6282,12 +6308,15 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
     splash_tp = splash_cases(torch, F, sp, SPLASH_TP, (), v_std=0.5)
     # phase 17's f32 shapes (serve_bench's engine modes)
     paged17, splash17 = serve_bench_kernel_cases(torch, F, pa, sp)
+    # phase 4's decode (the exact f32 model's int8 pages)
+    paged4 = exact_kernel_cases(torch, F, pa)
     _emit({"kernel_phase": {"paged_attention": paged,
                             "splash_prefill": splash, "edges": edges,
                             "paged_attention_tp2_shard": paged_tp,
                             "splash_prefill_tp2_shard": splash_tp,
                             "paged_attention_serve_bench": paged17,
                             "splash_prefill_serve_bench": splash17,
+                            "paged_attention_exact_decode": paged4,
                             "seconds": time.perf_counter() - t0}})
 
     t0 = time.perf_counter()
@@ -6438,7 +6467,7 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
     for name, src, rep, case, cases, layout in (
             ("paged_attention", "distkeras_torch/csrc/paged_attention.cu",
              "distkeras_tpu/ops/paged_attention.py:166", main_paged,
-             paged + paged_tp + paged17
+             paged + paged_tp + paged17 + paged4
              + [c for c in edges if c["kernel"] == "paged"], "paged"),
             ("splash_prefill", "distkeras_torch/csrc/splash_prefill.cu",
              "distkeras_tpu/ops/splash_prefill.py:163", main_splash,
@@ -6463,8 +6492,10 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
             "library_ms": case["library_ms"],
             # every timed shape of the main path (the row's own numbers
-            # are the first one's): decode, chunk, verify, monolithic,
-            # one tp=2 rank's heads (H=4, Hk=1) and phase 17's f32 shapes
+            # are the first one's): decode, chunk, verify, monolithic in
+            # each pool and dtype (bf16, int8, f32, int8-f32), one tp=2
+            # rank's heads (H=4, Hk=1), phase 17's f32 shapes and phase
+            # 4's f32 decode (H=4, Hk=2, int8-f32)
             "shapes": [{k: c[k] for k in timed if k in c}
                        for c in cases if "ms" in c],
             # phase 12's flagship run, each rank's launches

@@ -51,6 +51,7 @@ script only measures them. It needs the card and raises without one.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -299,6 +300,9 @@ def lm_bench(calls: int = 3, attention: str = "standard") -> dict:
     return out
 
 
+_SERVING_KERNEL = re.compile(r"(paged|splash)_(?:f32_)?(?:split|merge)_kernel")
+
+
 def _group(name: str) -> str:
     if "ca::" in name or name.startswith("_ZN2ca"):
         # the training kernels: the pair instantiations carry PAIR = true
@@ -308,13 +312,13 @@ def _group(name: str) -> str:
         return ("pair_attention" if (", true>(" in name
                                      or "ELb1EEEv" in name)
                 else "causal_attention")
-    # the bf16 serving kernels (csrc/serve_mma.cuh), merge included
-    if "paged_split_kernel" in name or "paged_merge_kernel" in name:
-        return "paged_attention"
-    if "splash_split_kernel" in name or "splash_merge_kernel" in name:
-        return "splash_prefill"
-    if "attn_kernel" in name:  # f32: PAGED=true instantiations are paged
-        return ("paged_attention" if ("true>" in name or "Lb1E" in name)
+    # the serving kernels, merges included: bf16 on the tensor cores
+    # (csrc/serve_mma.cuh: <op>_split_kernel, <op>_merge_kernel) and f32
+    # on FFMA (csrc/serve_f32.cuh: <op>_f32_split_kernel,
+    # <op>_f32_merge_kernel)
+    serving = _SERVING_KERNEL.search(name)
+    if serving:
+        return ("paged_attention" if serving.group(1) == "paged"
                 else "splash_prefill")
     low = name.lower()
     # cuDNN's convolutions (forward, data and weight gradients), before

@@ -3,8 +3,8 @@
 // the cache (flash-decoding), then a merge. It replaces the bf16 path of
 // the Pallas TPU kernels distkeras_tpu/ops/paged_attention.py:
 // paged_attention (body _kernel) and distkeras_tpu/ops/splash_prefill.py:
-// splash_prefill_attention (body _kernel); f32 queries keep the scalar
-// kernel of attn_common.cuh.
+// splash_prefill_attention (body _kernel); f32 queries take the
+// FFMA core of serve_f32.cuh.
 //
 // The function: query row r = t * G + g of KV head h is query head
 // h * G + g at absolute position starts[b] + t and sees keys <= that

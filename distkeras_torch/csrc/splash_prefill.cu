@@ -15,7 +15,9 @@
 // back by how well its blocks fill the card and overlap loads with
 // products, and by the deepest row's serial walk.
 //
-// Dispatch on the query dtype, explicitly:
+// Dispatch on the query dtype, explicitly. Both routes split the key axis
+// the same way (the host's shape-only plan) and merge f32 partials in
+// split order:
 //
 // - bf16 queries take the tensor-core split-K core of serve_mma.cuh
 //   (splash_split_kernel, then splash_merge_kernel when the launch has
@@ -25,13 +27,16 @@
 //   query position never loaded (the splash skip), cp.async stages in a
 //   two-deep ring. The source note of serve_mma.cuh says what each
 //   choice does about the bound.
-// - f32 queries keep the scalar kernel of attn_common.cuh: the tensor
-//   cores round to bf16 and cannot meet f32's 1e-5.
+// - f32 queries take the FFMA split-K core of serve_f32.cuh
+//   (splash_f32_split_kernel, then splash_f32_merge_kernel): the same
+//   plan, skip and ring, with register-tiled f32 FMAs on the CUDA cores,
+//   since the tensor cores round to bf16 or TF32 and cannot meet f32's
+//   1e-5. Its source note says what bounds it and why.
 //
 // A launch the kernel cannot take returns a CUDA error code, which the
 // wrapper raises.
 
-#include "attn_common.cuh"
+#include "serve_f32.cuh"
 #include "serve_mma.cuh"
 
 template <int HD, int BM>
@@ -95,42 +100,95 @@ static int launch_bm(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-static int launch_f32(const void* q, const void* k, const void* v,
-                      const void* starts, void* out, int B, int T, int H,
-                      int Hk, int hd, int ntab, float scale,
-                      cudaStream_t st) {
-  const dim3 grid = dk::grid_for(B, T, H, Hk);
-#define DK_SPLASH(HD)                                                        \
-  dk::attn_kernel<float, HD, false><<<grid, dk::kThreads, 0, st>>>(   \
-      (const float*)q, (const float*)k, (const float*)v, nullptr, nullptr,  \
-      nullptr, (const int*)starts, (float*)out, T, H, Hk, ntab, scale)
-  switch (hd) {
-    case 64: DK_SPLASH(64); break;
-    case 128: DK_SPLASH(128); break;
-    case 256: DK_SPLASH(256); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef DK_SPLASH
+template <int HD, int BM>
+__global__ void __launch_bounds__(sf::Geo<float, HD, BM>::NT)
+    splash_f32_split_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const int* __restrict__ starts,
+                            float* __restrict__ out, float* __restrict__ part,
+                            int T, int H, int Hk, int ntab, float scale,
+                            int splits, int per) {
+  sf::split_attn<float, HD, BM, false>(q, k, v, nullptr, nullptr, nullptr,
+                                       starts, out, part, T, H, Hk, ntab,
+                                       scale, splits, per);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(sf::kMergeWarps * 32)
+    splash_f32_merge_kernel(const float* __restrict__ part,
+                            float* __restrict__ out, int B, int T, int H,
+                            int Hk, int splits) {
+  sf::merge_partials<HD>(part, out, B, T, H, Hk, splits);
+}
+
+template <int HD, int BM>
+static int launch_ffma(const void* q, const void* k, const void* v,
+                       const void* starts, void* out, void* part, int B,
+                       int T, int H, int Hk, int ntab, float scale,
+                       int splits, int per, cudaStream_t st) {
+  const size_t smem = sf::smem_bytes<float, HD, BM>(per, false);
+  auto kern = splash_f32_split_kernel<HD, BM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int TG = T * (H / Hk);
+  const dim3 grid((TG + BM - 1) / BM, Hk, B * splits);
+  kern<<<grid, sf::Geo<float, HD, BM>::NT, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)starts,
+      (float*)out, splits > 1 ? (float*)part : nullptr, T, H, Hk, ntab,
+      scale, splits, per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  splash_f32_merge_kernel<HD>
+      <<<(B * T * H + sf::kMergeWarps - 1) / sf::kMergeWarps,
+         sf::kMergeWarps * 32, 0, st>>>((const float*)part, (float*)out, B,
+                                        T, H, Hk, splits);
   return (int)cudaGetLastError();
 }
 
-// `part`, `bm`, `splits` and `per` serve bf16 queries: the f32 scratch
-// the wrapper sized for `splits` partials (null with one split), rows per
-// block (16 or 64) and 64-key stages per split. f32 queries ignore them.
+static int launch_f32(const void* q, const void* k, const void* v,
+                      const void* starts, void* out, void* part, int B,
+                      int T, int H, int Hk, int hd, int ntab, float scale,
+                      int bm, int splits, int per, cudaStream_t st) {
+#define DK_FFMA(HD, BM)                                                  \
+  return launch_ffma<HD, BM>(q, k, v, starts, out, part, B, T, H, Hk, ntab, \
+                             scale, splits, per, st)
+  if (bm != 16 && bm != 64) return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 64:
+      if (bm == 16) DK_FFMA(64, 16);
+      DK_FFMA(64, 64);
+    case 128:
+      if (bm == 16) DK_FFMA(128, 16);
+      DK_FFMA(128, 64);
+    case 256:
+      if (bm == 16) DK_FFMA(256, 16);
+      DK_FFMA(256, 64);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef DK_FFMA
+}
+
+// `part`, `bm`, `splits` and `per` are the launch's plan, for either
+// dtype: the f32 scratch the wrapper sized for `splits` partials (null
+// with one split), rows per block (16 or 64) and 64-key stages per split.
 extern "C" int dk_splash_prefill(const void* q, const void* k, const void* v,
                                  const void* starts, void* out, int B, int T,
                                  int H, int Hk, int hd, int L, int is_bf16,
                                  float scale, void* stream, void* part,
                                  int bm, int splits, int per) {
-  if (L % dk::kTile != 0 || H % Hk != 0) return (int)cudaErrorInvalidValue;
+  if (L % sv::kPage != 0 || H % Hk != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int ntab = L / dk::kTile;
-  if (!is_bf16)
-    return launch_f32(q, k, v, starts, out, B, T, H, Hk, hd, ntab, scale, st);
+  const int ntab = L / sv::kPage;
   const int nst = (L + sv::kStageKeys - 1) / sv::kStageKeys;
   if (splits < 1 || per < 1 || (splits - 1) * per >= nst ||
       splits * per < nst || (splits > 1 && !part))
     return (int)cudaErrorInvalidValue;
+  if (!is_bf16)
+    return launch_f32(q, k, v, starts, out, part, B, T, H, Hk, hd, ntab,
+                      scale, bm, splits, per, st);
   switch (hd) {
     case 64:
       return launch_bm<64>(q, k, v, starts, out, part, B, T, H, Hk, ntab,

@@ -7,32 +7,37 @@ before a dense masked attend: one full ``[B, L, Hk, hd]`` round trip per
 tick per layer, and under int8 KV the whole view is dequantized into the
 model dtype first. :func:`paged_attention` on a CUDA tensor runs the
 hand-written Hopper kernel of ``csrc/paged_attention.cu`` instead, which
-reads the pool straight off the block table and dispatches on the query
-dtype:
+reads the pool straight off the block table. Both dtypes share one plan:
+GQA on the row axis (query row ``r = t * G + g`` of KV head ``h`` is
+query head ``h * G + g`` at position ``seq_lens[b] + t``; a block takes
+64 such rows, or 16 when ``T * G <= 16``); the row's pages cut into
+splits of four-page stages chosen by
+:func:`~distkeras_torch.ops.splash_prefill.split_plan` from shapes alone
+(never from ``seq_lens``), each split writing an f32 partial that a
+second kernel merges in split order (flash-decoding). A block stages its
+own block-table entries and copies its pages with ``cp.async`` into a
+two-deep ring. The kernel dispatches on the query dtype:
 
-- bf16 queries run the tensor-core split-K core of
-  ``csrc/serve_mma.cuh``: ``mma.sync`` for ``q kᵀ`` and ``p v`` with the
-  f32 online softmax in registers; GQA on the M axis (query row
-  ``r = t * G + g`` of KV head ``h`` is query head ``h * G + g`` at
-  position ``seq_lens[b] + t``; a block takes 64 such rows, or 16 at
-  decode); the row's pages cut into splits of four-page stages chosen by
-  :func:`~distkeras_torch.ops.splash_prefill.split_plan` from shapes
-  alone (never from ``seq_lens``), each split writing an f32 partial
-  that a second kernel merges in split order (flash-decoding). A block
-  stages its own block-table entries and copies its pages with
-  ``cp.async`` into a two-deep ring; int8 pages travel as int8 and are
-  converted to bf16 on chip (once per stage in shared memory for 64-row
-  blocks, in the fragment loads at decode), each key's scale applied to
-  its f32 score column and each value's to P's (bf16-rounded) column,
-  carried as a bf16 hi + lo pair so the scale keeps f32 precision.
-- f32 queries run the scalar kernel of ``csrc/attn_common.cuh`` (one
-  block per 16 query rows, int8 dequantized in shared memory, f32 FMAs),
-  which meets f32's 1e-5.
+- bf16 queries run the tensor-core core of ``csrc/serve_mma.cuh``:
+  ``mma.sync`` for ``q kᵀ`` and ``p v`` with the f32 online softmax in
+  registers; int8 pages travel as int8 and are converted to bf16 on chip
+  (once per stage in shared memory for 64-row blocks, in the fragment
+  loads at decode), each key's scale applied to its f32 score column and
+  each value's to P's (bf16-rounded) column, carried as a bf16 hi + lo
+  pair so the scale keeps f32 precision.
+- f32 queries run the FFMA core of ``csrc/serve_f32.cuh``: register-tiled
+  f32 FMAs on the CUDA cores (a thread computes a tile of rows x keys of
+  ``q kᵀ`` and of rows x channels of ``p v`` from shared memory), int8
+  pages dequantized to f32 in shared memory as
+  :func:`dequantize_int8` does it; it meets f32's 1e-5, which the tensor
+  cores (bf16 or TF32 operands) cannot. A row's summation order depends
+  only on the plan, so decode and a verify window (any ``T * G <= 16``)
+  give a row the same bits.
 
 Pages wholly past a block's last query position are never loaded. On a
 CPU tensor the same function runs :func:`paged_attention_reference`, the
 gather + dequant + masked softmax math of ``_paged_attend``;
-:func:`paged_attention_split_reference` is the kernel's split-K math in
+:func:`paged_attention_split_reference` is both routes' split-K math in
 plain PyTorch (the CPU tests hold it against the TPU kernel; nothing on
 the main path calls it). There is no other fallback: a CUDA call that
 the kernel cannot take raises.
@@ -55,9 +60,9 @@ KERNEL_BLOCK_SIZES = (16,)
 
 def supports(hd: int, block_size: int) -> bool:
     """Shapes the Hopper kernel serves: head dims it is compiled for and
-    16-token pages (four pages make one 64-key stage of the bf16 kernel,
-    one page one tile of the f32 kernel). Any query count ``T``, GQA
-    group and page dtype tile — unlike the TPU's sublane rules."""
+    16-token pages (four pages make one 64-key stage of the split plan).
+    Any query count ``T``, GQA group and page dtype tile — unlike the
+    TPU's sublane rules."""
     return hd in KERNEL_HEAD_DIMS and block_size in KERNEL_BLOCK_SIZES
 
 
@@ -111,9 +116,10 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
 def paged_attention_split_reference(q, k_pages, v_pages, block_tables,
                                     seq_lens, key_scales=None,
                                     value_scales=None, *, pages_per_split):
-    """The bf16 kernel's split-K math in plain PyTorch: the gathered
-    view, cut into splits of ``pages_per_split`` pages, each split's
-    f32 partial and the merge in split order
+    """The kernel's split-K math in plain PyTorch, for both routes (the
+    bf16 tensor-core kernel and the f32 FFMA kernel): the gathered view,
+    cut into splits of ``pages_per_split`` pages, each split's f32
+    partial and the merge in split order
     (:func:`~distkeras_torch.ops.splash_prefill.splash_prefill_split_reference`
     on the gathered view)."""
     keys, vals = gathered_view(k_pages, v_pages, block_tables, key_scales,
@@ -184,8 +190,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
         dequant scales for int8 pools (both or neither).
 
     Returns ``[B, T, H, hd]`` in ``q.dtype``. CPU tensors run the plain
-    version; CUDA tensors launch the Hopper kernel (bf16: the split-K
-    tensor-core kernel and its merge; f32: the scalar kernel) or raise.
+    version; CUDA tensors launch the Hopper kernel (the split kernel and,
+    with more than one split, its merge: bf16 on the tensor cores, f32
+    on FFMA) or raise.
     """
     if (key_scales is None) != (value_scales is None):
         raise ValueError("pass both key_scales and value_scales or neither")
@@ -208,7 +215,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
     bf16 = q.dtype == torch.bfloat16
     TG = T * (H // Hk)
     bm, splits, per = split_plan(B, Hk, TG, MB * bs, sm_count(q.device))
-    part = partial_scratch(B, Hk, TG, hd, splits, q.device) if bf16 else None
+    part = partial_scratch(B, Hk, TG, hd, splits, q.device)
     vp = ctypes.c_void_p
     rc = lib.dk_paged_attention(
         vp(q.data_ptr()), vp(k_pages.data_ptr()), vp(v_pages.data_ptr()),
@@ -227,8 +234,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
     paged_attention.launches += 1
     route = launch_route("paged", bf16, bm, splits)
     # the template instance (KV type, head dim, row tile) and the merge
-    build.note_launch("paged_attention", (bf16, quant, hd, bm if bf16 else 0,
-                                          bf16 and splits > 1))
+    build.note_launch("paged_attention", (bf16, quant, hd, bm, splits > 1))
     paged_attention.routes[route] = paged_attention.routes.get(route, 0) + 1
     return out
 

@@ -5,26 +5,29 @@ The chunked mixed tick attends each row's prompt chunk over the whole
 cache; the dense masked reference computes a ``[B, T, L]`` score tensor
 whose beyond-diagonal half is thrown away. :func:`splash_prefill_attention`
 on a CUDA tensor runs the hand-written Hopper kernel of
-``csrc/splash_prefill.cu``, which dispatches on the query dtype:
+``csrc/splash_prefill.cu``. Both dtypes share one plan: GQA on the row
+axis (a block takes 64 query rows ``r = t * G + g`` of one (row, KV
+head), or 16 when ``T * G <= 16``); the key axis cut into splits of
+64-key stages chosen by :func:`split_plan` from shapes alone, each split
+writing an f32 partial that a second kernel merges in split order;
+stages copied with ``cp.async`` into a two-deep ring, stages past a
+block's last query position never loaded (the splash skip). The kernel
+dispatches on the query dtype:
 
-- bf16 queries run the tensor-core split-K core of ``csrc/serve_mma.cuh``:
+- bf16 queries run the tensor-core core of ``csrc/serve_mma.cuh``:
   ``mma.sync`` for both products with the f32 online softmax in
-  registers; GQA on the M axis (a block takes 64 query rows
-  ``r = t * G + g`` of one (row, KV head), or 16 when ``T * G <= 16``);
-  the key axis cut into splits of 64-key stages chosen by
-  :func:`split_plan` from shapes alone, each split writing an f32
-  partial that a second kernel merges in split order; stages copied with
-  ``cp.async`` into a two-deep ring, stages past a block's last query
-  position never loaded (the splash skip).
-- f32 queries run the scalar kernel of ``csrc/attn_common.cuh`` (one
-  block per 16 query rows, f32 FMAs), which meets f32's 1e-5.
+  registers.
+- f32 queries run the FFMA core of ``csrc/serve_f32.cuh``:
+  register-tiled f32 FMAs on the CUDA cores, which meet f32's 1e-5
+  where the tensor cores (bf16 or TF32 operands) cannot; over the same
+  keys it gives a row the bits the paged kernel gives it.
 
 It consumes the contiguous K/V view both serving cache layouts produce
 (the slot path's cache, or the paged path's gathered view), in the model
 dtype. CPU tensors run :func:`splash_prefill_reference`, the dense
 grouped masked attend of ``_cached_attend``; a CUDA call the kernel
-cannot take raises. :func:`splash_prefill_split_reference` computes the
-kernel's split partials and merge in plain PyTorch (the CPU tests hold
+cannot take raises. :func:`splash_prefill_split_reference` computes both
+routes' split partials and merge in plain PyTorch (the CPU tests hold
 it against the TPU kernel; nothing on the main path calls it).
 """
 
@@ -75,7 +78,8 @@ def preferred(T: int, hd: int, L: int, device=None) -> bool:
 
 
 def split_plan(B: int, Hk: int, TG: int, nkeys: int, sms: int):
-    """How the tensor-core kernels cut one launch, from shapes alone
+    """How the serving kernels cut one launch (both routes: the bf16
+    tensor-core kernels and the f32 FFMA kernels), from shapes alone
     (never from the device-resident ``starts`` / ``seq_lens``, which
     would cost a host sync per layer per tick): ``(bm, splits, per)`` —
     query rows per block (16 when the ``T * G`` rows of a KV head fit
@@ -114,13 +118,13 @@ def partial_scratch(B, Hk, TG, hd, splits, device):
 
 def launch_route(kernel: str, bf16: bool, bm: int, splits: int) -> str:
     """What one launch of ``kernel`` (``"paged"`` or ``"splash"``) runs,
-    named as the profile names its kernels: bf16 queries the tensor-core
-    split kernel at ``bm`` rows a block, followed by the merge when there
-    is more than one split; f32 queries the scalar ``attn_kernel``."""
-    if not bf16:
-        return "attn_kernel f32"
-    route = f"{kernel}_split_kernel bm={bm} splits={splits}"
-    return route + f" + {kernel}_merge_kernel" if splits > 1 else route
+    named as the profile names its kernels: the split kernel at ``bm``
+    rows a block (bf16 queries the tensor-core ``{kernel}_split_kernel``,
+    f32 queries the FFMA ``{kernel}_f32_split_kernel``), followed by its
+    merge when there is more than one split."""
+    name = kernel if bf16 else f"{kernel}_f32"
+    route = f"{name}_split_kernel bm={bm} splits={splits}"
+    return route + f" + {name}_merge_kernel" if splits > 1 else route
 
 
 def splash_prefill_reference(q, keys, vals, starts):
@@ -143,7 +147,8 @@ def splash_prefill_reference(q, keys, vals, starts):
 
 
 def splash_prefill_split_reference(q, keys, vals, starts, keys_per_split):
-    """The bf16 kernel's split-K math in plain PyTorch, in f32: the key
+    """The kernel's split-K math in plain PyTorch, in f32, for both
+    routes (the bf16 tensor-core kernel and the f32 FFMA kernel): the key
     axis cut into splits of ``keys_per_split`` keys, each split's
     partial ``(m, l, acc)`` from the masked scores (``-1e30`` mask, P
     cast to ``q.dtype`` before P V), a split wholly past a row's last
@@ -226,8 +231,9 @@ def splash_prefill_attention(q, keys, vals, starts):
         position ``starts[b] + t`` and attends key positions ``<= that``.
 
     Returns ``[B, T, H, hd]`` in ``q.dtype``. CPU tensors run the plain
-    version; CUDA tensors launch the Hopper kernel (bf16: the split-K
-    tensor-core kernel and its merge; f32: the scalar kernel) or raise.
+    version; CUDA tensors launch the Hopper kernel (the split kernel and,
+    with more than one split, its merge: bf16 on the tensor cores, f32
+    on FFMA) or raise.
     """
     if q.device.type == "cpu":
         return splash_prefill_reference(q, keys, vals, starts)
@@ -245,8 +251,7 @@ def splash_prefill_attention(q, keys, vals, starts):
     bf16 = q.dtype == torch.bfloat16
     bm, splits, per = split_plan(B, Hk, T * (H // Hk), L,
                                  sm_count(q.device))
-    part = (partial_scratch(B, Hk, T * (H // Hk), hd, splits, q.device)
-            if bf16 else None)
+    part = partial_scratch(B, Hk, T * (H // Hk), hd, splits, q.device)
     vp = ctypes.c_void_p
     rc = lib.dk_splash_prefill(
         vp(q.data_ptr()), vp(keys.data_ptr()), vp(vals.data_ptr()),
@@ -261,8 +266,7 @@ def splash_prefill_attention(q, keys, vals, starts):
     splash_prefill_attention.launches += 1
     route = launch_route("splash", bf16, bm, splits)
     # the template instance (head dim, row tile) and the merge
-    build.note_launch("splash_prefill", (bf16, hd, bm if bf16 else 0,
-                                         bf16 and splits > 1))
+    build.note_launch("splash_prefill", (bf16, hd, bm, splits > 1))
     routes = splash_prefill_attention.routes
     routes[route] = routes.get(route, 0) + 1
     return out

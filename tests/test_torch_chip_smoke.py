@@ -306,9 +306,11 @@ def test_ps_phases_at_narrow_widths(monkeypatch):
 
 def _standin_kernels(monkeypatch):
     """The serving kernels stood in on the CPU: their gates pass as on a
-    card, and each call counts a launch and its route and notes a first
-    launch of its shape (as the wrappers do where they launch) and runs
-    the plain version in f32, as the kernels accumulate."""
+    card, and each call counts a launch and its route (the split plan a
+    132-SM card would take) and notes a first launch of its shape and of
+    the wrapper's own configuration key (as the wrappers do where they
+    launch) and runs the plain version in f32, as the kernels
+    accumulate."""
     import torch
 
     from distkeras_torch.kernels import build
@@ -318,10 +320,20 @@ def _standin_kernels(monkeypatch):
     def counting(plain, kind):
         def f(q, *args):
             f.launches += 1
-            route = sp.launch_route(kind, q.dtype == torch.bfloat16, 16, 1)
+            bf16 = q.dtype == torch.bfloat16
+            B, T, H, hd = q.shape
+            if kind == "paged":  # (k_pages, v_pages, tables, ...)
+                Hk, nkeys = args[0].shape[2], args[2].shape[1] * 16
+            else:  # (keys, vals, starts)
+                Hk, nkeys = args[0].shape[2], args[0].shape[1]
+            bm, splits, _ = sp.split_plan(B, Hk, T * (H // Hk), nkeys, 132)
+            route = sp.launch_route(kind, bf16, bm, splits)
             f.routes[route] = f.routes.get(route, 0) + 1
             build.note_launch(f"standin_{kind}", (str(q.dtype),
                                                   tuple(q.shape[1:])))
+            build.note_launch(f"standin_{kind}_plan",
+                              (bf16, len(args) > 4 and args[4] is not None,
+                               hd, bm, splits > 1))
             args = [a.float() if torch.is_tensor(a) and a.is_floating_point()
                     else a for a in args]
             return plain(q.float(), *args).to(q.dtype)
@@ -401,7 +413,8 @@ def test_phase2_times_the_new_shapes(monkeypatch):
 def test_phase2_times_one_tp_ranks_heads(monkeypatch):
     """Phase 2's paged and splash cases at one tp=2 rank's heads (half
     the query heads over half the KV heads), every timed shape held and
-    timed beside its bound, the splash values at std 0.5."""
+    timed beside its bound in each pool and dtype, the splash values at
+    std 0.5."""
     import torch
     import torch.nn.functional as F
 
@@ -415,8 +428,11 @@ def test_phase2_times_one_tp_ranks_heads(monkeypatch):
     splash = chip_smoke.splash_cases(torch, F, sp, over, (), v_std=0.5)
     assert {(c["T"], c["H"], c["Hk"]) for c in paged if "ms" in c} == {
         (1, 2, 1), (16, 2, 1)}
-    assert [(c["T"], c["H"], c["Hk"]) for c in splash if "ms" in c] == [
-        (16, 2, 1)]
+    # every pool and dtype is timed, the f32 ones (the FFMA kernels) too
+    assert {c["pool"] for c in paged if "ms" in c} == {
+        "bf16", "int8", "f32", "int8-f32"}
+    assert [(c["T"], c["H"], c["Hk"], c["dtype"]) for c in splash
+            if "ms" in c] == [(16, 2, 1, "bf16"), (16, 2, 1, "f32")]
     for c in paged + splash:
         assert c["max_abs_err"] <= c["tol"]
         if "ms" in c:
@@ -1208,8 +1224,8 @@ def test_phase17_at_narrow_width(monkeypatch, capsys):
         assert r["ok"] and all(r["exact"].values()), (name, r)
         for kern in chip_smoke.SERVE_BENCH_KERNELS[name]:
             assert r["launches"][kern] > 0, (name, kern)
-        assert all(set(seen) <= {chip_smoke.F32_ROUTE}
-                   for seen in r["routes"].values())
+        assert all(chip_smoke.F32_ROUTE.fullmatch(route)
+                   for seen in r["routes"].values() for route in seen)
         assert r["seconds"] > 0 and "timing" in r
     assert out["launches"]["paged_attention"] == sum(
         out[m]["launches"]["paged_attention"] for m in _NARROW_P17)

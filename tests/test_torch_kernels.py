@@ -71,7 +71,7 @@ def _paged_inputs(rng, B, T, H, Hk, hd, bs, NB, quant):
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T,hd", [(1, 256), (5, 64), (33, 128)])
+@pytest.mark.parametrize("T,hd", [(1, 256), (5, 64), (33, 128), (64, 64)])
 def test_paged_kernel_matches_plain(quant, dtype, T, hd):
     dev = _card()
     dt = getattr(torch, dtype)
@@ -97,7 +97,7 @@ def test_paged_kernel_matches_plain(quant, dtype, T, hd):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("T,hd,L", [(20, 128, 256), (64, 256, 512),
-                                    (7, 64, 64)])
+                                    (7, 64, 64), (64, 64, 1056)])
 def test_splash_kernel_matches_plain(dtype, T, hd, L):
     dev = _card()
     dt = getattr(torch, dtype)
@@ -118,7 +118,8 @@ def test_splash_kernel_matches_plain(dtype, T, hd, L):
 
 
 def _split_keys(dev, B, Hk, TG, nkeys):
-    """Keys per split of the bf16 kernels' plan for this launch."""
+    """Keys per split of the kernels' plan for this launch (both
+    routes)."""
     _, splits, per = sp.split_plan(B, Hk, TG, nkeys, sp.sm_count(dev))
     assert splits > 1  # the cases below exercise the merge
     return per * sp.STAGE_KEYS
@@ -126,12 +127,15 @@ def _split_keys(dev, B, Hk, TG, nkeys):
 
 # T * G off multiples of 16 and 64 (T=5, T=17), G=1 and G=8, hd 64 and 128
 _EDGES = [(5, 8, 2, 128), (17, 8, 2, 64), (3, 2, 2, 256), (2, 16, 2, 128)]
+# the f32 serving shapes: phase 4's verify window (4 heads of 64 over 2 KV
+# heads) and phase 17's chunk (4 heads of 64, no GQA); paged also decode
+_F32_EDGES = [(5, 4, 2, 64), (64, 4, 4, 64)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T,H,Hk,hd", _EDGES)
+@pytest.mark.parametrize("T,H,Hk,hd", _EDGES + _F32_EDGES + [(1, 4, 4, 64)])
 def test_paged_kernel_split_edges(quant, dtype, T, H, Hk, hd):
     """Four rows over 32 pages: a zero-length row, a row whose last query
     ends on a split boundary, one whose first query starts on one, and a
@@ -165,7 +169,7 @@ def test_paged_kernel_split_edges(quant, dtype, T, H, Hk, hd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T,H,Hk,hd", _EDGES)
+@pytest.mark.parametrize("T,H,Hk,hd", _EDGES + _F32_EDGES)
 def test_splash_kernel_split_edges(dtype, T, H, Hk, hd):
     """Rows at depth 0, ending on a split boundary, starting on one, and
     at the deepest start, over L=512 (many splits)."""
@@ -188,6 +192,39 @@ def test_splash_kernel_split_edges(dtype, T, H, Hk, hd):
     assert got.dtype == dt and torch.isfinite(got.float()).all()
     tol = 1e-5 if dt == torch.float32 else 1e-2
     assert (got.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hk,quant", [(4, 2, True), (4, 4, False),
+                                        (8, 2, True)])
+def test_f32_rows_keep_their_bits_across_windows_and_layouts(H, Hk, quant):
+    """The f32 route's exactness invariants on the card: each row of a
+    5-token verify window has the bits of the same query decoded alone
+    at its position (T=1: the same plan for every T * G <= 16), and the
+    splash kernel over the gathered (dequantized) view gives the paged
+    kernel's bits."""
+    dev = _card()
+    rng = np.random.default_rng(21)
+    B, W, hd, bs, NB = 8, 5, 64, 16, 16
+    q, kp, vp, ks, vs, _, _ = _paged_inputs(rng, B, W, H, Hk, hd, bs, NB,
+                                            quant)
+    lens = np.asarray([0, 3, 59, 60, 64, 120, 200, NB * bs - W], np.int32)
+    tables = _tables(rng, B, NB, B * NB + 1,
+                     [-(-(int(n) + W) // bs) for n in lens])
+    c = lambda a: None if a is None else torch.from_numpy(a).to(dev)  # noqa: E731
+    qd, kd, vd, td, ksd, vsd = c(q), c(kp), c(vp), c(tables), c(ks), c(vs)
+    window = pa.paged_attention(qd, kd, vd, td, c(lens), ksd, vsd)
+    for t in range(W):
+        one = pa.paged_attention(qd[:, t:t + 1].contiguous(), kd, vd, td,
+                                 c(lens + t), ksd, vsd)
+        assert torch.equal(one[:, 0], window[:, t]), t
+    keys, vals = pa.gathered_view(kd, vd, td, ksd, vsd, torch.float32)
+    splash = sp.splash_prefill_attention(qd, keys.contiguous(),
+                                         vals.contiguous(), c(lens))
+    torch.cuda.synchronize()
+    assert torch.equal(splash, window)
+    ref = pa.paged_attention_reference(qd, kd, vd, td, c(lens), ksd, vsd)
+    assert (window - ref).abs().max().item() <= 1e-5
 
 
 @pytest.mark.cuda
@@ -724,10 +761,15 @@ def test_pair_backward_shares_one_prep_pass(causal, Tq, Tk):
      "splash_prefill"),
     ("_Z19splash_merge_kernelILi128EEvPKfP13__nv_bfloat16iiiii",
      "splash_prefill"),
-    ("void dk::attn_kernel<signed char, 256, true>(float const*)",
+    ("void paged_f32_split_kernel<signed char, 64, 16>(float const*, "
+     "signed char const*)", "paged_attention"),
+    ("_Z22paged_f32_split_kernelIfLi256ELi64EEvPKfPKT_S4_S1_S1_PKiS6_PfS7_"
+     "iiiifii", "paged_attention"),
+    ("void paged_f32_merge_kernel<64>(float const*, float*, int)",
      "paged_attention"),
-    ("void dk::attn_kernel<float, 64, false>(float const*)",
+    ("void splash_f32_split_kernel<64, 64>(float const*)",
      "splash_prefill"),
+    ("_Z23splash_f32_merge_kernelILi128EEvPKfPfiiiii", "splash_prefill"),
 ])
 def test_profile_groups_place_the_serving_kernels(name, group):
     """bench.py's profile puts every serving kernel, the merges included,

@@ -5,9 +5,11 @@ inputs through both, f32, atol 1e-5 — T in {1, 5} x MHA/GQA x int8
 on/off with fragmented, trash-padded block tables, plus a zero-length
 row. On the CPU the port's wrapper runs its plain version; the Hopper
 kernel itself is held against that plain version on the card by
-tests/test_torch_kernels.py. The bf16 kernel's split-K math (per-split
-partials and their merge) is held against the same reference kernel in
-plain PyTorch, and the split plan's shape-only rule is checked here."""
+tests/test_torch_kernels.py. The kernels' split-K math (per-split
+partials and their merge, both routes: bf16 on the tensor cores, f32 on
+FFMA) is held against the same reference kernel in plain PyTorch, at
+the bf16 plans and at the f32 route's, and the split plan's shape-only
+rule is checked here."""
 
 import numpy as np
 import pytest
@@ -159,17 +161,94 @@ def test_split_plan_fills_the_card_from_shapes_alone():
         assert (splits - 1) * per < stages <= splits * per
 
 
+# (B, Hk, cache keys): phase 17's paged rows (18 pages), phase 4's engine
+# (8 slots, 2 KV heads, max_len 256), the flagship's f32 check (128
+# pages) and one row over one page
+_F32_PLAN_SHAPES = [(8, 4, 288), (8, 2, 256), (8, 2, 2048), (1, 1, 16)]
+
+
+@pytest.mark.parametrize("B,Hk,nkeys", _F32_PLAN_SHAPES)
+def test_f32_plan_is_one_for_every_window_of_16_rows(B, Hk, nkeys):
+    """The f32 route's plan (the split plan both routes share) reads
+    shapes alone and is the same for every T * G <= 16, so a decode row
+    and a verify window's row walk the same splits (the exact phases
+    compare their bits); it covers the cache with no empty split and,
+    with enough stages, brings the grid past the card's 132 SMs (phase
+    17's decode: 160 blocks on 132 SMs)."""
+    from distkeras_torch.ops.splash_prefill import STAGE_KEYS, split_plan
+
+    plans = {split_plan(B, Hk, TG, nkeys, 132) for TG in range(1, 17)}
+    assert len(plans) == 1
+    bm, splits, per = plans.pop()
+    stages = -(-nkeys // STAGE_KEYS)
+    assert bm == 16 and (splits - 1) * per < stages <= splits * per
+    blocks = B * Hk * splits
+    assert blocks >= min(2 * 132, B * Hk * stages) - B * Hk
+    if (B, Hk, nkeys) == (8, 4, 288):
+        assert blocks == 160
+    # past 16 rows a KV head, 64-row tiles (and fewer splits if the row
+    # tiles fill the card)
+    bm64, splits64, _ = split_plan(B, Hk, 17, nkeys, 132)
+    assert bm64 == 64 and splits64 <= splits
+
+
+def _f32_plan_inputs(rng, T, H, Hk, quant, NB):
+    """Four rows over NB 16-token pages cut at the f32 route's plan: a
+    zero-length row, a row whose last query ends on a split boundary,
+    one whose first query starts on one, and a deep row."""
+    from distkeras_torch.ops.splash_prefill import STAGE_KEYS, split_plan
+
+    B, bs, hd = 4, 16, 16
+    _, splits, per = split_plan(B, Hk, T * (H // Hk), NB * bs, 132)
+    assert splits > 1
+    split_keys = per * STAGE_KEYS
+    lens = np.asarray([0, split_keys - T, split_keys, NB * bs - T - 3],
+                      np.int32)
+    chains = [-(-(int(n) + T) // bs) for n in lens]
+    nb = B * NB + 1
+    q = rng.normal(size=(B, T, H, hd)).astype(np.float32)
+    kp, vp, ks, vs = _pool(rng, nb, bs, Hk, hd, quant)
+    tables = _fragmented_tables(rng, B, NB, nb, chains)
+    return q, kp, vp, ks, vs, tables, lens, per * STAGE_KEYS // bs
+
+
+@pytest.mark.parametrize("T,H,Hk", [(1, 4, 4), (5, 4, 2), (20, 8, 2)])
+@pytest.mark.parametrize("quant", [False, True])
+def test_split_reference_at_the_f32_plan_matches_jax_kernel(T, H, Hk, quant):
+    """Both routes' split-K math at the plan the f32 kernel takes for
+    these shapes (16-token pages, 64-key stages), against the TPU kernel
+    at 1e-5: decode over MHA, a verify window over GQA G=2 (phase 4's
+    heads), a 20-token chunk over G=4 (64-row tiles); a zero-length row,
+    rows ending and starting on a split boundary, int8 pages."""
+    rng = np.random.default_rng(17)
+    q, kp, vp, ks, vs, tables, lens, pps = _f32_plan_inputs(
+        rng, T, H, Hk, quant, NB=12)
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    want = np.asarray(jax_pa.paged_attention(
+        j(q), j(kp), j(vp), j(tables), j(lens), j(ks), j(vs)))
+    got = pa.paged_attention_split_reference(
+        t(q), t(kp), t(vp), t(tables), t(lens), t(ks), t(vs),
+        pages_per_split=pps).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 def test_launch_route_names_what_ran():
-    """The route label a CUDA launch records: bf16 queries name the split
-    kernel with its plan and the merge only when there is more than one
-    split; f32 queries the scalar kernel. CPU calls record none."""
+    """The route label a CUDA launch records: the split kernel with its
+    plan and the merge only when there is more than one split, bf16
+    queries the tensor-core kernels and f32 queries the FFMA kernels.
+    CPU calls record none."""
     from distkeras_torch.ops.splash_prefill import launch_route
 
     assert launch_route("paged", True, 16, 16) == (
         "paged_split_kernel bm=16 splits=16 + paged_merge_kernel")
     assert launch_route("splash", True, 64, 1) == (
         "splash_split_kernel bm=64 splits=1")
-    assert launch_route("paged", False, 64, 5) == "attn_kernel f32"
+    assert launch_route("paged", False, 64, 5) == (
+        "paged_f32_split_kernel bm=64 splits=5 + paged_f32_merge_kernel")
+    assert launch_route("splash", False, 16, 1) == (
+        "splash_f32_split_kernel bm=16 splits=1")
     rng = np.random.default_rng(4)
     q, kp, vp, ks, vs, tables, lens = _split_edge_inputs(rng, 3, 4, 2,
                                                          False, 1)

@@ -3,8 +3,9 @@
 kernel (distkeras_tpu/ops/splash_prefill.py, interpret mode on the CPU
 as its own tests run it): same numpy inputs, f32, atol 1e-5 — GQA/MHA
 chunk shapes and rows at distinct depths (0 / mid / max), plus
-``choose_kv_block`` and the Hopper gates, and the bf16 kernel's
-split-K math (per-split partials and their merge) in plain PyTorch. The
+``choose_kv_block`` and the Hopper gates, and the kernels' split-K math
+(per-split partials and their merge, both routes: bf16 on the tensor
+cores, f32 on FFMA) in plain PyTorch, at the f32 route's plans too. The
 kernel itself is held against its plain version on the card by
 tests/test_torch_kernels.py."""
 
@@ -99,4 +100,28 @@ def test_split_reference_matches_jax_kernel(keys_per_split, T, H, Hk):
     got = sp.splash_prefill_split_reference(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         torch.from_numpy(starts), keys_per_split).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("T,H,Hk,L", [(5, 4, 2, 192), (16, 4, 4, 208),
+                                      (20, 8, 2, 256)])
+def test_split_reference_at_the_f32_plan_matches_jax_kernel(T, H, Hk, L):
+    """Both routes' split-K math at the plan the f32 kernel takes for
+    these shapes (64-key stages, the last one part-filled at L=208),
+    against the TPU kernel at 1e-5: a verify window over GQA G=2, a
+    16-token chunk over MHA (phase 17's), a 20-token chunk over G=4
+    (64-row tiles); rows at depth 0, ending and starting on a split
+    boundary, and at the deepest start."""
+    rng = np.random.default_rng(19)
+    B, hd = 4, 16
+    _, splits, per = sp.split_plan(B, Hk, T * (H // Hk), L, 132)
+    assert splits > 1
+    split_keys = per * sp.STAGE_KEYS
+    q, k, v = _inputs(rng, B, T, H, Hk, hd, L)
+    starts = np.asarray([0, split_keys - T, split_keys, L - T], np.int32)
+    want = np.asarray(jax_sp.splash_prefill_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(starts)))
+    got = sp.splash_prefill_split_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(starts), split_keys).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
