@@ -86,8 +86,10 @@ Phases (any failure exits non-zero):
    weights), KV export -> import into the device pool and into a host
    tier (the importing engine's stream equals one engine's), and
    ``beam_search(beam_size=4)`` on the card equal to the same call on a
-   CPU copy. A mismatch fails with each differing greedy stream's first
-   flip and top-2 logit gap.
+   CPU copy, and ``Model(model).beam_search`` on the card equal to both,
+   its prefill on the splash kernel (launches counted around the call).
+   A mismatch fails with each differing greedy stream's first flip and
+   top-2 logit gap.
 5. **Training kernels.** The causal flash-attention forward, dq and
    dk/dv kernels against their plain versions (dense, f32, from the same
    bf16 inputs; the backward's plain version takes the kernel's own
@@ -159,9 +161,16 @@ Phases (any failure exits non-zero):
    1e-3 / 4 committing every step, EAMSGD its Nesterov SGD at 0.02),
    then ``ModelPredictor`` -> ``LabelIndexTransformer`` ->
    ``AccuracyEvaluator``: every history finite, every model at accuracy
-   >= 0.9; prints samples/s per trainer. This phase adds no hand-written
-   kernel: convolutions run through cuDNN and dense products through
-   cuBLAS, as XLA computes them in the reference.
+   >= 0.9; prints samples/s per trainer. (8c) The synchronous
+   data-parallel step, ``parallel.spmd.make_dp_train_step`` over
+   ``parallel.mesh.default_mesh()`` (a world of one): ``mnist_cnn`` in
+   f32 from seed 0, 3 Adam steps on batches of 128 of 8b's digits (seed
+   12), against ``workers.make_train_step`` on the same weights and
+   batches (cuDNN pinned deterministic for this phase): losses and
+   weights equal bit for bit; prints ms a step of each beside the card's
+   name and power limit. This phase adds no hand-written kernel:
+   convolutions run through cuDNN and dense products through cuBLAS, as
+   XLA computes them in the reference.
 9. **The parameter-server family on the card.** (9a) ``BASELINE.json``'s
    CIFAR configurations as examples/cifar10_training.py runs them:
    ``cifar_cnn`` at widths (64, 128, 256), bf16 with f32 masters, 50,000
@@ -609,6 +618,9 @@ MNIST_TRAIN = dict(worker_optimizer="adam", learning_rate=1e-3,
                    loss="categorical_crossentropy", features_col="matrix",
                    label_col="label_encoded", batch_size=128, num_epoch=2)
 MNIST_MIN_ACCURACY = 0.9
+# phase 8c: the dp step against make_train_step (MNIST_TRAIN's batch and
+# Adam rate)
+DP_STEP = dict(rows=128, steps=3, lr=1e-3)
 # phase 8b's workers and window for the parameter-server trainers
 # (examples/mnist_workflow.py: 4 workers, the trainers' default window).
 # DOWNPOUR adds the 4 workers' deltas at full strength: with Adam 1e-3 at
@@ -1744,15 +1756,20 @@ def cifar_phase(torch, np, dk):
     }
 
 
-def mnist_dataset(np, dk, rows=None):
-    """examples/mnist_workflow.py's synthetic digits (a noisy prototype per
-    class) through MinMax -> Reshape -> OneHot."""
-    rows = rows or MNIST_ROWS
-    rng = np.random.default_rng(0)
+def mnist_rows(np, rows, seed=0):
+    """examples/mnist_workflow.py's synthetic digits: a noisy prototype per
+    class, ``[rows, 784]`` f32 in [0, 255], and the labels."""
+    rng = np.random.default_rng(seed)
     protos = rng.uniform(0, 255, size=(10, 784)).astype(np.float32)
     y = rng.integers(0, 10, size=rows)
     x = np.clip(protos[y] + rng.normal(scale=64.0, size=(rows, 784)), 0,
                 255).astype(np.float32)
+    return x, y
+
+
+def mnist_dataset(np, dk, rows=None):
+    """:func:`mnist_rows` through MinMax -> Reshape -> OneHot."""
+    x, y = mnist_rows(np, rows or MNIST_ROWS)
     ds = dk["PartitionedDataset"].from_arrays({"features": x, "label": y},
                                               num_partitions=4)
     ds = dk["MinMaxTransformer"](o_min=0.0, o_max=255.0,
@@ -1814,6 +1831,67 @@ def mnist_phase(torch, np, dk, rows=None):
 
 
 PS_NAMES = ("DOWNPOUR", "ADAG", "DynSGD", "AEASGD", "EAMSGD", "EASGD")
+
+
+def dp_step_phase(torch, np, dk, smi):
+    """8c: ``make_dp_train_step`` over ``default_mesh()`` (a world of one)
+    against ``workers.make_train_step`` on 8b's digits scaled to [0, 1]:
+    the same ops, so the losses and weights must be equal bit for bit
+    (see DP_STEP; cuDNN deterministic for both runs). Each step is timed
+    alone (a sync on each side)."""
+    n, rows = DP_STEP["steps"], DP_STEP["rows"]
+    x, y = mnist_rows(np, n * rows, seed=12)
+    x = torch.as_tensor(x / 255.0, device=DEV).reshape(n, rows, 28, 28, 1)
+    y = torch.as_tensor(np.eye(10, dtype=np.float32)[y],
+                        device=DEV).reshape(n, rows, 10)
+    loss_fn = dk["get_loss"]("categorical_crossentropy")
+    mesh = dk["default_mesh"]()
+    init = dk["get_model"]("mnist_cnn", dtype=torch.float32, device=DEV,
+                           seed=0).state_dict()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for name in ("dp", "single"):
+            model = dk["get_model"]("mnist_cnn", dtype=torch.float32,
+                                    device=DEV)
+            model.load_state_dict(init)
+            opt = dk["get_optimizer"]("adam", DP_STEP["lr"])
+            if name == "dp":
+                step = dk["make_dp_train_step"](model, loss_fn, opt, mesh)
+            else:
+                one = dk["make_train_step"](model, loss_fn, opt)
+
+                def step(a, b, one=one):
+                    return one(a, b)["loss"]
+            losses, ms = [], []
+            for i in range(n):
+                sync(torch)
+                t0 = time.perf_counter()
+                losses.append(step(x[i], y[i]))
+                sync(torch)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            runs[name] = (torch.stack(losses).cpu(),
+                          {k: v.detach().cpu()
+                           for k, v in model.state_dict().items()}, ms)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (dp, dp_w, dp_ms), (one, one_w, one_ms) = runs["dp"], runs["single"]
+    if not torch.isfinite(dp).all():
+        raise AssertionError(f"8c: dp step losses not finite: {dp}")
+    if not torch.equal(dp, one):
+        raise AssertionError(f"8c: make_dp_train_step's losses "
+                             f"{dp.tolist()} != make_train_step's "
+                             f"{one.tolist()}")
+    differ = [k for k, v in one_w.items() if not torch.equal(dp_w[k], v)]
+    if differ:
+        raise AssertionError(f"8c: weights after {n} steps differ from "
+                             f"make_train_step's: {differ}")
+    return {"mesh": mesh.shape, "model": "mnist_cnn-f32",
+            "optimizer": f"adam{DP_STEP['lr']}", "rows": rows, "steps": n,
+            "losses": dp.tolist(), "equal_bit_for_bit": True,
+            "ms_per_step": dp_ms, "make_train_step_ms_per_step": one_ms,
+            "nvidia_smi": smi}
 
 
 def _mnist_ps_train(name):
@@ -2438,10 +2516,12 @@ def exact_swap_and_migrate(torch, np, dk, model, requests):
     return res
 
 
-def exact_beam(torch, np, dk, model):
+def exact_beam(torch, np, dk, sp, model):
     """``beam_search(beam_size=4)`` on the card equals the same call on a
-    CPU copy of the weights (the plain attends)."""
+    CPU copy of the weights (the plain attends), and ``Model.beam_search``
+    on the card equals both, its prefill through the splash kernel."""
     from distkeras_torch.models.transformer import beam_search
+    from distkeras_torch.models.wrapper import Model
 
     cpu = dk["get_model"]("transformer_lm", dtype=torch.float32,
                           device="cpu", seed=3, **EXACT)
@@ -2449,12 +2529,24 @@ def exact_beam(torch, np, dk, model):
     prompt = np.random.default_rng(11).integers(
         0, model.vocab_size, size=(2, 40)).astype(np.int32)
     got = beam_search(model, prompt, 16, beam_size=4).cpu()
+    before = sp.splash_prefill_attention.launches
+    method = Model(model).beam_search(prompt, 16, beam_size=4)
+    launches = sp.splash_prefill_attention.launches - before
     want = beam_search(cpu, prompt, 16, beam_size=4)
     if not torch.equal(got, want):
         raise AssertionError(f"exact phase: beam search on the card "
                              f"{got[:, 40:].tolist()} != on the CPU "
                              f"{want[:, 40:].tolist()}")
-    return {"beams_equal": True, "rows": 2, "beam_size": 4, "new": 16}
+    if not np.array_equal(method, got.numpy()):
+        raise AssertionError(f"exact phase: Model.beam_search on the card "
+                             f"{method[:, 40:].tolist()} != beam_search's "
+                             f"{got[:, 40:].tolist()}")
+    if launches == 0:
+        raise AssertionError("exact phase: Model.beam_search's prefill "
+                             "never launched the splash kernel")
+    return {"beams_equal": True, "method_equal": True,
+            "method_splash_launches": launches, "rows": 2, "beam_size": 4,
+            "new": 16}
 
 
 def exact_phase(torch, np, dk, pa, sp):
@@ -2468,7 +2560,7 @@ def exact_phase(torch, np, dk, pa, sp):
     res = exact_modes(torch, np, dk, pa, sp, model, requests, refs)
     res["host_tier"] = exact_tier(torch, np, dk, pa, model)
     res.update(exact_swap_and_migrate(torch, np, dk, model, requests))
-    res["beam_search"] = exact_beam(torch, np, dk, model)
+    res["beam_search"] = exact_beam(torch, np, dk, sp, model)
     return res
 
 
@@ -6126,8 +6218,9 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
         from distkeras_torch.ops import pallas_pair as pp
         from distkeras_torch.ops import splash_prefill as sp
         from distkeras_torch.ops.ring_attention import _pair_kernel_block
-        from distkeras_torch.parallel.mesh import make_mesh
-        from distkeras_torch.parallel.spmd import (make_lm_train_step,
+        from distkeras_torch.parallel.mesh import default_mesh, make_mesh
+        from distkeras_torch.parallel.spmd import (make_dp_train_step,
+                                                   make_lm_train_step,
                                                    make_moe_lm_train_step)
         from distkeras_torch.serving import (Autoscaler, DrainingError,
                                              LMServer, Router,
@@ -6136,7 +6229,7 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
         from distkeras_torch.telemetry import report
         from distkeras_torch.trainers import LMTrainer
         from distkeras_torch.utils.losses import get_loss, get_optimizer
-        from distkeras_torch.workers import make_window_step
+        from distkeras_torch.workers import make_train_step, make_window_step
         from distkeras_torch import evaluators, predictors, trainers
         from distkeras_torch import transformers as stages
         from distkeras_torch.parameter_servers import DeltaParameterServer
@@ -6166,6 +6259,8 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
           "PartitionedDataset": PartitionedDataset, "make_mesh": make_mesh,
           "pair_kernel_block": _pair_kernel_block, "bench": bench,
           "get_loss": get_loss, "make_window_step": make_window_step,
+          "make_train_step": make_train_step, "default_mesh": default_mesh,
+          "make_dp_train_step": make_dp_train_step,
           "SingleTrainer": trainers.SingleTrainer,
           "AveragingTrainer": trainers.AveragingTrainer,
           "EnsembleTrainer": trainers.EnsembleTrainer,
@@ -6384,6 +6479,11 @@ def main(phase12_only: bool = False, phase13_only: bool = False,
     mnist = mnist_phase(torch, np, dk)
     mnist["seconds"] = time.perf_counter() - t0
     _emit({"mnist_workflow_phase": mnist})
+
+    t0 = time.perf_counter()
+    dp_step = dp_step_phase(torch, np, dk, smi)
+    dp_step["seconds"] = time.perf_counter() - t0
+    _emit({"dp_step_phase": dp_step})
 
     t0 = time.perf_counter()
     ps_cifar = ps_cifar_phase(torch, np, dk)

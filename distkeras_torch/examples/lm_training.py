@@ -231,8 +231,6 @@ def decode(args, trained, prompt, n_new, mesh=None):
     ``--temperature`` (greedy at 0). A pipeline rank first gathers every
     stage's blocks back (collective); a tp or ep model decodes inside
     its mesh."""
-    from distkeras_torch.models.transformer import beam_search
-
     if mesh is not None and "pp" in mesh.axis_names:
         from distkeras_torch.parallel.pipeline import sync_blocks
 
@@ -240,8 +238,8 @@ def decode(args, trained, prompt, n_new, mesh=None):
             sync_blocks(trained.module, mesh)
     with mesh if mesh is not None else contextlib.nullcontext():
         if args.beam:
-            return beam_search(trained.module, prompt, n_new,
-                               beam_size=args.beam).cpu().numpy()
+            return trained.beam_search(prompt, max_new_tokens=n_new,
+                                       beam_size=args.beam)
         return trained.generate(prompt, max_new_tokens=n_new,
                                 temperature=args.temperature)
 

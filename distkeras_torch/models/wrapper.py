@@ -3,10 +3,11 @@
 
 The reference pairs an immutable flax module with a params pytree. A
 PyTorch module holds its own parameters, so here the pair is the module
-itself: :attr:`Model.params` reads them (by name), :meth:`predict` and
-:meth:`generate` run it, and :meth:`replace_params` builds a twin module
-of the same configuration loaded with other weights. :meth:`serialize`
-/ :meth:`deserialize` write and read the reference's msgpack blob.
+itself: :attr:`Model.params` reads them (by name), :meth:`predict`,
+:meth:`generate` and :meth:`beam_search` run it, and
+:meth:`replace_params` builds a twin module of the same configuration
+loaded with other weights. :meth:`serialize` / :meth:`deserialize`
+write and read the reference's msgpack blob.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 class Model:
     """A trained model: a port module (its parameters inside it), with
-    batched predict and LM generation."""
+    batched predict, LM generation and beam search."""
 
     def __init__(self, module):
         self.module = module
@@ -86,4 +87,19 @@ class Model:
         return transformer.generate(
             self.module, prompt, max_new_tokens, temperature=temperature,
             seed=seed, eos_id=eos_id, top_k=top_k, top_p=top_p,
+        ).cpu().numpy()
+
+    def beam_search(self, prompt, max_new_tokens: int, beam_size: int = 4,
+                    length_penalty: float = 0.0, eos_id=None) -> np.ndarray:
+        """Beam-search decoding (language models only) through
+        :func:`distkeras_torch.models.transformer.beam_search`."""
+        from distkeras_torch.models import transformer
+
+        if not hasattr(self.module, "max_len"):
+            raise TypeError(
+                f"{type(self.module).__name__} is not a language model; "
+                "beam_search() needs a TransformerLM-family module")
+        return transformer.beam_search(
+            self.module, prompt, max_new_tokens, beam_size=beam_size,
+            length_penalty=length_penalty, eos_id=eos_id,
         ).cpu().numpy()

@@ -419,6 +419,19 @@ def recv_msg(sock: socket.socket, max_bytes: int = MAX_FRAME_BYTES) -> Any:
     return serde.unpackb(data)
 
 
+def determine_host_address() -> str:
+    """Best-effort routable address of this host (reference:
+    networking.py · determine_host_address): the source address a UDP
+    socket's ``connect`` picks (no packet is sent), ``127.0.0.1`` when
+    there is no route."""
+    try:
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+            s.connect(("8.8.8.8", 80))  # no packets sent; just picks a route
+            return s.getsockname()[0]
+    except OSError:
+        return "127.0.0.1"
+
+
 def connect(host: str, port: int, disable_nagle: bool = True) -> socket.socket:
     """Reference: networking.py · connect — TCP with Nagle off for the
     small-framed control path."""

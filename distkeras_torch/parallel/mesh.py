@@ -126,6 +126,13 @@ def current_mesh() -> Optional[Mesh]:
     return meshes[-1] if meshes else None
 
 
+def _world_size() -> int:
+    """The initialized ``torch.distributed`` world's size (1 without
+    one)."""
+    return dist.get_world_size() if (dist.is_available()
+                                     and dist.is_initialized()) else 1
+
+
 def local_mesh(axes: Dict[str, int]) -> Mesh:
     """A mesh of one position (every axis of size 1) that needs no
     ``torch.distributed`` world."""
@@ -150,8 +157,7 @@ def make_mesh(axes: Dict[str, int]) -> Mesh:
     if not sizes or any(s < 1 for s in sizes):
         raise ValueError(f"mesh axes need positive sizes; got {axes}")
     need = int(np.prod(sizes))
-    world = dist.get_world_size() if (dist.is_available()
-                                      and dist.is_initialized()) else 1
+    world = _world_size()
     if need != world:
         raise ValueError(
             f"mesh axes {axes} need {need} processes; the torch.distributed "
@@ -174,6 +180,22 @@ def make_mesh(axes: Dict[str, int]) -> Mesh:
                 if rank in ranks:
                     groups[key] = g
     return Mesh(axes, coords, groups)
+
+
+def default_mesh(num_workers: Optional[int] = None) -> Mesh:
+    """The 1-D data-parallel mesh ``{"dp": n}`` over the
+    ``torch.distributed`` world (reference: parallel/mesh.py ·
+    default_mesh), ``n`` = ``num_workers`` or the world's size; a world
+    of one needs no process group. The reference takes the first ``n``
+    of more devices; a position here is a process, so ``n`` must equal
+    the world's size."""
+    world = _world_size()
+    n = num_workers or world
+    if n != world:
+        raise ValueError(
+            f"num_workers={n} but the torch.distributed world has {world} "
+            f"process(es); a mesh position is a process")
+    return make_mesh({"dp": n})
 
 
 def _member_lists(sizes, keep):

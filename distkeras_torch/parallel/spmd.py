@@ -1,5 +1,7 @@
-"""The language-model training step — the port of
-:func:`distkeras_tpu.parallel.spmd.make_lm_train_step`.
+"""The SPMD training steps — the port of
+:mod:`distkeras_tpu.parallel.spmd`: the data-parallel step of any model
+(:func:`make_dp_train_step`), the language-model step
+(:func:`make_lm_train_step`) and the MoE step.
 
 The reference jits one program over a dp x sp (x tp) mesh and threads
 params and optimizer state through it (donated). Here each mesh position
@@ -47,6 +49,7 @@ from distkeras_torch.ops.fused_ce import lm_head_loss
 from distkeras_torch.parallel.collectives import (all_gather_tp, ppermute,
                                                   psum, reduce_grads)
 from distkeras_torch.parallel.mesh import current_mesh, local_mesh
+from distkeras_torch.workers import _bind, _step_fn
 
 # the sharded dimension of each tensor-parallel parameter, by the names
 # of its module and leaf (reference: parallel/spmd.py · lm_param_specs);
@@ -252,6 +255,58 @@ def shard_opt_state(state_dict: dict, optimizer, model) -> dict:
                         and v.dim() == p.dim() else v)
                     for k, v in st.items()}
     return {"state": state, "param_groups": state_dict["param_groups"]}
+
+
+def make_dp_train_step(module, loss_fn, optimizer, mesh=None,
+                       dp_axis: str = "dp"):
+    """The synchronous data-parallel step of any model (reference:
+    parallel/spmd.py · make_dp_train_step): the batch split over
+    ``dp_axis``, the parameters replicated, the gradients' global mean,
+    one optimizer update.
+
+    ``optimizer`` is a ``torch.optim.Optimizer`` over ``module``'s
+    parameters or a :func:`~distkeras_torch.utils.losses.get_optimizer`
+    factory; ``loss_fn(logits, y)`` a scalar (:func:`get_loss`).
+    ``mesh`` is a :func:`~distkeras_torch.parallel.mesh.make_mesh` mesh
+    with a ``dp_axis`` (:func:`~distkeras_torch.parallel.mesh.
+    default_mesh`); this process runs its position. ``None`` is the mesh
+    of one position. Every replica starts from the mesh's first rank's
+    parameters; the mesh's other axes get the same rows (the reference's
+    batch is replicated over them).
+
+    Returns ``step(x, y) -> loss``: ``x`` and ``y`` (tensors or numpy)
+    the GLOBAL batch, the same on every rank, its rows divisible by dp;
+    rank ``i`` of dp trains on rows ``[i B/dp, (i+1) B/dp)``. One forward
+    and backward, the gradients averaged over dp (one all-reduce of
+    them flattened, :func:`distkeras_torch.workers.make_window_step`'s),
+    one ``optimizer.step()``: ``module`` is updated in place. The loss
+    is the mean of the ranks' local losses (``pmean``), a 0-dim device
+    tensor."""
+    if mesh is None:
+        mesh = local_mesh({dp_axis: 1})
+    if dp_axis not in mesh.axis_names:
+        raise ValueError(f"mesh {mesh.axis_names} has no '{dp_axis}' axis "
+                         f"(dp_axis)")
+    dp, my_dp = mesh.axis_size(dp_axis), mesh.index(dp_axis)
+    group = mesh.group(dp_axis)
+    optimizer = _bind(module, optimizer, mesh.group())
+    core = _step_fn(module, loss_fn, optimizer, (), group)
+    dev = next(module.parameters()).device
+
+    def step(x, y):
+        x, y = (torch.as_tensor(a if isinstance(a, torch.Tensor)
+                                else np.asarray(a), device=dev)
+                for a in (x, y))
+        B = x.shape[0]
+        if B % dp or y.shape[0] != B:
+            raise ValueError(f"batch of {B} rows (labels {y.shape[0]}) "
+                             f"does not split over {dp_axis}={dp}")
+        b = B // dp
+        rows = slice(my_dp * b, (my_dp + 1) * b)
+        loss = core(x[rows], y[rows])[0]
+        return psum(loss, group) / dp if dp > 1 else loss
+
+    return step
 
 
 def _next_token_targets(tokens, sp_group, sp: int, my_sp: int):

@@ -427,19 +427,13 @@ class DataParallelTrainer(Trainer):
         self.num_workers = num_workers
 
     def _mesh(self):
-        import torch.distributed as dist
+        from distkeras_torch.parallel.mesh import default_mesh
 
-        from distkeras_torch.parallel.mesh import make_mesh
-
-        world = (dist.get_world_size() if dist.is_available()
-                 and dist.is_initialized() else 1)
-        n = self.num_workers or world
-        if n != world:
-            raise ValueError(
-                f"num_workers={n} but the torch.distributed world has "
-                f"{world} process(es): DataParallelTrainer runs one worker "
-                f"per process")
-        return make_mesh({"dp": n})
+        try:
+            return default_mesh(self.num_workers)
+        except ValueError as e:
+            raise ValueError(f"{e}; DataParallelTrainer runs one worker "
+                             f"per process") from None
 
     def _coerce_dataset(self, dataset):
         return dataset  # _train streams a ShardedDataset from disk

@@ -459,6 +459,40 @@ def test_phase4_holds_every_mode_at_narrow_width(monkeypatch):
     assert res["migrate_device"]["tokens"] > 0
     assert res["migrate_host"]["tokens"] > 0
     assert res["beam_search"]["beams_equal"]
+    assert res["beam_search"]["method_equal"]
+    assert res["beam_search"]["method_splash_launches"] > 0
+
+
+@pytest.mark.parametrize("fault", ["shifted_token", "plain_prefill"])
+def test_phase4_beam_method_fails_on_an_injected_fault(monkeypatch, fault):
+    """Phase 4 catches a ``Model.beam_search`` whose beams differ from
+    the function's (one token off) and one whose prefill bypasses the
+    splash kernel."""
+    import numpy as np
+    import torch
+
+    from distkeras_torch.models.wrapper import Model
+
+    pa, sp = _standin_kernels(monkeypatch)
+    _narrow_exact(monkeypatch)
+    dk = _serving_dk()
+    model = dk["get_model"]("transformer_lm", dtype=torch.float32,
+                            device="cpu", seed=3, **chip_smoke.EXACT)
+    real = Model.beam_search
+
+    def faulty(self, prompt, n, **kw):
+        if fault == "shifted_token":
+            out = real(self, prompt, n, **kw)
+            out[0, -1] = (out[0, -1] + 1) % self.module.vocab_size
+            return out
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(sp, "preferred", lambda *a, **k: False)
+            return real(self, prompt, n, **kw)
+
+    monkeypatch.setattr(Model, "beam_search", faulty)
+    match = "!= beam_search's" if fault == "shifted_token" else "never"
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.exact_beam(torch, np, dk, sp, model)
 
 
 @pytest.mark.parametrize("fault", ["dropped_rejection", "restore_skipped"])
@@ -1380,3 +1414,50 @@ def test_phase18_fails_when_an_engine_drops_a_token(monkeypatch):
     monkeypatch.setattr(chip_smoke, "SERVING18", {"paged": ["--paged"]})
     with pytest.raises(AssertionError):
         chip_smoke.examples_serving_phase(torch, pa, sp, ex)
+
+
+# -- phase 8c: the data-parallel step on the CPU ------------------------------
+
+
+def _dp_step_dk():
+    from distkeras_torch.models import get_model
+    from distkeras_torch.parallel import default_mesh
+    from distkeras_torch.parallel.spmd import make_dp_train_step
+    from distkeras_torch.utils.losses import get_loss, get_optimizer
+    from distkeras_torch.workers import make_train_step
+
+    return {"get_model": get_model, "default_mesh": default_mesh,
+            "make_dp_train_step": make_dp_train_step,
+            "make_train_step": make_train_step, "get_loss": get_loss,
+            "get_optimizer": get_optimizer}
+
+
+@pytest.mark.parametrize("fault", [None, "half_batch"])
+def test_phase8c_dp_step_at_narrow_batch(monkeypatch, fault):
+    """Phase 8c on the CPU at 16 rows: the dp step over default_mesh()
+    equals make_train_step bit for bit and reports a time a step of
+    each beside the card line it is handed; a dp step that trains on
+    half the rows (a wrong split) fails it."""
+    import numpy as np
+    import torch
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "DP_STEP",
+                        dict(chip_smoke.DP_STEP, rows=16))
+    dk = _dp_step_dk()
+    if fault:
+        real = dk["make_dp_train_step"]
+
+        def halved(*a, **kw):
+            step = real(*a, **kw)
+            return lambda x, y: step(x[:len(x) // 2], y[:len(y) // 2])
+
+        dk["make_dp_train_step"] = halved
+        with pytest.raises(AssertionError, match="8c: make_dp_train_step"):
+            chip_smoke.dp_step_phase(torch, np, dk, "card line")
+        return
+    res = chip_smoke.dp_step_phase(torch, np, dk, "card line")
+    assert res["equal_bit_for_bit"] and res["mesh"] == {"dp": 1}
+    assert len(res["losses"]) == len(res["ms_per_step"]) == 3
+    assert len(res["make_train_step_ms_per_step"]) == 3
+    assert res["nvidia_smi"] == "card line"

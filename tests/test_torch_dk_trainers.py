@@ -406,6 +406,88 @@ def test_data_parallel_over_nccl_is_single_at_n_times_the_batch(tmp_path):
     assert hist_gap <= NCCL_TOL and param_gap <= NCCL_TOL
 
 
+# global batches of make_dp_train_step's NCCL case
+NCCL_DP_STEPS = 8
+
+
+def _nccl_dp_step_rank(rank, world, out):
+    from distkeras_torch.parallel import default_mesh
+    from distkeras_torch.parallel.spmd import make_dp_train_step
+
+    torch.cuda.set_device(rank)
+    _set_tf32(False, False)
+    dist.init_process_group("nccl", init_method=f"file://{out}/rendezvous",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        model = _f32_cnn(f"cuda:{rank}")
+        losses = _dp_steps(make_dp_train_step(
+            model, get_loss("categorical_crossentropy"),
+            get_optimizer("momentum", NCCL_KW["learning_rate"]),
+            default_mesh(world)), world, model.device)
+        np.savez(os.path.join(out, f"rank{rank}.npz"), losses=losses,
+                 **{k: v.detach().cpu().numpy()
+                    for k, v in model.state_dict().items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_steps(step, world, device):
+    """NCCL_DP_STEPS steps of ``step(x, y) -> loss`` on consecutive global
+    batches of ``world`` x NCCL_KW's batch rows of the NCCL columns."""
+    cols = _nccl_columns()
+    b = world * NCCL_KW["batch_size"]
+    losses = [step(torch.as_tensor(cols["features"][i * b:(i + 1) * b],
+                                   device=device),
+                   torch.as_tensor(cols["label_encoded"][i * b:(i + 1) * b],
+                                   device=device))
+              for i in range(NCCL_DP_STEPS)]
+    return torch.stack(losses).cpu().numpy()
+
+
+@pytest.mark.cuda
+def test_dp_train_step_over_nccl_is_one_card_at_n_times_the_batch(tmp_path):
+    """Every card of the host as one NCCL rank of
+    ``make_dp_train_step`` over ``default_mesh()`` (mnist_cnn in f32,
+    momentum, NCCL_DP_STEPS global batches): the ranks end bit-identical,
+    and rank 0's losses and weights stay within NCCL_TOL of
+    ``workers.make_train_step`` on the whole batch on one card. Prints
+    the gaps as one JSON line."""
+    world = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if world < 2:
+        pytest.skip("needs two or more CUDA devices (one NCCL rank each)")
+    out = str(tmp_path)
+    torch.multiprocessing.spawn(_nccl_dp_step_rank, args=(world, out),
+                                nprocs=world)
+    was = _set_tf32(False, False)
+    try:
+        model = _f32_cnn("cuda:0")
+        one = make_train_step(model, get_loss("categorical_crossentropy"),
+                              get_optimizer("momentum",
+                                            NCCL_KW["learning_rate"]))
+        want = _dp_steps(lambda x, y: one(x, y)["loss"], world,
+                         model.device)
+        weights = {k: v.detach().cpu().numpy()
+                   for k, v in model.state_dict().items()}
+    finally:
+        _set_tf32(*was)
+    ranks = [dict(np.load(os.path.join(out, f"rank{r}.npz")))
+             for r in range(world)]
+    for rk in ranks[1:]:
+        assert rk.keys() == ranks[0].keys()
+        for key, v in ranks[0].items():
+            np.testing.assert_array_equal(rk[key], v)
+    loss_gap = float(np.abs(ranks[0]["losses"] - want).max())
+    param_gap = max(float(np.abs(ranks[0][k] - v).max())
+                    for k, v in weights.items())
+    print(json.dumps({"world": world, "backend": "nccl",
+                      "steps": NCCL_DP_STEPS, "ranks_identical": True,
+                      "loss_gap_vs_one_card": loss_gap,
+                      "param_gap_vs_one_card": param_gap,
+                      "losses": want.tolist()}))
+    assert loss_gap <= NCCL_TOL and param_gap <= NCCL_TOL
+
+
 # -- observability and what still raises ---------------------------------------
 
 

@@ -215,3 +215,22 @@ def test_serving_and_serve_bench_load_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_parallel_package_exports_its_meshes_and_loads_no_jax():
+    """``distkeras_torch.parallel`` imported first in a fresh interpreter
+    exports ``make_mesh`` and ``default_mesh`` (as the reference's
+    package does), with no import cycle through ``spmd`` and
+    ``workers``, and loads no jax, flax or reference module."""
+    probe = ("import sys, json; import distkeras_torch.parallel as p; "
+             "from distkeras_torch.parallel.spmd import make_dp_train_step; "
+             "assert p.default_mesh().shape == {'dp': 1}; "
+             "assert p.make_mesh({'dp': 1}).shape == {'dp': 1}; "
+             "print(json.dumps(sorted("
+             "k for k in sys.modules if k.split('.')[0] in "
+             "('jax', 'jaxlib', 'flax', 'optax', 'distkeras_tpu'))))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
