@@ -45,6 +45,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from distkeras_torch import telemetry
 from distkeras_torch.ops.fused_ce import lm_head_loss
 from distkeras_torch.parallel.collectives import (all_gather_tp, ppermute,
                                                   psum, reduce_grads)
@@ -371,6 +372,11 @@ def make_lm_train_step(model, optimizer, mesh=None, window: bool = False,
 
     The gradients are summed over dp x sp in flat buckets
     (:func:`~distkeras_torch.parallel.collectives.reduce_grads`).
+
+    Each step's forward with its loss and its backward are phase spans
+    (``train.forward``, ``train.backward``) on the global tracer
+    (:func:`distkeras_torch.telemetry.get_tracer`); the optimizer keeps
+    torch's own ``Optimizer.step`` range.
     """
     if mesh is None:
         if getattr(model, "attention", None) == "ring":
@@ -424,6 +430,7 @@ def make_lm_train_step(model, optimizer, mesh=None, window: bool = False,
     feat_model = model.clone(features_only=True) if fused_ce else None
     head = {"kernel": model.head.kernel, "bias": model.head.bias}
     dev = model.device
+    tracer = telemetry.get_tracer()
 
     def shard(tokens):
         B, T = tokens.shape
@@ -436,25 +443,30 @@ def make_lm_train_step(model, optimizer, mesh=None, window: bool = False,
         return tokens[r0:r0 + b, my_sp * t:(my_sp + 1) * t]
 
     def batch_update(tokens):
-        tokens = shard(tokens)
-        targets, mask = _next_token_targets(tokens, sp_group, sp, my_sp)
         optimizer.zero_grad(set_to_none=True)
-        with mesh:
-            if fused_ce:
-                feats = feat_model(tokens)
-                local_sum, count = lm_head_loss(feats, head, targets, mask)
-            else:
-                logits = model(tokens)
-                token_loss = F.cross_entropy(
-                    logits.reshape(-1, logits.shape[-1]),
-                    targets.reshape(-1), reduction="none")
-                local_sum = (token_loss * mask.reshape(-1)).sum()
-                count = mask.sum()
-        # the local objective sums to the global mean over dp x sp, so
-        # the gradients summed over dp x sp are the global gradient (every
-        # tp rank's is already whole: summing it over tp would scale it)
-        local_obj = local_sum / psum(count.detach(), all_group)
-        local_obj.backward()
+        with tracer.phase("train.forward"):
+            tokens = shard(tokens)
+            targets, mask = _next_token_targets(tokens, sp_group, sp,
+                                                my_sp)
+            with mesh:
+                if fused_ce:
+                    feats = feat_model(tokens)
+                    local_sum, count = lm_head_loss(feats, head, targets,
+                                                    mask)
+                else:
+                    logits = model(tokens)
+                    token_loss = F.cross_entropy(
+                        logits.reshape(-1, logits.shape[-1]),
+                        targets.reshape(-1), reduction="none")
+                    local_sum = (token_loss * mask.reshape(-1)).sum()
+                    count = mask.sum()
+            # the local objective sums to the global mean over dp x sp,
+            # so the gradients summed over dp x sp are the global
+            # gradient (every tp rank's is already whole: summing it
+            # over tp would scale it)
+            local_obj = local_sum / psum(count.detach(), all_group)
+        with tracer.phase("train.backward"):
+            local_obj.backward()
         reduce_grads(params, all_group)
         optimizer.step()
         return psum(local_obj.detach(), all_group)
@@ -569,6 +581,7 @@ def make_moe_lm_train_step(model, optimizer, mesh=None, dp_axis: str = "dp",
     broadcast_params(replicated, all_group)
     broadcast_params(experts, dp_group)
     dev = model.device
+    tracer = telemetry.get_tracer()
 
     def shard(tokens):
         B = tokens.shape[0]
@@ -581,15 +594,18 @@ def make_moe_lm_train_step(model, optimizer, mesh=None, dp_axis: str = "dp",
         return tokens[j * b:(j + 1) * b]
 
     def batch_update(tokens):
-        tokens = shard(tokens)
         optimizer.zero_grad(set_to_none=True)
-        with mesh:
-            logits, auxes = model(tokens, return_aux=True)
-        V = logits.shape[-1]
-        ce = F.cross_entropy(logits[:, :-1].reshape(-1, V),
-                             tokens[:, 1:].reshape(-1))
-        aux = sum(auxes) / max(len(auxes), 1)
-        (ce + aux_weight * aux).backward()
+        with tracer.phase("train.forward"):
+            tokens = shard(tokens)
+            with mesh:
+                logits, auxes = model(tokens, return_aux=True)
+            V = logits.shape[-1]
+            ce = F.cross_entropy(logits[:, :-1].reshape(-1, V),
+                                 tokens[:, 1:].reshape(-1))
+            aux = sum(auxes) / max(len(auxes), 1)
+            obj = ce + aux_weight * aux
+        with tracer.phase("train.backward"):
+            obj.backward()
         reduce_grads(replicated, all_group)
         reduce_grads(experts, dp_group)
         if n_shards > 1:

@@ -70,7 +70,19 @@ with the weight version), live counters/gauges/histograms in a
 :class:`~distkeras_torch.telemetry.MetricRegistry`, per-tick
 :class:`~distkeras_torch.telemetry.FlightRecorder` snapshots dumped to a
 postmortem JSONL on crash, and per-request JSONL records through
-:class:`~distkeras_torch.utils.metrics.MetricsWriter`.
+:class:`~distkeras_torch.utils.metrics.MetricsWriter`. Beside them the
+loop thread records phase spans on the tracer (``ENGINE_PHASES``): every
+step of :meth:`ServingEngine.serve_forever` is covered, without overlap,
+by ``engine.admit`` (the control calls and admissions), ``engine.plan``
+(the plan through the packed host buffer, restores included),
+``engine.launch`` (the upload, the step's launches, the readback's
+queueing), ``engine.wait`` (the readback's event), ``engine.settle``
+(streaming, completions, overruns, counters), ``engine.record`` (runtime
+introspection and the flight snapshot) and ``engine.idle`` (the idle
+doze). The flight snapshot's intervals are those spans; the plan counts
+the positions each dispatched step computes (``S x C``, ``x k`` for a
+multi-step window, ``S x W`` for a verify step) and those of live
+requests among them (``positions_valid``).
 
 Tensor-parallel serving (``mesh=make_mesh({"model": n})``): every rank
 is one process that builds the engine from the same ``tp_size=1`` model
@@ -178,6 +190,10 @@ CONTROL_OPS = ("update_weights", "export_blocks", "import_blocks",
                "set_role", "begin_drain", "end_drain")
 # a follower rank keeps the streams of this many finished requests
 LOCKSTEP_STREAM_RECORDS = 1024
+# the loop thread's phase spans, in a step's order (see the module doc)
+ENGINE_PHASES = ("engine.admit", "engine.plan", "engine.launch",
+                 "engine.wait", "engine.settle", "engine.record",
+                 "engine.idle")
 
 
 def _pack_i32(*arrs) -> np.ndarray:
@@ -442,7 +458,6 @@ class _InflightTick:
     # flipped) — flipped marks the prompt's last chunk landing
     rows: List[Optional[tuple]]
     plan_ms: float
-    dispatch_ms: float
     n_dec: int
     fed_tokens: int
     chunk: Optional[int]
@@ -456,6 +471,7 @@ class _InflightTick:
     host: Optional[list] = None     # pinned host copies of toks (+ acc)
     event: Any = None               # recorded after those copies (card)
     keep: list = field(default_factory=list)
+    dispatch_ms: float = 0.0        # the launch phase (_dispatched)
 
 
 class ServingEngine:
@@ -701,7 +717,17 @@ class ServingEngine:
             self.flight = flight or None
         self._mem = MemoryWatermarks()
         self._flight_ns = 0  # time spent building/recording snapshots
-        self._tick_ns = 0    # total tick wall time (plan+device+stream)
+        self._tick_ns = 0    # total tick wall time (the snapshots' tick_ms)
+        # the loop thread's open phase span, and the phases summed since
+        # the last snapshot (wall ns, the first one's start)
+        self._open_phase: Optional[list] = None
+        self._snap_ns = 0
+        self._snap_t0: Optional[int] = None
+        # the dispatched tick whose launch phase is open
+        self._launching: Optional[_InflightTick] = None
+        # positions of the dispatched steps, and those of live requests
+        self.positions_computed = 0
+        self.positions_valid = 0
         self.model = (model if max_len is None
                       else model.clone(max_len=max_len))
         # the module the ticks run: the model itself, or under a mesh its
@@ -970,6 +996,32 @@ class ServingEngine:
             "serving_weight_swap_ms",
             "one weight swap: validation, staged host->device copies, "
             "and the parameter rebind (ms)")
+        phase_wall = reg.counter(
+            "serving_phase_seconds_total",
+            "loop thread wall time by phase span (ENGINE_PHASES)",
+            labelnames=("phase",))
+        phase_cpu = reg.counter(
+            "serving_phase_cpu_seconds_total",
+            "loop thread CPU time by phase span; wall minus CPU is time "
+            "runnable but not running, or blocked",
+            labelnames=("phase",))
+        phase_spans = reg.counter(
+            "serving_phase_spans_total", "phase spans closed, by phase",
+            labelnames=("phase",))
+        self._m_phase_wall = {ph: phase_wall.labels(phase=ph)
+                              for ph in ENGINE_PHASES}
+        self._m_phase_cpu = {ph: phase_cpu.labels(phase=ph)
+                             for ph in ENGINE_PHASES}
+        self._m_phase_spans = {ph: phase_spans.labels(phase=ph)
+                               for ph in ENGINE_PHASES}
+        self._m_pos_computed = reg.counter(
+            "serving_positions_computed_total",
+            "positions the dispatched steps compute (S x C a tick, x k a "
+            "multi-step window, S x W a verify step), padding included")
+        self._m_pos_valid = reg.counter(
+            "serving_positions_valid_total",
+            "positions of live requests among them: decode rows, prompt "
+            "tokens fed, verify windows")
 
     # -- submission ---------------------------------------------------------
 
@@ -1070,7 +1122,9 @@ class ServingEngine:
         call. Returns False when there is nothing to do. An exception
         escaping the cycle dumps the flight recorder to a postmortem
         JSONL before re-raising. A tensor-parallel engine binds its
-        mesh around the step (the twins read their tp group from it)."""
+        mesh around the step (the twins read their tp group from it).
+        Phase spans cover the call, from ``engine.admit`` on."""
+        self._phase("engine.admit")
         try:
             with (self.mesh if self.mesh is not None
                   else contextlib.nullcontext()):
@@ -1078,6 +1132,39 @@ class ServingEngine:
         except Exception as e:
             self._crash(e, "step()")
             raise
+        finally:
+            self._phase(None)
+
+    def _phase(self, name: Optional[str]) -> float:
+        """Move the loop thread into phase span ``name`` (None: out of
+        every phase) at one stamp, closing the open one; a phase already
+        open continues. Returns the closed span's wall time, ms (0.0
+        when none closed), after counting it in the registry and in the
+        next flight snapshot's ``tick_ms`` (idle left out)."""
+        span = self._open_phase
+        if span is not None and span[0] == name:
+            return 0.0
+        self._open_phase, wall, cpu = self.tracer.switch_phase(span, name)
+        if span is None:
+            return 0.0
+        self._m_phase_wall[span[0]].inc(wall / 1e9)
+        self._m_phase_cpu[span[0]].inc(cpu / 1e9)
+        self._m_phase_spans[span[0]].inc()
+        if span[0] == "engine.launch" and self._launching is not None:
+            self._launching.dispatch_ms = wall / 1e6
+            self._launching = None
+        if span[0] != "engine.idle":
+            self._snap_ns += wall
+            if self._snap_t0 is None:
+                self._snap_t0 = span[1]
+        return wall / 1e6
+
+    def _count_positions(self, computed: int, valid: int):
+        """A dispatched step's positions, counted where it is planned."""
+        self.positions_computed += computed
+        self.positions_valid += valid
+        self._m_pos_computed.inc(computed)
+        self._m_pos_valid.inc(valid)
 
     def _crash(self, e: BaseException, where: str):
         """Count a crash and dump the flight postmortem (once per
@@ -1115,6 +1202,7 @@ class ServingEngine:
         n_prefills = self._admit()
         occupied = any(st is not None for st in self._slots)
         if occupied:
+            self._phase("engine.plan")
             k = self._multi_gate()
             if k > 1:
                 self._reconcile(self._plan_dispatch_multi(k))
@@ -1126,6 +1214,7 @@ class ServingEngine:
                 self._decode_tick()
             # slots freed while processing the tick's tokens are refilled
             # NOW, so the next tick already serves their replacements
+            self._phase("engine.admit")
             n_prefills += self._admit()
             if self.prefill_chunk is None:
                 # share of this step's dispatches that were prefills
@@ -1145,17 +1234,21 @@ class ServingEngine:
             defer: list = []
             while self._pending:
                 self._reconcile_spec(self._pending.popleft(), defer)
+            self._phase("engine.admit")
             self._admit()
             occupied = any(st is not None for st in self._slots)
             if occupied:
+                self._phase("engine.plan")
                 self._multi_gate()  # fallback accounting only ("spec")
                 self._pending.append(self._plan_dispatch_spec())
+            self._phase("engine.settle")
             self._flush_emissions(defer)
             return (occupied or self.scheduler.depth() > 0
                     or bool(self._pending))
         self._admit()
         occupied = any(st is not None for st in self._slots)
         if occupied:
+            self._phase("engine.plan")
             k = self._multi_gate()
             if k > 1:
                 rec = self._plan_dispatch_multi(k)
@@ -1188,7 +1281,9 @@ class ServingEngine:
                 return self._serve_lockstep(stop, idle_sleep)
             while not stop.is_set():
                 if not self.step():
+                    self._phase("engine.idle")
                     stop.wait(idle_sleep)
+                    self._phase(None)
 
     def _has_work(self) -> bool:
         return (any(st is not None for st in self._slots)
@@ -1387,7 +1482,9 @@ class ServingEngine:
                 if rec["busy"]:
                     self.step()
                 elif lead:
+                    self._phase("engine.idle")
                     stop.wait(idle_sleep)
+                    self._phase(None)
         except BaseException as e:
             self._lockstep_error = e
             self._crash(e, f"the lock-step loop (tp rank {self.tp_rank})")
@@ -2209,10 +2306,13 @@ class ServingEngine:
 
     def _dispatched(self, rec: _InflightTick) -> _InflightTick:
         """Queue the tick's readback right behind its kernels and hand it
-        every pinned buffer whose copy was queued before them."""
+        every pinned buffer whose copy was queued before them. The
+        launch phase stays open until the loop's next phase: its time
+        is the tick's ``dispatch_ms``."""
         outs = [rec.toks] + ([rec.acc] if rec.acc is not None else [])
         rec.host, rec.event = _d2h(outs, self._device)
         rec.keep, self._staged = self._staged, []
+        self._launching = rec
         return rec
 
     def _read(self, rec: _InflightTick):
@@ -2246,7 +2346,7 @@ class ServingEngine:
         valid-length step (``[S, 1]`` when no prompt token was dealt).
         RESTORING rows are planned idle (valid 0, no budget charge,
         generator untouched); their restores are issued first."""
-        t_plan0 = time.perf_counter()
+        self._phase("engine.plan")
         if self.host is not None:
             self._issue_restores()
         S = self.slots
@@ -2304,13 +2404,12 @@ class ServingEngine:
             self._seq_lens = self._seq_lens + adv
         else:
             packed = _pack_i32(fed, valid, sample_mask)
-        t0 = time.perf_counter()
-        plan_ms = (t0 - t_plan0) * 1e3
+        self._count_positions(S * C, n_dec + fed_tokens)
+        plan_ms = self._phase("engine.launch")
         dev = self._upload(packed)
         toks = self._mixed_step(cfgs, C, dev, sample_mask)
         return self._dispatched(_InflightTick(
             toks=toks, rows=rows, plan_ms=plan_ms,
-            dispatch_ms=(time.perf_counter() - t0) * 1e3,
             n_dec=n_dec, fed_tokens=fed_tokens, chunk=C,
         ))
 
@@ -2323,7 +2422,7 @@ class ServingEngine:
         samples (idle ones greedily) and advances one decode step; paged
         rows advance their host cursors by one. It is the mixed step at
         ``C = 1`` with every row valid and sampling."""
-        t_plan0 = time.perf_counter()
+        self._phase("engine.plan")
         S = self.slots
         cfgs = self._cfgs()
         rows: List[Optional[tuple]] = [
@@ -2340,12 +2439,11 @@ class ServingEngine:
             self._seq_lens = self._seq_lens + alive.astype(np.int32)
         else:
             packed = _pack_i32(fed, ones, ones)
-        t0 = time.perf_counter()
-        plan_ms = (t0 - t_plan0) * 1e3
+        self._count_positions(S, n_dec)
+        plan_ms = self._phase("engine.launch")
         toks = self._mixed_step(cfgs, 1, self._upload(packed), ones)
         return self._dispatched(_InflightTick(
             toks=toks, rows=rows, plan_ms=plan_ms,
-            dispatch_ms=(time.perf_counter() - t0) * 1e3,
             n_dec=n_dec, fed_tokens=0, chunk=None,
         ))
 
@@ -2435,7 +2533,7 @@ class ServingEngine:
         completes at this window's reconcile (EOS or an emptied budget
         are the only stop reasons), where :meth:`_complete` returns its
         chain and zeroes its cursor."""
-        t_plan0 = time.perf_counter()
+        self._phase("engine.plan")
         S = self.slots
         cfgs = self._cfgs()
         rows: List[Optional[tuple]] = [
@@ -2455,12 +2553,11 @@ class ServingEngine:
             self._seq_lens = self._seq_lens + lim  # rebind, never mutate
         else:
             packed = _pack_i32(eos, lim)
-        t0 = time.perf_counter()
-        plan_ms = (t0 - t_plan0) * 1e3
+        self._count_positions(S * k, int(lim.sum()))
+        plan_ms = self._phase("engine.launch")
         toks, counts = self._multi_step(cfgs, k, lim, self._upload(packed))
         return self._dispatched(_InflightTick(
             toks=toks, rows=rows, plan_ms=plan_ms,
-            dispatch_ms=(time.perf_counter() - t0) * 1e3,
             n_dec=n_dec, fed_tokens=0, chunk=None, multi_k=k, acc=counts,
         ))
 
@@ -2513,12 +2610,11 @@ class ServingEngine:
         hid), stream each planned row's tokens, complete EOS'd /
         exhausted rows, drop overrun tokens whose row finished in an
         earlier reconcile, and record telemetry + the flight snapshot."""
-        t_wait0 = time.perf_counter()
+        self._phase("engine.wait")
         host = self._read(rec)
         toks_host = host[0]
         counts_host = host[1] if rec.multi_k is not None else None
-        wait_ms = (time.perf_counter() - t_wait0) * 1e3
-        t_stream0 = time.perf_counter()
+        wait_ms = self._phase("engine.settle")
         self.ticks += 1
         occupancy = sum(st is not None for st in self._slots)
         self._occ_sum += occupancy
@@ -2596,7 +2692,6 @@ class ServingEngine:
         )
         self._record_tick(
             plan_ms=rec.plan_ms, device_ms=device_ms,
-            stream_ms=(time.perf_counter() - t_stream0) * 1e3,
             n_dec=rec.n_dec, prefill_tokens=rec.fed_tokens,
             chunk=rec.chunk, emitted=emitted, occupancy=occupancy,
             queue_depth=queue_depth, device_wait_ms=wait_ms,
@@ -2679,7 +2774,7 @@ class ServingEngine:
         the host-side n-gram lookup), and dispatch the fused ``[S, W]``
         verify with per-row rejection sampling and rollback. Restores
         are issued first; RESTORING rows are planned idle."""
-        t_plan0 = time.perf_counter()
+        self._phase("engine.plan")
         if self.host is not None:
             self._issue_restores()
         S, k = self.slots, self.spec_k
@@ -2748,8 +2843,8 @@ class ServingEngine:
                     st.decoding = True
                     flipped = True
             rows[s] = ("pre", st, take, flipped)
-        t0 = time.perf_counter()
-        plan_ms = (t0 - t_plan0) * 1e3
+        self._count_positions(S * W, int(valid.sum()))
+        plan_ms = self._phase("engine.launch")
         q_probs = draft_dev = None
         if self.draft_kind == "model":
             q_probs, draft_dev = self._run_draft(cfgs, spec_rows)
@@ -2762,7 +2857,6 @@ class ServingEngine:
                                       sample_mask, draft_dev, q_probs)
         return self._dispatched(_InflightTick(
             toks=toks, rows=rows, plan_ms=plan_ms,
-            dispatch_ms=(time.perf_counter() - t0) * 1e3,
             n_dec=len(dec), fed_tokens=fed_tokens, chunk=W,
             acc=acc, n_forced=n_forced, granted=granted,
             spec_set=spec_set,
@@ -2885,15 +2979,14 @@ class ServingEngine:
         (pipelined) the emission is queued for after the next
         dispatch."""
         k = self.spec_k
-        t_wait0 = time.perf_counter()
+        self._phase("engine.wait")
         toks_host, acc_host = self._read(rec)
-        wait_ms = (time.perf_counter() - t_wait0) * 1e3
+        wait_ms = self._phase("engine.settle")
         if self.paged:
             # rebind, never mutate: each row keeps its forced tokens
             # plus the accepted prefix
             self._seq_lens = self._seq_lens + (
                 rec.n_forced + acc_host).astype(np.int32)
-        t_stream0 = time.perf_counter()
         self.ticks += 1
         occupancy = sum(st is not None for st in self._slots)
         self._occ_sum += occupancy
@@ -2973,7 +3066,6 @@ class ServingEngine:
         )
         self._record_tick(
             plan_ms=rec.plan_ms, device_ms=device_ms,
-            stream_ms=(time.perf_counter() - t_stream0) * 1e3,
             n_dec=rec.n_dec, prefill_tokens=rec.fed_tokens,
             chunk=rec.chunk, emitted=emitted, occupancy=occupancy,
             queue_depth=queue_depth, draft_tokens=proposed,
@@ -3106,16 +3198,22 @@ class ServingEngine:
         return self._mem.summary()
 
     def _record_tick(self, *, plan_ms: float, device_ms: float,
-                     stream_ms: float, n_dec: int, prefill_tokens: int,
+                     n_dec: int, prefill_tokens: int,
                      chunk: Optional[int], emitted: int, occupancy: int,
                      queue_depth: int, device_wait_ms: float,
                      dispatch_ms: float,
                      draft_tokens: Optional[int] = None,
                      accepted_tokens: Optional[int] = None,
                      overrun: int = 0, multi_k: Optional[int] = None):
-        """Post-tick runtime introspection + the flight snapshot, self-
-        timed against tick wall time (``stats()["flight"]``)."""
-        self._tick_ns += int((plan_ms + device_ms + stream_ms) * 1e6)
+        """Post-tick runtime introspection + the flight snapshot: the
+        ``engine.record`` phase, which ends the tick's settle phase
+        (``stream_ms``). The snapshot's ``tick_ms`` sums every phase
+        since the previous snapshot (the idle phase left out), from
+        ``t0_ns``; building and recording it is self-timed against
+        that (``stats()["flight"]``). ``device_ms`` is the
+        tick's launch plus its wait on the readback: host time, not the
+        device's."""
+        stream_ms = self._phase("engine.record")
         rec_total = recompiles.total()
         oldest = self.scheduler.oldest_age_s()
         sample_tick = self.ticks % self.MEM_SAMPLE_EVERY == 1
@@ -3133,11 +3231,11 @@ class ServingEngine:
                 for st in live:
                     st.req.device_ms_accum += share
         t0 = time.perf_counter_ns()
+        snap = None
         if self.flight is not None:
             snap = {
                 "kind": "tick", "tick": self.ticks,
                 "t": time.monotonic(),
-                "tick_ms": plan_ms + device_ms + stream_ms,
                 "plan_ms": plan_ms, "device_ms": device_ms,
                 "stream_ms": stream_ms,
                 "device_wait_ms": device_wait_ms,
@@ -3175,6 +3273,17 @@ class ServingEngine:
                 if self._tick_exported or self._tick_imported:
                     snap["kv_exported"] = self._tick_exported
                     snap["kv_imported"] = self._tick_imported
+        # the record phase stays open: its time so far counts in this
+        # snapshot, the rest in the next one
+        now = time.perf_counter_ns()
+        opened = self._open_phase[1]
+        tick_ns = self._snap_ns + now - opened
+        t0_ns = opened if self._snap_t0 is None else self._snap_t0
+        self._snap_ns, self._snap_t0 = opened - now, now
+        self._tick_ns += tick_ns
+        if snap is not None:
+            snap["tick_ms"] = tick_ns / 1e6
+            snap["t0_ns"] = t0_ns
             self.flight.record(snap)
         self._flight_ns += time.perf_counter_ns() - t0
         self._tick_demoted = 0
@@ -3233,6 +3342,14 @@ class ServingEngine:
                 "p99": self._m_device_wait.percentile(99),
             },
             "overrun_tokens": self.overrun_tokens,
+            # the tracer's running totals of the loop's phase spans (an
+            # engine sharing its tracer shares them) and the positions
+            # the dispatched steps computed, and those of live requests
+            "phases": {ph: tot for ph, tot in
+                       self.tracer.phase_totals().items()
+                       if ph in ENGINE_PHASES},
+            "positions_computed": self.positions_computed,
+            "positions_valid": self.positions_valid,
             "critical_path_ms": {
                 ph: {"p50": self._m_critical.percentile(50, phase=ph),
                      "p99": self._m_critical.percentile(99, phase=ph)}

@@ -130,7 +130,8 @@ that submitted, recorded on the queued span as the cross-process link):
 ``trace_dump`` filtered to it returns the full span chain
 (queued/prefill/decode/finish + this connection's stream span), and
 ``chrome_trace`` the same spans as Chrome trace-event JSON for
-ui.perfetto.dev.
+ui.perfetto.dev (without a trace id, the engine loop's phase spans too,
+in a lane of their own: its tick).
 
 Tokens stream as the engine emits them — a connection may hold many
 in-flight requests, so frames are tagged with the request id and the
@@ -482,12 +483,16 @@ class LMServer:
                         )
                         self._send(conn, lock, {"ok": 1, "spans": spans})
                     elif op == "chrome_trace":
+                        limit = (None if msg.get("limit") is None
+                                 else int(msg["limit"]))
                         spans = self.engine.tracer.dump(
                             trace=(None if msg.get("trace") is None
                                    else int(msg["trace"])),
-                            limit=(None if msg.get("limit") is None
-                                   else int(msg["limit"])),
+                            limit=limit,
                         )
+                        if msg.get("trace") is None:
+                            # the whole view: the loop's phase lanes too
+                            spans += self.engine.tracer.phase_dump(limit)
                         self._send(conn, lock, {
                             "ok": 1, "chrome": to_chrome_trace(spans),
                         })
@@ -960,7 +965,8 @@ class ServingClient:
     def chrome_trace(self, trace: Optional[int] = None,
                      limit: Optional[int] = None) -> dict:
         """Server-side spans as Chrome trace-event JSON (one trace id's
-        chain when given — against a router, the fleet-merged chain).
+        chain when given — against a router, the fleet-merged chain;
+        without one, the engine loop's phase spans beside the requests).
         ``json.dump`` the result and open it in ui.perfetto.dev."""
         msg: dict = {"op": "chrome_trace"}
         if trace is not None:

@@ -18,6 +18,9 @@ Chrome trace-event JSON format, so any request opens directly in
   from the first span of each process to the next — the router hop is
   visible as an arrow from the router lane into the replica's slot,
 - process/thread metadata events (``ph="M"``) name the tracks.
+- phase spans (:meth:`~distkeras_torch.telemetry.trace.Tracer.phase_dump`:
+  the engine loop's tick, a training step's forward and backward) get
+  one lane per thread that recorded them, beside the request lanes.
 
 Everything here is derived data over plain dicts — stdlib-only like the
 rest of :mod:`distkeras_torch.telemetry`, and pure (no tracer access), so
@@ -34,6 +37,7 @@ from typing import Dict, Iterable, List, Set
 _TID_MISC = 0      # queued/finish and anything slot-less
 _TID_ROUTER = 98   # router.* spans
 _TID_STREAM = 99   # client-delivery pump spans
+_TID_PHASES = 1 << 20  # phase spans: + the recording thread's lane
 
 _THREAD_NAMES = {_TID_MISC: "requests", _TID_ROUTER: "router",
                  _TID_STREAM: "stream"}
@@ -43,6 +47,8 @@ def _tid(span: dict) -> int:
     """Lane for a span within its process: slot-pinned engine spans get
     one lane per decode slot, router and stream-pump spans fixed lanes
     of their own, everything else the shared request lane."""
+    if "lane" in span:
+        return _TID_PHASES + int(span["lane"])
     slot = span.get("slot")
     if slot is not None:
         return 1 + int(slot)
@@ -55,6 +61,8 @@ def _tid(span: dict) -> int:
 
 
 def _thread_name(tid: int) -> str:
+    if tid >= _TID_PHASES:
+        return f"phases, thread {tid - _TID_PHASES}"
     return _THREAD_NAMES.get(tid, f"slot {tid - 1}")
 
 

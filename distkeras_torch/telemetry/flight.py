@@ -9,6 +9,17 @@ stream phases, recompile count, memory watermarks) into a bounded ring,
 so the last few thousand ticks of engine state are always reconstructable
 — a black box, in the aviation sense.
 
+The engine's snapshot times its tick by the loop's phase spans
+(:class:`~distkeras_torch.telemetry.trace.Tracer`: ``engine.admit``,
+``engine.plan``, ``engine.launch``, ``engine.wait``, ``engine.settle``,
+``engine.record``, in the tracer's own ring, with running totals the
+engine's ``stats()`` exposes): ``plan_ms``, ``dispatch_ms`` (launch),
+``device_wait_ms`` and ``stream_ms`` (settle) are those spans of the
+tick, ``tick_ms`` sums every phase since the previous snapshot (the
+idle phase left out) and ``t0_ns`` is the first one's start on
+``time.perf_counter_ns()``. ``device_ms`` is ``dispatch_ms`` plus
+``device_wait_ms``: host time, not the device's.
+
 Snapshots are plain dicts (msgpack/json clean) and recording is an
 append under a lock — the engine self-measures the overhead and
 ``serve_bench --smoke`` asserts it stays under 5% of the tick. The ring

@@ -43,6 +43,24 @@ completed requests in a bounded ring (the router snapshots each request's
 chain at stream end, so a chain outlives the per-process rings that fed
 it), and :func:`critical_path` turns one merged chain into the
 per-request time attribution — where a slow p99 actually went.
+
+Phase spans time a loop rather than a request: the serving engine's
+tick (``engine.admit``, ``engine.plan``, ``engine.launch``,
+``engine.wait``, ``engine.settle``, ``engine.record``, ``engine.idle``)
+and a training step (``train.forward``, ``train.backward``). The loop
+opens and closes them on one thread (:meth:`Tracer.switch_phase`, or the
+:meth:`Tracer.phase` block); each records its name, start and end on
+``time.perf_counter_ns()``, the thread's CPU time over it
+(``time.thread_time_ns()``) and the thread id, as one tuple in a bounded
+ring of its own (``Tracer.PHASE_CAPACITY``; spans aged out are counted), so
+request chains do not age out faster. Per name the tracer keeps running
+totals of wall ns, CPU ns and spans (:meth:`Tracer.phase_totals`), which
+the engine exposes in ``stats()`` and its registry. While a torch
+profiler records, each phase span also opens a
+``torch.profiler.record_function`` range of its name, so the profiler's
+trace shows the loop's phases; otherwise no range is entered (torch is
+never imported here). :meth:`Tracer.phase_dump` renders the ring as
+span records for the Chrome export, one lane per thread.
 """
 
 from __future__ import annotations
@@ -51,6 +69,7 @@ import contextlib
 import json
 import os
 import random
+import sys
 import threading
 import time
 import warnings
@@ -72,6 +91,9 @@ class Tracer:
     threads all write concurrently.
     """
 
+    # the phase ring's length in spans (a ~100 ms serving tick makes ~7)
+    PHASE_CAPACITY = 8192
+
     def __init__(self, capacity: int = 4096, path: Optional[str] = None,
                  pid: Optional[int] = None):
         if capacity < 1:
@@ -87,6 +109,13 @@ class Tracer:
         # process's monotonic clock has an arbitrary epoch
         self._anchor_mono = time.monotonic()
         self._anchor_wall = time.time()
+        # the phase spans' clock, anchored with the same pair
+        self._anchor_perf_ns = time.perf_counter_ns()
+        # phase spans: (name, t0_ns, t1_ns, cpu_ns, thread) tuples, and
+        # per name [wall_ns, cpu_ns, spans]
+        self._phases: deque = deque(maxlen=self.PHASE_CAPACITY)
+        self._phases_dropped = 0
+        self._phase_totals: Dict[str, list] = {}
         # per-process-seeded id source: random 63-bit ids are unique
         # within a process AND collision-free across a fleet w.h.p.
         # (sequential per-process ints collide the moment two
@@ -153,6 +182,79 @@ class Tracer:
             self.record(trace, name, t0, (time.monotonic() - t0) * 1e3,
                         **attrs)
 
+    # -- phase spans --------------------------------------------------------
+
+    def switch_phase(self, span: Optional[list], name: Optional[str]
+                     ) -> tuple:
+        """Close the calling thread's open phase span ``span`` (None:
+        none is open) and open phase ``name`` (None: open none) at one
+        reading of the thread's clocks. Returns ``(opened, wall_ns,
+        cpu_ns)``: the new open span, to pass back here to close it,
+        and the closed span's wall and CPU time (0, 0 when none)."""
+        now, cpu = time.perf_counter_ns(), time.thread_time_ns()
+        wall = used = 0
+        if span is not None:
+            if span[3] is not None:
+                span[3].__exit__(None, None, None)
+            wall, used = now - span[1], cpu - span[2]
+            with self._lock:
+                if len(self._phases) == self._phases.maxlen:
+                    self._phases_dropped += 1
+                self._phases.append((span[0], span[1], now, used,
+                                     threading.get_ident()))
+                tot = self._phase_totals.setdefault(span[0], [0, 0, 0])
+                tot[0] += wall
+                tot[1] += used
+                tot[2] += 1
+        opened = None
+        if name is not None:
+            opened = [name, now, cpu, _profiler_range(name)]
+        return opened, wall, used
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        """``with tracer.phase("train.forward"):`` — one phase span
+        around the block, on the calling thread."""
+        span = self.switch_phase(None, name)[0]
+        try:
+            yield
+        finally:
+            self.switch_phase(span, None)
+
+    def phase_totals(self) -> Dict[str, dict]:
+        """Per phase name since construction: ``{"wall_ns", "cpu_ns",
+        "count"}`` summed over every closed span (aged-out ones
+        included)."""
+        with self._lock:
+            return {n: {"wall_ns": w, "cpu_ns": c, "count": k}
+                    for n, (w, c, k) in self._phase_totals.items()}
+
+    def phase_spans(self) -> tuple:
+        """The phase ring, oldest first, as ``(name, t0_ns, t1_ns,
+        cpu_ns, thread)`` tuples on ``time.perf_counter_ns()``, and the
+        number of spans aged out of it so far."""
+        with self._lock:
+            return list(self._phases), self._phases_dropped
+
+    def phase_dump(self, limit: Optional[int] = None) -> List[dict]:
+        """The phase ring as span records (the newest ``limit``): its
+        name as ``span``, the start ``t0`` (``perf_counter``, s) and on
+        the wall clock ``w`` (this tracer's anchor), ``ms``,
+        ``cpu_ms``, ``pid``, ``thread`` and ``lane`` (the threads
+        numbered in order of appearance): the Chrome export gives each
+        lane a track."""
+        spans, _ = self.phase_spans()
+        if limit is not None and limit >= 0:
+            spans = spans[-limit:] if limit else []
+        base = self._anchor_wall - self._anchor_perf_ns / 1e9
+        lanes: Dict[int, int] = {}
+        return [{"span": n, "t0": round(t0 / 1e9, 6),
+                 "w": round(base + t0 / 1e9, 6),
+                 "ms": round((t1 - t0) / 1e6, 3),
+                 "cpu_ms": round(cpu / 1e6, 3), "pid": self.pid,
+                 "thread": tid, "lane": lanes.setdefault(tid, len(lanes))}
+                for n, t0, t1, cpu, tid in spans]
+
     # -- querying -----------------------------------------------------------
 
     def dump(self, trace: Optional[int] = None,
@@ -177,6 +279,7 @@ class Tracer:
     def clear(self):
         with self._lock:
             self._buf.clear()
+            self._phases.clear()
 
     def close(self):
         """Flush and close the JSONL mirror (idempotent); the ring
@@ -279,6 +382,9 @@ def critical_path(spans: Iterable[dict]) -> Optional[dict]:
     - ``device``  — device compute attributed to this request during
       decode (the ``decode`` span's ``device_ms`` attr, engine-side
       per-tick attribution),
+      which the engine measures on the host: each tick's launch time
+      plus its wait on the readback, not device time (a pipelined
+      tick's device work hides behind the next tick's host work),
     - ``decode``  — the rest of the decode window (host planning,
       scheduling, stream emission overlapped with compute),
     - ``stream``  — delivery tail after decode ended (the non-overlapped
@@ -334,6 +440,18 @@ def critical_path(spans: Iterable[dict]) -> Optional[dict]:
         "phases": {k: round(v, 3) for k, v in phases.items()},
         "spans": len(spans),
     }
+
+
+def _profiler_range(name: str):
+    """A ``record_function`` range of ``name``, entered, while a torch
+    profiler records; else None. Without torch's profiler module loaded
+    no profiler can be recording, so torch is not imported here."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not prof._is_profiler_enabled:
+        return None
+    rng = prof.record_function(name)
+    rng.__enter__()
+    return rng
 
 
 _global_tracer = Tracer()

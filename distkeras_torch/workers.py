@@ -74,15 +74,21 @@ def _mean_grads(params, group, n: int):
 
 def _step_fn(module, loss_fn, optimizer, metrics, group):
     """One step as a ``[1 + len(metrics)]`` device tensor: loss, then the
-    metrics of this batch's logits (taken before the update)."""
+    metrics of this batch's logits (taken before the update). The
+    forward with the loss and the backward are phase spans
+    (``train.forward``, ``train.backward``) on the global tracer; the
+    optimizer keeps torch's own ``Optimizer.step`` range."""
     params = [p for p in module.parameters() if p.requires_grad]
     n = group_size(group)
+    tracer = telemetry.get_tracer()
 
     def step(x, y):
         optimizer.zero_grad(set_to_none=True)
-        logits = module(x)
-        loss = loss_fn(logits, y)
-        loss.backward()
+        with tracer.phase("train.forward"):
+            logits = module(x)
+            loss = loss_fn(logits, y)
+        with tracer.phase("train.backward"):
+            loss.backward()
         if n > 1:
             _mean_grads(params, group, n)
         optimizer.step()

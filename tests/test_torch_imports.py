@@ -10,6 +10,7 @@ builds no kernel and needs no card. The port's static analysis loads
 neither jax nor torch."""
 
 import ast
+import difflib
 import os
 import subprocess
 import sys
@@ -151,19 +152,29 @@ def test_port_sources_import_no_jax():
 
 TELEMETRY_COPIES = ("events", "flight", "registry", "runtime", "trace",
                     "chrome", "timeseries", "slo", "exposition", "report")
+# the copies the port extends in place with its phase spans
+TELEMETRY_EXTENDED = ("trace", "chrome", "flight")
 
 
 @pytest.mark.parametrize("name", TELEMETRY_COPIES)
 def test_stdlib_telemetry_copies_match_reference(name):
     """The port's stdlib-only telemetry modules are copies of the
     reference's: each file's text equals the reference's once
-    ``distkeras_tpu`` is replaced by ``distkeras_torch``."""
+    ``distkeras_tpu`` is replaced by ``distkeras_torch``; the three the
+    port extends with phase spans (``TELEMETRY_EXTENDED``) hold every
+    line of it, in order, and only add lines."""
     with open(os.path.join(ROOT, "distkeras_tpu", "telemetry",
                            name + ".py")) as f:
         ref = f.read().replace("distkeras_tpu", "distkeras_torch")
     with open(os.path.join(ROOT, "distkeras_torch", "telemetry",
                            name + ".py")) as f:
-        assert f.read() == ref
+        mine = f.read()
+    if name not in TELEMETRY_EXTENDED:
+        assert mine == ref
+        return
+    ops = difflib.SequenceMatcher(None, ref.split("\n"), mine.split("\n"),
+                                  autojunk=False).get_opcodes()
+    assert {op[0] for op in ops} == {"equal", "insert"}
 
 
 FABRIC_COPIES = ("fleet", "router", "controller")

@@ -27,6 +27,7 @@ same numpy inputs and the same weights (JAX ``init`` ->
 """
 
 import json
+import threading
 
 import numpy as np
 import pytest
@@ -287,6 +288,37 @@ def test_window_step_equals_single_steps_and_unfused_loss():
     np.testing.assert_array_equal(losses["window"], losses["single"])
     np.testing.assert_allclose(losses["unfused"], losses["single"],
                                rtol=1e-5, atol=1e-5)
+
+
+def test_train_steps_emit_a_forward_and_a_backward_span_a_step():
+    """A window of W steps of ``make_lm_train_step(window=True)`` and of
+    ``make_window_step`` records W ``train.forward`` and W
+    ``train.backward`` phase spans on the global tracer, in turn."""
+    from distkeras_torch import telemetry
+    from distkeras_torch.workers import make_window_step
+
+    tracer = telemetry.get_tracer()
+    W = 3
+    pm = get_model("transformer_lm", dtype=torch.float32, device="cpu",
+                   seed=5, **TINY)
+    lm_window = make_lm_train_step(pm, get_optimizer("sgd", 0.1),
+                                   window=True)
+    lin = torch.nn.Linear(4, 3)
+    dense_window = make_window_step(
+        lin, lambda logits, y: ((logits - y) ** 2).mean(),
+        get_optimizer("sgd", 0.1))
+    calls = [lambda: lm_window(_tokens(3, (W, 2, 12))),
+             lambda: dense_window(torch.ones(W, 5, 4), torch.zeros(W, 5, 3))]
+    for call in calls:
+        spans0, dropped0 = tracer.phase_spans()
+        call()
+        spans, dropped = tracer.phase_spans()
+        new = spans[len(spans0) - (dropped - dropped0):]
+        mine = [s for s in new if s[4] == threading.get_ident()]
+        assert [s[0] for s in mine] == ["train.forward",
+                                        "train.backward"] * W
+        for a, b in zip(mine, mine[1:]):
+            assert a[2] <= b[1]
 
 
 def test_train_step_deferred_features_raise():
