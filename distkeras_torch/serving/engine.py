@@ -841,6 +841,10 @@ class ServingEngine:
         self.tokens_generated = 0
         self.prompt_tokens = 0
         self.prefix_hit_tokens = 0
+        # radix-index victims chosen for eviction or demotion, and the
+        # heap entries examined choosing them
+        self.prefix_victims = 0
+        self.prefix_victim_probes = 0
         self._occ_sum = 0
         self.draft_tokens_proposed = 0
         self.draft_tokens_accepted = 0
@@ -912,6 +916,10 @@ class ServingEngine:
             "serving_prefix_hit_tokens_total",
             "prompt tokens served from the radix prefix cache "
             "(prefill skipped)")
+        self._m_victim_probes = reg.counter(
+            "serving_prefix_victim_probes_total",
+            "radix prefix-index heap entries examined choosing eviction "
+            "victims")
         self._m_prompt_tokens = reg.counter(
             "serving_prompt_tokens_total",
             "prompt tokens across admitted requests (hit + prefilled)")
@@ -1799,15 +1807,13 @@ class ServingEngine:
         move to host memory and its radix node is re-keyed ``device ->
         host``, so the prefix stays matchable."""
         while self.pool.free_count() < n and self.prefix is not None:
-            need = n - self.pool.free_count()
-            victims: List[int] = []
-            ex = set(keep)
-            while len(victims) < need:
-                blk = self.prefix.peek_evictable(self.pool.ref, exclude=ex)
-                if blk is None:
-                    break
-                victims.append(blk)
-                ex.add(blk)
+            before = self.prefix.victim_probes
+            victims = self.prefix.peek_victims(
+                self.pool.ref, n - self.pool.free_count(), exclude=keep)
+            probes = self.prefix.victim_probes - before
+            self.prefix_victims += len(victims)
+            self.prefix_victim_probes += probes
+            self._m_victim_probes.inc(probes)
             if not victims:
                 break
             if self.host is not None:
@@ -3413,6 +3419,8 @@ class ServingEngine:
                     round(self.prefix_hit_tokens / self.prompt_tokens, 4)
                     if self.prompt_tokens else 0.0
                 ),
+                "prefix_victims": self.prefix_victims,
+                "prefix_victim_probes": self.prefix_victim_probes,
                 "kv_blocks_exported": self.kv_blocks_exported,
                 "kv_blocks_imported": self.kv_blocks_imported,
             })

@@ -50,13 +50,29 @@ lets :meth:`match` return one device chain followed by one host chain.
   ancestor is always at least as recently used and at least as
   referenced as its descendants (every match touches/refs the whole
   path), so bottom-up LRU never strands a child whose prefix context
-  is gone.
+  is gone. Ties on recency go to the node registered first.
+
+**Victim selection in O(log n).** Candidates — device nodes with no
+device-resident child — sit in a lazy min-heap keyed ``(last_access,
+seq, block)``, where ``seq`` numbers registrations in ``_by_block``
+order, so the heap yields exactly the order a scan of ``_by_block``
+for the strict minimum would. An entry is pushed whenever a node
+becomes such a leaf or is touched while one; it is never updated in
+place. A popped entry whose stamp, registration or device-child count
+no longer matches its node is stale and dropped; a live leaf that is
+referenced or excluded is set aside and pushed back before the call
+returns. Victims handed out stay off the heap until the caller demotes
+or removes them, or the next selection pushes them back. The heap is
+rebuilt from the registered leaves once it holds more than twice as
+many entries as there are registered blocks, so its size stays
+O(registered blocks) and the rebuilds cost O(1) a mutation amortized.
 
 Engine-thread only, like the pool: no locks, deterministic behavior.
 """
 
 from __future__ import annotations
 
+import heapq
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -84,7 +100,7 @@ class PrefixMatch:
 
 class _Node:
     __slots__ = ("key", "block", "children", "parent", "last_access",
-                 "resident", "handle")
+                 "resident", "handle", "seq", "ndev")
 
     def __init__(self, key: Tuple[int, ...], block: Optional[int],
                  parent: Optional["_Node"]):
@@ -95,6 +111,8 @@ class _Node:
         self.last_access = 0
         self.resident = "device"
         self.handle: Optional[int] = None
+        self.seq = 0   # registration number in _by_block (its dict order)
+        self.ndev = 0  # children with resident == "device"
 
 
 class RadixPrefixIndex:
@@ -108,6 +126,13 @@ class RadixPrefixIndex:
         self._by_block: Dict[int, _Node] = {}
         self._by_host: Dict[int, _Node] = {}
         self._clock = 0  # logical LRU time: bumped per match/insert
+        self._seq = 0
+        # (last_access, seq, block) of candidate leaves, some stale; and
+        # the entries of victims handed out but not yet demoted/removed
+        self._heap: List[Tuple[int, int, int]] = []
+        self._held: Dict[int, Tuple[int, int, int]] = {}
+        self.victims = 0        # victims chosen
+        self.victim_probes = 0  # heap entries examined choosing them
 
     def __len__(self) -> int:
         return len(self._by_block)
@@ -132,6 +157,31 @@ class RadixPrefixIndex:
     def _tick(self) -> int:
         self._clock += 1
         return self._clock
+
+    def _register(self, node: _Node, block: int) -> None:
+        self._seq += 1
+        node.seq = self._seq
+        self._by_block[block] = node
+
+    def _push_if_leaf(self, node: _Node) -> None:
+        """Queue ``node`` as a victim candidate at its current stamp if
+        it is a registered device node with no device-resident child."""
+        if (node.block is not None and node.resident == "device"
+                and node.ndev == 0):
+            heapq.heappush(self._heap,
+                           (node.last_access, node.seq, node.block))
+            self._maybe_rebuild()
+
+    def _touch(self, node: _Node, now: int) -> None:
+        node.last_access = now
+        self._push_if_leaf(node)
+
+    def _maybe_rebuild(self) -> None:
+        if len(self._heap) > 2 * len(self._by_block):
+            self._heap = [(n.last_access, n.seq, b)
+                          for b, n in self._by_block.items() if n.ndev == 0]
+            heapq.heapify(self._heap)
+            self._held.clear()
 
     # -- lookup -------------------------------------------------------------
 
@@ -167,7 +217,7 @@ class RadixPrefixIndex:
                     raise AssertionError(
                         "device-resident node below a host-resident one"
                     )
-                child.last_access = now
+                self._touch(child, now)
                 blocks.append(child.block)
             node = child
             h += bs
@@ -186,7 +236,7 @@ class RadixPrefixIndex:
                 if j > best_j:
                     best_j, best = j, child
             if best is not None:
-                best.last_access = now
+                self._touch(best, now)
                 cow = (best.block, best_j)
         return PrefixMatch(blocks=blocks, host=host, cow=cow,
                            block_size=bs)
@@ -219,15 +269,19 @@ class RadixPrefixIndex:
             if child is None:
                 b = int(blocks[i])
                 if b in self._by_block:
+                    self._push_if_leaf(node)
                     raise ValueError(
                         f"block {b} already registered to another prefix"
                     )
                 child = _Node(key, b, node)
                 node.children[key] = child
-                self._by_block[b] = child
+                node.ndev += 1
+                self._register(child, b)
                 registered.append(b)
             child.last_access = now
             node = child
+        # every node of the walk but the last has a device child on it
+        self._push_if_leaf(node)
         return registered
 
     def insert_host(self, tokens, handles) -> List[int]:
@@ -246,7 +300,7 @@ class RadixPrefixIndex:
         bs = self.block_size
         n_full = min(len(toks) // bs, len(handles))
         now = self._tick()
-        node = self._root
+        node = dev = self._root
         registered: List[int] = []
         for i in range(n_full):
             key = toks[i * bs:(i + 1) * bs]
@@ -254,6 +308,7 @@ class RadixPrefixIndex:
             if child is None:
                 h = int(handles[i])
                 if h in self._by_host:
+                    self._push_if_leaf(dev)
                     raise ValueError(
                         f"host handle {h} already registered"
                     )
@@ -265,6 +320,11 @@ class RadixPrefixIndex:
                 registered.append(h)
             child.last_access = now
             node = child
+            if node.resident == "device":
+                dev = node
+        # the walk's deepest device node is the only one it may leave a
+        # leaf: each above it has a device child on the walk
+        self._push_if_leaf(dev)
         return registered
 
     # -- residency transitions ----------------------------------------------
@@ -278,10 +338,14 @@ class RadixPrefixIndex:
         node = self._by_block.pop(block)
         if handle in self._by_host:
             raise ValueError(f"host handle {handle} already registered")
+        self._held.pop(block, None)
         node.block = None
         node.resident = "host"
         node.handle = handle
         self._by_host[handle] = node
+        node.parent.ndev -= 1
+        self._push_if_leaf(node.parent)
+        self._maybe_rebuild()
 
     def promote(self, handle: int, block: int) -> None:
         """Re-key a host-resident node back to the device tier at
@@ -296,7 +360,9 @@ class RadixPrefixIndex:
         node.block = block
         node.resident = "device"
         node.handle = None
-        self._by_block[block] = node
+        self._register(node, block)
+        node.parent.ndev += 1
+        self._push_if_leaf(node)
 
     def drop_host(self, handle: int) -> List[int]:
         """Unlink a host-resident node — the host pool LRU-evicted its
@@ -325,7 +391,12 @@ class RadixPrefixIndex:
                     dropped.append(n.handle)
             elif n.block is not None:
                 self._by_block.pop(n.block, None)
+                self._held.pop(n.block, None)
             stack.extend(n.children.values())
+        if node.parent is not None and node.resident == "device":
+            node.parent.ndev -= 1
+            self._push_if_leaf(node.parent)
+        self._maybe_rebuild()
         return dropped
 
     # -- eviction -----------------------------------------------------------
@@ -341,22 +412,43 @@ class RadixPrefixIndex:
         return sum(1 for b in self._by_block
                    if ref[b] == 0 and b not in ex)
 
-    def _victim(self, ref, exclude=()) -> Optional[_Node]:
-        """LRU unreferenced device node with no device-resident child
-        (bottom-up order: demoting/evicting it strands nothing — its
+    def peek_victims(self, ref, n: int, exclude=()) -> List[int]:
+        """The blocks ``n`` successive :meth:`peek_evictable` calls would
+        return, each call's ``exclude`` adding the blocks before it —
+        fewer when fewer are evictable — WITHOUT unlinking them: LRU
+        unreferenced device nodes with no device-resident child
+        (bottom-up order: demoting/evicting one strands nothing — its
         remaining children, if any, are host-resident and keep their
-        own handles)."""
+        own handles). Ties on ``last_access`` go to the node registered
+        first."""
+        heap = self._heap
+        for e in self._held.values():
+            heapq.heappush(heap, e)
+        self._held.clear()
         ex = set(exclude)
-        best: Optional[_Node] = None
-        for b, node in self._by_block.items():
+        out: List[int] = []
+        aside: List[Tuple[int, int, int]] = []
+        last = None
+        while heap and len(out) < n:
+            e = heapq.heappop(heap)
+            self.victim_probes += 1
+            if e == last:
+                continue  # a duplicate pops next to its twin
+            last = e
+            stamp, seq, b = e
+            node = self._by_block.get(b)
+            if (node is None or node.seq != seq
+                    or node.last_access != stamp or node.ndev):
+                continue  # stale
             if ref[b] != 0 or b in ex:
+                aside.append(e)
                 continue
-            if any(c.resident == "device"
-                   for c in node.children.values()):
-                continue
-            if best is None or node.last_access < best.last_access:
-                best = node
-        return best
+            out.append(b)
+            self._held[b] = e
+        for e in aside:
+            heapq.heappush(heap, e)
+        self.victims += len(out)
+        return out
 
     def peek_evictable(self, ref, exclude=()) -> Optional[int]:
         """The block :meth:`evict_lru` (or a demotion) would reclaim
@@ -364,8 +456,8 @@ class RadixPrefixIndex:
         contents for demotion first, then commits via :meth:`demote` +
         :meth:`BlockPool.evict` (or :meth:`remove_block` when the host
         tier refused the entry)."""
-        best = self._victim(ref, exclude)
-        return None if best is None else best.block
+        best = self.peek_victims(ref, 1, exclude)
+        return best[0] if best else None
 
     def remove_block(self, block: int) -> List[int]:
         """Unlink a device-resident node without demoting it (plain
@@ -379,8 +471,8 @@ class RadixPrefixIndex:
         :meth:`BlockPool.evict`), or None when nothing is evictable.
         The no-host-tier path: engines WITH a tier peek first and
         demote instead."""
-        best = self._victim(ref, exclude)
+        best = self.peek_evictable(ref, exclude)
         if best is None:
             return None
-        self.remove_block(best.block)
-        return best.block
+        self.remove_block(best)
+        return best
